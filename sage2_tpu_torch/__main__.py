@@ -1,0 +1,3 @@
+from sage2_tpu_torch.cli import main
+
+raise SystemExit(main())
