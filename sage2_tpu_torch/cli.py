@@ -1,13 +1,20 @@
 """Command-line interface of the port (``python -m sage2_tpu_torch``).
 
   assemble  — full pipeline: reads -> contigs.fasta + stats.json
+  correct   — k-mer counting + spectrum correction only
+  overlap   — overlap graph (+ optional transitive reduction)
   simulate  — synthetic genome + reads (no-network stand-in)
 
 Example:
   python -m sage2_tpu_torch assemble -o out/ --k 25 --min-overlap 40 reads.fastq.gz
 
-``assemble`` runs on the GPU (``--device cuda``, the default) and fails
-when there is none; ``--device cpu`` runs the plain PyTorch versions.
+``assemble``, ``correct`` and ``overlap`` run on the GPU (``--device
+cuda``, the default) and fail when there is none; ``--device cpu`` runs
+the plain PyTorch versions. ``correct`` and ``overlap`` write what the
+reference's subcommands write, quirks included: both correct with the
+single_window rule whatever ``--correction-rule`` says, and ``overlap``
+reduces in core with ``--reduce-capacity`` and writes the result
+without checking its overflow flag.
 """
 
 from __future__ import annotations
@@ -20,6 +27,35 @@ from typing import List, Optional
 import numpy as np
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--k", type=int, default=25, help="k-mer length (<=31)")
+    p.add_argument("--min-overlap", type=int, default=40)
+    p.add_argument("--solid-threshold", type=int, default=2)
+    p.add_argument("--correction-rounds", type=int, default=2)
+    p.add_argument("--correction-rule",
+                   choices=["single_window", "vote_all_windows"],
+                   default="single_window",
+                   help="spectrum-correction verdict rule: one covering"
+                        " window per sub-pass (default) or voting across"
+                        " all covering windows")
+    p.add_argument("--min-contig-len", type=int, default=200)
+    p.add_argument("--traversal", choices=["unitig", "mincost"],
+                   default="mincost")
+    p.add_argument("--candidate-capacity", type=int, default=1 << 20)
+    p.add_argument("--reduce-capacity", type=int, default=1 << 20)
+    p.add_argument("--reduce-backend",
+                   choices=["auto", "device", "native"], default="auto",
+                   help="transitive-reduction backend: host C++ (native),"
+                        " device kernels (device), or by edge-list"
+                        " residency (auto: the host, where the pipeline"
+                        " keeps the edges)")
+    p.add_argument("--length-policy", choices=["strict", "trim", "filter"],
+                   default="strict",
+                   help="how to handle mixed read lengths at ingest")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (plain PyTorch versions)")
+
+
 def _config(args):
     from sage2_tpu_torch.config import AssemblyConfig
 
@@ -28,8 +64,12 @@ def _config(args):
         min_overlap=args.min_overlap,
         solid_threshold=args.solid_threshold,
         correction_rounds=args.correction_rounds,
+        correction_rule=args.correction_rule,
         min_contig_len=args.min_contig_len,
         traversal=args.traversal,
+        candidate_capacity=args.candidate_capacity,
+        reduce_capacity=args.reduce_capacity,
+        reduce_backend=args.reduce_backend,
     )
 
 
@@ -41,23 +81,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("assemble", help="full pipeline: reads -> contigs")
-    p.add_argument("--k", type=int, default=25, help="k-mer length (<=31)")
-    p.add_argument("--min-overlap", type=int, default=40)
-    p.add_argument("--solid-threshold", type=int, default=2)
-    p.add_argument("--correction-rounds", type=int, default=2)
-    p.add_argument("--min-contig-len", type=int, default=200)
-    p.add_argument("--traversal", choices=["unitig", "mincost"],
-                   default="mincost")
-    p.add_argument("--length-policy", choices=["strict", "trim", "filter"],
-                   default="strict",
-                   help="how to handle mixed read lengths at ingest")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu (plain PyTorch versions)")
+    _add_common(p)
     p.add_argument("-o", "--outdir", required=True)
     p.add_argument("--resume-from",
                    choices=["correct", "overlap", "reduce", "traverse",
                             "finish"])
     p.add_argument("reads", nargs="+", help="FASTQ/FASTA files (gz ok)")
+
+    p = sub.add_parser("correct", help="count + spectrum-correct only")
+    _add_common(p)
+    p.add_argument("-o", "--output", required=True,
+                   help="corrected reads FASTA (.gz ok)")
+    p.add_argument("reads", nargs="+")
+
+    p = sub.add_parser("overlap", help="overlap graph (+ reduction)")
+    _add_common(p)
+    p.add_argument("-o", "--output", required=True, help="edge TSV output")
+    p.add_argument("--no-reduce", action="store_true",
+                   help="skip transitive reduction")
+    p.add_argument("--no-correct", action="store_true",
+                   help="skip error correction")
+    p.add_argument("reads", nargs="+")
 
     p = sub.add_parser("simulate", help="synthetic genome + reads")
     p.add_argument("-o", "--output", required=True, help="FASTQ out (.gz ok)")
@@ -98,18 +142,74 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     from sage2_tpu_torch.io import load_reads
-    from sage2_tpu_torch.pipeline import assemble
 
     reads = load_reads(args.reads, length_policy=args.length_policy)
     if reads.size == 0:
         print("no reads loaded", file=sys.stderr)
         return 1
-    contigs, stats = assemble(
-        reads, _config(args), outdir=args.outdir,
-        resume_from=args.resume_from, device=args.device,
-    )
-    print(json.dumps(stats, indent=1))
-    return 0
+    cfg = _config(args)
+
+    if args.cmd == "assemble":
+        from sage2_tpu_torch.pipeline import assemble
+
+        contigs, stats = assemble(
+            reads, cfg, outdir=args.outdir,
+            resume_from=args.resume_from, device=args.device,
+        )
+        print(json.dumps(stats, indent=1))
+        return 0
+
+    import torch
+
+    from sage2_tpu_torch.kmer import correct_reads
+    from sage2_tpu_torch.utils.device import resolve_device
+
+    r = torch.from_numpy(reads.astype(np.int32)).to(
+        resolve_device(args.device))
+
+    if args.cmd == "correct":
+        from sage2_tpu_torch.io.writer import write_fasta
+
+        corrected = correct_reads(r, cfg.k, cfg.solid_threshold,
+                                  cfg.correction_rounds)
+        corrected = corrected.to(torch.int8).cpu().numpy()
+        write_fasta(args.output, list(corrected), prefix="read")
+        print(f"wrote {corrected.shape[0]} corrected reads", file=sys.stderr)
+        return 0
+
+    if args.cmd == "overlap":
+        from sage2_tpu_torch.graph.reduce import transitive_reduction
+        from sage2_tpu_torch.overlap import find_overlaps, prepare_reads
+
+        if not args.no_correct:
+            r = correct_reads(r, cfg.k, cfg.solid_threshold,
+                              cfg.correction_rounds)
+        rs = prepare_reads(r)
+        res = find_overlaps(
+            rs.reads2, rs.valid2, cfg.min_overlap,
+            cfg.effective_seed_len, capacity=cfg.candidate_capacity,
+        )
+        if res.overflow:
+            print("candidate capacity overflow; raise --candidate-capacity",
+                  file=sys.stderr)
+            return 2
+        src, dst, ovl = res.src, res.dst, res.ovl
+        if not args.no_reduce:
+            red = transitive_reduction(
+                src, dst, ovl, rs.reads2.shape[0], reads.shape[1],
+                capacity=cfg.reduce_capacity,
+            )
+            src, dst, ovl = red.src, red.dst, red.ovl
+        src, dst, ovl = (a.cpu().numpy() for a in (src, dst, ovl))
+        keep = src != 2**31 - 1
+        with open(args.output, "w") as f:
+            f.write("#src\tdst\toverlap\n")
+            f.writelines(f"{a}\t{b}\t{o}\n" for a, b, o in
+                         zip(src[keep], dst[keep], ovl[keep]))
+        print(f"wrote edges to {args.output}", file=sys.stderr)
+        return 0
+
+    return 1
 
 
 if __name__ == "__main__":

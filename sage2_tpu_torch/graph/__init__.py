@@ -1,2 +1,2 @@
-"""Graph engine: transitive reduction (host native), unitig labeling
-(device), cleaning and contig traversal (host)."""
+"""Graph engine: transitive reduction (host native or device), unitig
+labeling (device), cleaning and contig traversal (host)."""

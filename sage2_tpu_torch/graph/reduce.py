@@ -1,11 +1,29 @@
-"""Transitive reduction, host-native backend only (port of the native
-branch of sage2_tpu/graph/reduce.py: transitive_reduction_native :364
-and transitive_reduction_auto :470).
+"""Transitive reduction of the string graph (port of
+sage2_tpu/graph/reduce.py: the in-core transitive_reduction :44, the
+chunked transitive_reduction_chunked :220, the native backend :364 and
+the dispatcher transitive_reduction_auto :470).
 
-Myers (2005) string-graph reduction: edge v->x is removed when some w
-has v->w and w->x with matching offsets. After the overlap stage the
-edge list is on the host, and csrc/reduce_host.cpp reduces it there.
-The device backends are still to be ported (ROADMAP Queue 1 item 9).
+Myers (2005) string-graph reduction: edge v->x (offset sl = L -
+overlap) is removed when some w has v->w and w->x with sl_vx = sl_vw +
+sl_wx. Implication is defined on the original edge set, so one pass
+suffices.
+
+Two backends:
+
+  native  the host C++ of csrc/reduce_host.cpp, for numpy edge arrays;
+  device  torch tensors, on the card through two kernels: the edges are
+          sorted stably by the composite key src << 32 | sl
+          (ops.sort.sort_by_pair), K6 (``kernels.reduce_counts``) gives
+          each vertex's run bounds and each edge's expansion count, and
+          K7 (``kernels.reduce_marks``) probes the length-2 paths slot by
+          slot, in launches of at most 2^24 slots, marking implied
+          edges. The kept rows are compacted with torch ops.
+
+The in-core form probes only the slots below its ``capacity`` and
+reports ``overflow``, as the reference does (the slot order is edge
+order, then rank in w's (src, sl) run, which is why the sort is
+stable). The chunked form probes every slot. Ragged reads are not
+ported yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -13,21 +31,37 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
+from sage2_tpu_torch import kernels
 from sage2_tpu_torch.graph import reduce_native
+from sage2_tpu_torch.ops.sort import I32_MAX, sort_by_pair
+from sage2_tpu_torch.utils.device import resolve_device
 
-_I32_MAX = 2**31 - 1
+_RAGGED = "ragged reads are not ported yet (ROADMAP Queue 1 item 10)"
+
+# the most expansion slots one K7 launch probes (the reference's chunk_cap)
+LAUNCH_SLOTS = 1 << 24
 
 
 class ReducedGraph(NamedTuple):
-    """Reduced edge list (host arrays), sorted by (src, dst), padded to
-    the input length with (INT32_MAX, INT32_MAX, 0)."""
+    """Reduced edge list, sorted by (src, dst), padded to the input
+    length with (INT32_MAX, INT32_MAX, 0). The arrays are numpy from
+    the native backend and torch tensors on the input's device from the
+    device backend.
 
-    src: np.ndarray
-    dst: np.ndarray
-    ovl: np.ndarray
+    n_expansions: the exact length-2 path count; overflow: the in-core
+    form's expansion exceeded its capacity (its result then covers only
+    the first ``capacity`` expansion slots). Always False from the
+    native and chunked forms.
+    """
+
+    src: object
+    dst: object
+    ovl: object
     n_edges: int
     n_expansions: int
+    overflow: bool
 
 
 def transitive_reduction_native(
@@ -40,32 +74,112 @@ def transitive_reduction_native(
     removed, total = reduce_native.reduce_marks(
         src_np, dst_np, ovl_np, n_vertices, read_len, n_threads=n_threads)
     E = src_np.shape[0]
-    keep = (src_np != _I32_MAX) & ~removed
+    keep = (src_np != I32_MAX) & ~removed
     n_edges = int(keep.sum())
     # kept rows are already (src, dst)-sorted; padding goes to the tail
     pad = E - n_edges
     return ReducedGraph(
-        np.concatenate([src_np[keep], np.full(pad, _I32_MAX, np.int32)]),
-        np.concatenate([dst_np[keep], np.full(pad, _I32_MAX, np.int32)]),
+        np.concatenate([src_np[keep], np.full(pad, I32_MAX, np.int32)]),
+        np.concatenate([dst_np[keep], np.full(pad, I32_MAX, np.int32)]),
         np.concatenate([ovl_np[keep], np.zeros(pad, np.int32)]),
-        n_edges, int(total),
+        n_edges, int(total), False,
     )
+
+
+def _device_reduce(src, dst, ovl, n_vertices: int, read_len,
+                   slot_end: Optional[int],
+                   launch_slots: int = LAUNCH_SLOTS) -> ReducedGraph:
+    """The device backend: prep (sort + K6), marks over the slots
+    [0, min(total, slot_end)) in K7 launches of ``launch_slots``, and
+    compaction. ``slot_end`` None means every slot."""
+    if not isinstance(read_len, (int, np.integer)):
+        raise NotImplementedError(_RAGGED)
+    if not all(isinstance(t, torch.Tensor) for t in (src, dst, ovl)):
+        raise TypeError("the device reduction takes torch tensors; "
+                        "transitive_reduction_auto places numpy arrays")
+    L = int(read_len)
+    src, dst, ovl = (t.to(torch.int32).contiguous() for t in (src, dst, ovl))
+    E = src.shape[0]
+    is_edge = src != I32_MAX
+    sl = torch.where(is_edge, L - ovl, I32_MAX)
+    keys, order = sort_by_pair(src, sl)
+    ss_dst = dst[order]
+    ss_sl = (keys & 0xFFFFFFFF).to(torch.int32)
+    start, _, startd, counts = kernels.reduce_counts(
+        keys, src, dst, ovl, n_vertices, L)
+    del keys, order, sl
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(offsets[-1]) if E else 0
+    end = total if slot_end is None else min(total, slot_end)
+    removed = torch.zeros(E, dtype=torch.uint8, device=src.device)
+    for j0 in range(0, end, launch_slots):
+        kernels.reduce_marks(removed, offsets, src, dst, ovl, ss_sl, ss_dst,
+                             start, startd, L, j0,
+                             min(j0 + launch_slots, end))
+    keep = is_edge & (removed == 0)
+    n_edges = int(keep.sum())
+    pad = E - n_edges
+
+    def compact(a, fill):
+        return torch.cat([a[keep], a.new_full((pad,), fill)])
+
+    return ReducedGraph(compact(src, I32_MAX), compact(dst, I32_MAX),
+                        compact(ovl, 0), n_edges, total,
+                        slot_end is not None and total > slot_end)
+
+
+def transitive_reduction(
+    src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
+    n_vertices: int, read_len, capacity: int = 1 << 20,
+) -> ReducedGraph:
+    """In-core reduction of the (src, dst)-sorted int32 edge tensors
+    with the reference's fixed expansion ``capacity``: only the first
+    ``capacity`` expansion slots are probed, and ``overflow`` is set
+    when there are more. Runs on the tensors' device (the plain
+    versions on the CPU)."""
+    return _device_reduce(src, dst, ovl, n_vertices, read_len, capacity)
+
+
+def transitive_reduction_chunked(
+    src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
+    n_vertices: int, read_len, chunk_cap: int = LAUNCH_SLOTS,
+) -> ReducedGraph:
+    """Exact reduction of the edge tensors: every expansion slot is
+    probed, in K7 launches of at most ``min(chunk_cap, 2^24)`` slots;
+    ``overflow`` is False.
+
+    The reference also splits its edge list into slices whose
+    expansion must fit ``chunk_cap`` and raises ValueError("cannot
+    balance expansion ...") when one edge alone exceeds it after six
+    doublings. Slot ranges need no such balance, so that error does not
+    exist here."""
+    if chunk_cap < 1:
+        raise ValueError(f"chunk_cap must be positive, got {chunk_cap}")
+    return _device_reduce(src, dst, ovl, n_vertices, read_len, None,
+                          min(chunk_cap, LAUNCH_SLOTS))
 
 
 def transitive_reduction_auto(
     src, dst, ovl, n_vertices: int, read_len, backend: str = "auto",
-    n_threads: Optional[int] = None,
+    n_threads: Optional[int] = None, device="cuda",
 ) -> ReducedGraph:
-    """Backend dispatcher: "auto" and "native" reduce host arrays with
-    the native backend; "device" is not ported yet."""
+    """Backend dispatcher, the reference's rule: "auto" reduces numpy
+    (host) arrays with the native backend and tensors with the device
+    backend; "native" and "device" force one. ``device`` places numpy
+    arrays for the device backend ("cuda" by default)."""
     if backend not in ("auto", "native", "device"):
         raise ValueError(f"unknown reduce backend: {backend!r}")
-    if backend == "device":
-        raise NotImplementedError(
-            "the device reduction is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
     if not isinstance(read_len, (int, np.integer)):
-        raise NotImplementedError(
-            "ragged reads are not ported yet (ROADMAP Queue 1 item 10)")
-    return transitive_reduction_native(src, dst, ovl, n_vertices,
-                                       int(read_len), n_threads=n_threads)
+        raise NotImplementedError(_RAGGED)
+    host_resident = isinstance(src, np.ndarray)
+    if backend == "native" or (backend == "auto" and host_resident):
+        if not host_resident:
+            src, dst, ovl = (t.cpu().numpy() for t in (src, dst, ovl))
+        return transitive_reduction_native(src, dst, ovl, n_vertices,
+                                           int(read_len),
+                                           n_threads=n_threads)
+    if host_resident:
+        dev = resolve_device(device)
+        src, dst, ovl = (torch.from_numpy(np.require(a, np.int32, "CW"))
+                         .to(dev) for a in (src, dst, ovl))
+    return transitive_reduction_chunked(src, dst, ovl, n_vertices, read_len)

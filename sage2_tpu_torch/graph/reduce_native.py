@@ -4,8 +4,9 @@ sage2_tpu/graph/reduce_native.py).
 
 The library is built with g++ into the port's build folder, keyed by a
 hash of source and flags and without -march=native
-(utils/native_build.py). A failed build raises: the port has no device
-reduction to fall back to yet (ROADMAP Queue 1 item 9).
+(utils/native_build.py). A failed build raises; where the reference
+falls back to its device kernels, the port asks for
+reduce_backend="device" explicitly.
 """
 
 from __future__ import annotations

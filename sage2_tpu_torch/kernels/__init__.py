@@ -1,18 +1,25 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
-Four kernels carry the main path (sources in ``kernels/csrc``):
+Eight kernels (sources in ``kernels/csrc``):
 
   K1 ``kmer_keys``      forward, RC and canonical k-mer keys
   K2 ``lookup_counts``  binary search of query keys in a count table
   K3 ``overlap_join``   run accounting, expansion and verify of the
                         sorted overlap seed rows (two launches)
   K4 ``pointer_jump``   one pointer-doubling step of unitig labeling
+  K5 ``vote_windows``   one round of the covering-window voting corrector
+  K6 ``reduce_counts``  run bounds and expansion counts of the device
+                        transitive reduction (two launches)
+  K7 ``reduce_marks``   expansion, membership probe and removal marks of
+                        the device transitive reduction, one slot range
+  P1 ``gather_along``   gather along one axis of an (N, W) table (the
+                        Pallas probe's kernel; on no path of the package)
 
 Each wrapper takes its plain version (``kernels.plain``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
-to ``LAUNCHES[name]`` for each kernel it launches (``overlap_join``
-launches two per call).
+to ``LAUNCHES[name]`` for each kernel it launches (``overlap_join`` and
+``reduce_counts`` launch two per call).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
@@ -32,7 +39,8 @@ import torch
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.utils import native_build
 
-KERNELS = ("kmer_keys", "lookup_counts", "overlap_join", "pointer_jump")
+KERNELS = ("kmer_keys", "lookup_counts", "overlap_join", "pointer_jump",
+           "vote_windows", "reduce_counts", "reduce_marks", "gather_along")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -54,7 +62,24 @@ _ARGTYPES = {
     "pointer_jump": {
         "sage2_pointer_jump": [_P, _P, _P, _P, _I64, _I, _P],
     },
+    "vote_windows": {
+        "sage2_vote_windows": [_P, _I64, _I, _I, _P, _P, _I64, _I, _P, _P],
+    },
+    "reduce_counts": {
+        "sage2_reduce_vertices": [_P, _P, _I64, _I64, _P, _P, _P, _P],
+        "sage2_reduce_edges": [_P, _P, _P, _P, _I64, _I, _P, _P, _P, _P],
+    },
+    "reduce_marks": {
+        "sage2_reduce_marks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                               _I, _I64, _I64, _P],
+    },
+    "gather_along": {
+        "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P],
+    },
 }
+
+# dynamic shared memory a block may use on the card (sm_90)
+_MAX_SMEM = 232_448
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -249,3 +274,132 @@ def pointer_jump(
                 _stream())
         LAUNCHES["pointer_jump"] += 1
     return p_out, v_out
+
+
+def _vote_smem(L: int, k: int) -> int:
+    """Shared memory of one K5 block (see vote_windows.cu)."""
+    P = L - k + 1
+    return 20 * P + 20 * L
+
+
+def vote_windows(
+    reads: torch.Tensor, table: torch.Tensor, counts: torch.Tensor,
+    k: int, threshold: int,
+) -> torch.Tensor:
+    """One voting round: the (N, L) int32 reads with every base whose
+    covering windows vote for one other base by a unique maximum
+    replaced (sage2_tpu/kmer/correct.py voting_round). ``table``: sorted
+    unique int64 canonical keys with int32 ``counts``; 1 < k <= 31."""
+    if not 1 < k <= 31:
+        raise ValueError(f"k must be in (1, 31], got {k}")
+    N, L = reads.shape
+    if L < k:
+        raise ValueError(f"k ({k}) exceeds read length ({L})")
+    if _on_cpu(reads, table, counts):
+        return plain.vote_windows(reads, table, counts, k, threshold)
+    _dtype(reads, torch.int32, "reads")
+    _dtype(table, torch.int64, "table")
+    _dtype(counts, torch.int32, "counts")
+    if _vote_smem(L, k) > _MAX_SMEM:
+        raise ValueError(f"reads of length {L} need more shared memory "
+                         f"than a block has")
+    out = torch.empty_like(reads)
+    if N:
+        _launch("vote_windows", "sage2_vote_windows", _ptr(reads), N, L, k,
+                _ptr(table), _ptr(counts), table.shape[0], threshold,
+                _ptr(out), _stream())
+        LAUNCHES["vote_windows"] += 1
+    return out
+
+
+def reduce_counts(
+    keys: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+    ovl: torch.Tensor, n_vertices: int, read_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(start, maxsl, startd, counts) of the device reduction's prep.
+
+    ``keys``: the (E,) sorted int64 adjacency keys src << 32 | sl;
+    ``src``, ``dst``, ``ovl``: the (E,) int32 edge list in (src, dst)
+    order, padding rows (INT32_MAX, INT32_MAX, 0) at the tail. Returns
+    int32 ``start`` (V,) (first adjacency key of each vertex), ``maxsl``
+    (V,) (its largest sl, -1 without edges), ``startd`` (V + 1,) (each
+    vertex's first row in the (src, dst) order) and ``counts`` (E,)
+    (each edge's expansion count); see kernels/csrc/reduce_counts.cu."""
+    if _on_cpu(keys, src, dst, ovl):
+        return plain.reduce_counts(keys, src, dst, ovl, n_vertices,
+                                   read_len)
+    _dtype(keys, torch.int64, "keys")
+    for t in (src, dst, ovl):
+        _dtype(t, torch.int32, "edge arrays")
+    E, V = src.shape[0], n_vertices
+
+    def empty(n):
+        return torch.empty(n, dtype=torch.int32, device=src.device)
+
+    start, maxsl, startd, counts = empty(V), empty(V), empty(V + 1), empty(E)
+    _launch("reduce_counts", "sage2_reduce_vertices", _ptr(keys), _ptr(src),
+            E, V, _ptr(start), _ptr(maxsl), _ptr(startd), _stream())
+    LAUNCHES["reduce_counts"] += 1
+    if E:
+        _launch("reduce_counts", "sage2_reduce_edges", _ptr(keys),
+                _ptr(src), _ptr(dst), _ptr(ovl), E, read_len, _ptr(start),
+                _ptr(maxsl), _ptr(counts), _stream())
+        LAUNCHES["reduce_counts"] += 1
+    return start, maxsl, startd, counts
+
+
+def reduce_marks(
+    removed: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor, ovl: torch.Tensor, ss_sl: torch.Tensor,
+    ss_dst: torch.Tensor, start: torch.Tensor, startd: torch.Tensor,
+    read_len: int, j0: int, j1: int,
+) -> torch.Tensor:
+    """Probe the expansion slots [j0, j1) and set ``removed[pos] = 1``
+    (uint8, in place) for each edge a length-2 path implies; returns
+    ``removed``. ``offsets``: (E,) int64 inclusive prefix sum of K6's
+    counts; ``ss_sl``, ``ss_dst``: sl and dst in the (src, sl) order;
+    see kernels/csrc/reduce_marks.cu."""
+    E = src.shape[0]
+    total = int(offsets[-1]) if E else 0
+    if not 0 <= j0 <= j1 <= total:
+        raise ValueError(f"slot range [{j0}, {j1}) outside [0, {total})")
+    tensors = (removed, offsets, src, dst, ovl, ss_sl, ss_dst, start,
+               startd)
+    if _on_cpu(*tensors):
+        return plain.reduce_marks(*tensors, read_len, j0, j1)
+    _dtype(removed, torch.uint8, "removed")
+    _dtype(offsets, torch.int64, "offsets")
+    for t in tensors[2:]:
+        _dtype(t, torch.int32, "edge and run arrays")
+    if j1 > j0:
+        _launch("reduce_marks", "sage2_reduce_marks",
+                *map(_ptr, tensors), E, read_len, j0, j1, _stream())
+        LAUNCHES["reduce_marks"] += 1
+    return removed
+
+
+def gather_along(tbl: torch.Tensor, idx: torch.Tensor,
+                 axis: int) -> torch.Tensor:
+    """take_along_axis of an (N, W) int32 table with an (N, W) int32
+    index: out[i, j] = tbl[idx[i, j], j] (axis 0) or tbl[i, idx[i, j]]
+    (axis 1)."""
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    if tbl.dim() != 2 or idx.shape != tbl.shape:
+        raise ValueError(f"need (N, W) table and index of one shape, got "
+                         f"{tuple(tbl.shape)} and {tuple(idx.shape)}")
+    if _on_cpu(tbl, idx):
+        return plain.gather_along(tbl, idx, axis)
+    _dtype(tbl, torch.int32, "tbl")
+    _dtype(idx, torch.int32, "idx")
+    N, W = tbl.shape
+    out = torch.empty_like(tbl)
+    if idx.numel():
+        lo, hi = (int(v) for v in torch.aminmax(idx))
+        if lo < 0 or hi >= tbl.shape[axis]:
+            raise IndexError(f"gather_along: index out of range "
+                             f"[{lo}, {hi}] for axis {axis}")
+        _launch("gather_along", "sage2_gather_along", _ptr(tbl), _ptr(idx),
+                N, W, axis, _ptr(out), _stream())
+        LAUNCHES["gather_along"] += 1
+    return out

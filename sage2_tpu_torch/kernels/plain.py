@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function has the signature of its kernel's wrapper in
 ``sage2_tpu_torch.kernels`` and returns bit-identical results. The
@@ -161,3 +161,124 @@ def pointer_jump(
     if op == "add":
         return p_new, val + val[pl]
     raise ValueError(f"unknown pointer_jump op {op!r}")
+
+
+def _count_of(table: torch.Tensor, counts: torch.Tensor,
+              queries: torch.Tensor) -> torch.Tensor:
+    """counts[i] where table[i] == query, else 0, in one
+    torch.searchsorted: vote_windows' 4k lookups a round would take
+    ~24 whole-array steps each through lookup_counts' search."""
+    T = table.shape[0]
+    if T == 0:
+        return torch.zeros(queries.shape, dtype=torch.int32,
+                           device=queries.device)
+    at = torch.searchsorted(table, queries).clamp(max=T - 1)
+    return torch.where(table[at] == queries, counts[at], 0).to(torch.int32)
+
+
+def vote_windows(
+    reads: torch.Tensor, table: torch.Tensor, counts: torch.Tensor,
+    k: int, threshold: int, rows_per_chunk: int = 1 << 16,
+) -> torch.Tensor:
+    """One round of the voting rule, as sage2_tpu/kmer/correct.py
+    voting_round computes it: for each window position j and base b the
+    canonical key of every window with base b at j, its solid verdict
+    added to votes[b, :, w + j]; then the unique-max replace rule.
+    Processed in chunks of reads to bound the (4, N, L) temporaries."""
+    N, L = reads.shape
+    P = L - k + 1
+    out = []
+    for r0 in range(0, N, rows_per_chunk):
+        r = reads[r0 : r0 + rows_per_chunk]
+        fwd, rc, _ = kmer_keys(r, k)
+        votes = torch.zeros((4,) + tuple(r.shape), dtype=torch.int32,
+                            device=r.device)
+        for j in range(k):
+            cur = r[:, j : j + P].to(torch.int64)
+            wf = 1 << (2 * (k - 1 - j))        # set_base at position j
+            wr = 1 << (2 * j)                  # and k-1-j of the RC key
+            for b in range(4):
+                vf = fwd + (b - cur) * wf
+                vr = rc + ((3 - b) - (3 - cur)) * wr
+                cnt = _count_of(table, counts, torch.minimum(vf, vr))
+                votes[b, :, j : j + P] += (cnt >= threshold).to(torch.int32)
+        votes = votes.permute(1, 2, 0)                      # (n, L, 4)
+        vcur = votes.gather(2, r.to(torch.int64)[..., None])[..., 0]
+        m = votes.max(dim=2).values
+        n_at_max = (votes == m[..., None]).sum(dim=2)
+        best = votes.argmax(dim=2).to(r.dtype)
+        replace = (m > vcur) & (n_at_max == 1)
+        out.append(torch.where(replace, best, r))
+    return torch.cat(out) if out else reads.clone()
+
+
+def reduce_counts(
+    keys: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+    ovl: torch.Tensor, n_vertices: int, read_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(start, maxsl, startd, counts) by torch.searchsorted over the
+    composite keys, as sage2_tpu/graph/reduce.py _reduce_prep_host
+    computes them."""
+    V = n_vertices
+    dev = keys.device
+    i32 = torch.int32
+    vk = torch.arange(V + 1, dtype=torch.int64, device=dev) << 32
+    bounds = torch.searchsorted(keys, vk)
+    start, end = bounds[:V], bounds[1:]
+    if keys.numel():
+        maxsl = torch.where(end > start,
+                            keys[(end - 1).clamp(min=0)] & _U32, -1)
+    else:
+        maxsl = torch.full_like(start, -1)
+    startd = torch.searchsorted(
+        src, torch.arange(V + 1, dtype=i32, device=dev))
+    is_edge = src != 2**31 - 1
+    sl = read_len - ovl.to(torch.int64)
+    v = src.to(torch.int64).clamp(max=max(V - 1, 0))
+    bound = torch.where(is_edge, maxsl[v] - sl, -1)
+    w = torch.where(is_edge, dst, 0).to(torch.int64)
+    upto = torch.searchsorted(keys, (w << 32) | bound.clamp(min=0),
+                              right=True)
+    counts = torch.where(is_edge & (bound >= 0), upto - start[w], 0)
+    return start.to(i32), maxsl.to(i32), startd.to(i32), counts.to(i32)
+
+
+def reduce_marks(
+    removed: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
+    dst: torch.Tensor, ovl: torch.Tensor, ss_sl: torch.Tensor,
+    ss_dst: torch.Tensor, start: torch.Tensor, startd: torch.Tensor,
+    read_len: int, j0: int, j1: int,
+) -> torch.Tensor:
+    """Marks of the slots [j0, j1) as the in-core reference computes
+    them (sage2_tpu/graph/reduce.py:93-116): slot to edge by a search
+    of the prefix sum, membership by a search of (v, x) in the whole
+    (src, dst) order. ``removed`` is updated in place and returned;
+    ``startd`` is not needed here."""
+    dev = src.device
+    j = torch.arange(j0, j1, dtype=torch.int64, device=dev)
+    e1 = torch.searchsorted(offsets, j, right=True)
+    counts = torch.diff(offsets, prepend=offsets.new_zeros(1))
+    rank = j - (offsets[e1] - counts[e1])
+    e2 = start[dst[e1].to(torch.int64)].to(torch.int64) + rank
+    v = src[e1].to(torch.int64)
+    x = ss_dst[e2].to(torch.int64)
+    sls = (read_len - ovl[e1]) + ss_sl[e2]
+    pair = (src.to(torch.int64) << 32) | dst.to(torch.int64)
+    q = (v << 32) | x
+    pos = torch.searchsorted(pair, q)
+    pos_c = pos.clamp(max=src.shape[0] - 1)
+    hit = ((x != v) & (pos < src.shape[0]) & (pair[pos_c] == q)
+           & (read_len - ovl[pos_c] == sls))
+    removed[pos_c[hit]] = 1
+    return removed
+
+
+def gather_along(tbl: torch.Tensor, idx: torch.Tensor,
+                 axis: int) -> torch.Tensor:
+    """take_along_axis by advanced indexing: tbl[idx, j] on axis 0,
+    tbl[i, idx] on axis 1."""
+    N, W = tbl.shape
+    i = idx.to(torch.int64)
+    if axis == 0:
+        return tbl[i, torch.arange(W, device=tbl.device)[None, :]]
+    return tbl[torch.arange(N, device=tbl.device)[:, None], i]

@@ -1,8 +1,16 @@
-"""Spectrum-based read error correction, the two-phase single_window
-path (port of sage2_tpu/kmer/correct.py:245-425).
+"""Spectrum-based read error correction (port of
+sage2_tpu/kmer/correct.py): ``correct_reads`` with both rules.
 
-A base is corrected when the k-mer covering it is weak (count below
-threshold) and exactly one alternative base makes that k-mer solid.
+``rule="single_window"`` runs the two-phase path (:245-425), which
+gives the dense corrector's result bit for bit (the reference proves it,
+tests/test_correct.py::test_twophase_matches_dense, and argues it at
+:217-243). ``rule="vote_all_windows"`` runs the covering-window voting
+rule (voting_round :134, _correct_voting_impl :190), one launch of
+kernel K5 a round.
+
+Single window: a base is corrected when the k-mer covering it is weak
+(count below threshold) and exactly one alternative base makes that
+k-mer solid.
 Each round recounts, prunes the table to its solid entries, and runs a
 FORWARD sub-pass (variants of each window's last base) and then a
 BACKWARD sub-pass (first base), each in two phases:
@@ -23,8 +31,11 @@ from typing import Optional
 
 import torch
 
+from sage2_tpu_torch import kernels
 from sage2_tpu_torch.kmer.count import KmerTable, count_kmers, lookup_counts
 from sage2_tpu_torch.ops import bitpack
+
+_RAGGED = "ragged reads are not ported yet (ROADMAP Queue 1 item 10)"
 
 
 def prune_table_for_correction(table: KmerTable, threshold: int) -> KmerTable:
@@ -101,10 +112,47 @@ def correct_reads_twophase(
     """Correct (N, L) int32 reads; ``table``: the first round's count
     table (later rounds recount)."""
     if lengths is not None:
-        raise NotImplementedError(
-            "ragged reads are not ported yet (ROADMAP Queue 1 item 10)")
+        raise NotImplementedError(_RAGGED)
     for r in range(rounds):
         t = table if (r == 0 and table is not None) else count_kmers(reads, k)
         reads = twophase_round(reads, prune_table_for_correction(t, threshold),
                                k, threshold)
+    return reads
+
+
+def voting_round(reads: torch.Tensor, table: KmerTable, k: int,
+                 threshold: int) -> torch.Tensor:
+    """One round of the covering-window voting rule (semantics pinned by
+    oracle_correct_voting): for each base and each candidate base b, the
+    number of covering windows whose k-mer with b there is solid; the
+    base becomes the unique best-voted base when that beats its own
+    vote. One launch of K5 against the table pruned to its solid
+    entries (which changes no verdict)."""
+    pruned = prune_table_for_correction(table, threshold)
+    return kernels.vote_windows(reads, pruned.keys, pruned.count, k,
+                                threshold)
+
+
+def correct_reads(
+    reads: torch.Tensor,
+    k: int,
+    threshold: int,
+    rounds: int,
+    table: Optional[KmerTable] = None,
+    lengths: Optional[torch.Tensor] = None,
+    rule: str = "single_window",
+) -> torch.Tensor:
+    """Correct (N, L) int32 reads; ``table``: the first round's count
+    table (later rounds recount). ``rule``: "single_window" (forward
+    and backward sub-passes, one covering window per base) or
+    "vote_all_windows" (voting across every covering window)."""
+    if rule not in ("single_window", "vote_all_windows"):
+        raise ValueError(f"unknown correction rule {rule!r}")
+    if lengths is not None:
+        raise NotImplementedError(_RAGGED)
+    if rule == "single_window":
+        return correct_reads_twophase(reads, k, threshold, rounds, table)
+    for r in range(rounds):
+        t = table if (r == 0 and table is not None) else count_kmers(reads, k)
+        reads = voting_round(reads, t, k, threshold)
     return reads

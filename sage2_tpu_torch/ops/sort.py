@@ -1,8 +1,10 @@
-"""Segment utilities over sorted keys (port of sage2_tpu/ops/sort.py).
+"""Sorts and segment utilities over sorted keys (port of
+sage2_tpu/ops/sort.py).
 
 The reference's multi-operand ``lax.sort`` becomes ``torch.sort`` on one
 composite int64 key (see ops/bitpack.py for the key layout); what is
-left here is the run accounting around the sorts.
+left here is the key composition and the run accounting around the
+sorts.
 """
 
 from __future__ import annotations
@@ -12,6 +14,22 @@ from typing import Tuple
 import torch
 
 I32_MAX = 2**31 - 1
+
+
+def sort_by_pair(
+    major: torch.Tensor, minor: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stable sort by (major, minor), the two-key form of the
+    reference's ``sort_by_keys`` (which is stable).
+
+    Both keys are non-negative int32 values (INT32_MAX allowed, as in
+    padding rows). Returns ``(keys, order)``: the sorted composite int64
+    keys ``major << 32 | minor`` and the int64 permutation, so that
+    ``x[order]`` carries any payload along. Ties keep their input order.
+    """
+    keys = (major.to(torch.int64) << 32) | minor.to(torch.int64)
+    keys, order = torch.sort(keys, stable=True)
+    return keys, order
 
 
 def unique_sorted_pairs(

@@ -1,8 +1,9 @@
 """Pipeline orchestration, reads to contigs (port of the in-core,
 single-device, unpaired branch of sage2_tpu/pipeline.py).
 
-Stages: count + correct, dedup + overlap, transitive reduction (host
-native), unitig labeling, and the host finish (unitig graph, tips,
+Stages: count + correct (either rule), dedup + overlap, transitive
+reduction (host native, or on the device with ``reduce_backend=
+"device"``), unitig labeling, and the host finish (unitig graph, tips,
 bubbles, min-cost flow). The device stages run on ``device`` ("cuda" by
 default, through the CUDA kernels; "cpu" runs their plain versions).
 
@@ -37,7 +38,7 @@ from sage2_tpu_torch.graph.finish import (
 from sage2_tpu_torch.graph.reduce import transitive_reduction_auto
 from sage2_tpu_torch.graph.traverse import contract_unitigs
 from sage2_tpu_torch.io.writer import write_fasta
-from sage2_tpu_torch.kmer import correct_reads_twophase, count_kmers
+from sage2_tpu_torch.kmer import correct_reads, count_kmers
 from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
 from sage2_tpu_torch.utils.device import resolve_device
 from sage2_tpu_torch.utils.metrics import MetricsLog
@@ -110,10 +111,6 @@ def _unsupported(config: AssemblyConfig, n_reads: int, mate_of,
         return "the spill store (ROADMAP Queue 1 item 11)"
     if lengths is not None:
         return "ragged reads (ROADMAP Queue 1 item 10)"
-    if config.correction_rule != "single_window":
-        return "the vote_all_windows corrector (ROADMAP Queue 1 item 3)"
-    if config.reduce_backend == "device":
-        return "the device reduction (ROADMAP Queue 1 item 9)"
     if mate_of is not None:
         return "paired reads and scaffolding (ROADMAP Queue 1 item 14)"
     return None
@@ -172,9 +169,10 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev):
             _sync(dev)
         log.log("count_result", n_unique=int(table.n_unique))
         with log.timed("correct", rounds=config.correction_rounds):
-            corrected = correct_reads_twophase(
+            corrected = correct_reads(
                 r, config.k, config.solid_threshold,
                 config.correction_rounds, table=table,
+                rule=config.correction_rule,
             )
             _sync(dev)
         del r, table
@@ -223,16 +221,20 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev):
 
     V = reads2_np.shape[0]
 
-    # --- stage 4: transitive reduction (host native) -------------------
+    # --- stage 4: transitive reduction --------------------------------
+    # host arrays: "auto" and "native" reduce them on the host, "device"
+    # uploads them once and reduces on ``dev``
     if start <= STAGES.index("reduce"):
         with log.timed("reduce", backend=config.reduce_backend):
             red = transitive_reduction_auto(
                 edges[0], edges[1], edges[2], V, L,
-                backend=config.reduce_backend,
+                backend=config.reduce_backend, device=dev,
             )
+            redges = tuple(a.cpu().numpy() if isinstance(a, torch.Tensor)
+                           else a for a in (red.src, red.dst, red.ovl))
         log.log("reduce_result", n_edges=red.n_edges,
                 n_expansions=red.n_expansions)
-        redges = (red.src, red.dst, red.ovl)
+        del red
         _save(outdir, log, "reduced", src=redges[0], dst=redges[1],
               ovl=redges[2])
         _manifest(outdir, config, "reduce")

@@ -17,9 +17,12 @@ import torch
 
 from sage2_tpu_torch import kernels
 from sage2_tpu_torch.data import simulate_genome, simulate_reads
+from sage2_tpu_torch.graph import reduce as reduce_mod
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.kmer.correct import prune_table_for_correction
 from sage2_tpu_torch.kmer.count import count_kmers
+from sage2_tpu_torch.ops.sort import sort_by_pair
+from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
 from sage2_tpu_torch.overlap.detect import (
     build_seed_rows,
     join_geometry,
@@ -100,3 +103,82 @@ def test_pointer_jump_kernel(cuda, op):
     before = kernels.LAUNCHES["pointer_jump"]
     _equal(kernels.pointer_jump(p, val, op), plain.pointer_jump(p, val, op))
     assert kernels.LAUNCHES["pointer_jump"] == before + 1
+
+
+@pytest.mark.parametrize("k,threshold,pruned", [(25, 2, True), (25, 2, False),
+                                                (15, 3, True), (31, 2, True)])
+def test_vote_windows_kernel(cuda, k, threshold, pruned):
+    r = _reads().to(cuda)
+    t = count_kmers(r, k)
+    if pruned:
+        t = prune_table_for_correction(t, threshold)
+    args = (r, t.keys, t.count, k, threshold)
+    before = kernels.LAUNCHES["vote_windows"]
+    got = kernels.vote_windows(*args)
+    assert kernels.LAUNCHES["vote_windows"] == before + 1
+    assert (got != r).any()
+    _equal([got], [plain.vote_windows(*args)])
+
+
+def _device_graph(cuda, seed=7):
+    r = _reads(seed=seed, err=0.0).to(cuda)
+    rs = prepare_reads(r)
+    res = find_overlaps_auto(rs.reads2, rs.valid2, 40, 32)
+    return res.src, res.dst, res.ovl, rs.reads2.shape[0]
+
+
+def test_reduce_kernels(cuda):
+    src, dst, ovl, V = _device_graph(cuda)
+    L = 100
+    sl = torch.where(src != 2**31 - 1, L - ovl, 2**31 - 1)
+    keys, order = sort_by_pair(src, sl)
+    before = kernels.LAUNCHES["reduce_counts"]
+    got = kernels.reduce_counts(keys, src, dst, ovl, V, L)
+    assert kernels.LAUNCHES["reduce_counts"] == before + 2
+    _equal(got, plain.reduce_counts(keys, src, dst, ovl, V, L))
+    start, _, startd, counts = got
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(offsets[-1])
+    assert total > 0
+    ss_sl = (keys & 0xFFFFFFFF).to(torch.int32)
+    rest = (offsets, src, dst, ovl, ss_sl, dst[order], start, startd, L)
+    for j0, j1 in [(0, total), (total // 3, total // 2), (total, total)]:
+        removed = torch.zeros_like(src, dtype=torch.uint8)
+        before = kernels.LAUNCHES["reduce_marks"]
+        a = kernels.reduce_marks(removed.clone(), *rest, j0, j1)
+        assert kernels.LAUNCHES["reduce_marks"] == before + (j1 > j0)
+        _equal([a], [plain.reduce_marks(removed.clone(), *rest, j0, j1)])
+
+
+@pytest.mark.parametrize("capacity", [None, 5000])
+def test_device_reduction_matches_native(cuda, capacity):
+    src, dst, ovl, V = _device_graph(cuda, seed=8)
+    if capacity is None:
+        dev = reduce_mod.transitive_reduction_auto(src, dst, ovl, V, 100,
+                                                   backend="device")
+    else:
+        dev = reduce_mod.transitive_reduction(src, dst, ovl, V, 100,
+                                              capacity=capacity)
+        assert dev.overflow
+    cpu = reduce_mod._device_reduce(src.cpu(), dst.cpu(), ovl.cpu(), V, 100,
+                                    capacity)
+    _equal(dev, cpu)
+    if capacity is None:
+        nat = reduce_mod.transitive_reduction_native(
+            *(a.cpu().numpy() for a in (src, dst, ovl)), V, 100)
+        _equal(dev, tuple(torch.from_numpy(a) if isinstance(a, np.ndarray)
+                          else a for a in nat))
+
+
+@pytest.mark.parametrize("N,W,axis", [(65536, 128, 0), (1 << 20, 128, 0),
+                                      (2048, 2048, 1), (1000, 3, 1)])
+def test_gather_along_kernel(cuda, N, W, axis):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tbl = torch.arange(N * W, dtype=torch.int32, device=cuda).reshape(N, W)
+    idx = torch.randint(0, N if axis == 0 else W, (N, W), generator=g,
+                        dtype=torch.int32, device=cuda)
+    before = kernels.LAUNCHES["gather_along"]
+    got = kernels.gather_along(tbl, idx, axis)
+    assert kernels.LAUNCHES["gather_along"] == before + 1
+    _equal([got], [plain.gather_along(tbl, idx, axis)])
+    _equal([got], [torch.gather(tbl, axis, idx.long())])

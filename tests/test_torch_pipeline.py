@@ -77,8 +77,6 @@ def test_unported_paths_raise(runs):
     reads = runs[0]
     for cfg, kw in [(AssemblyConfig(mesh_shape=(2,)), {}),
                     (AssemblyConfig(max_device_reads=5), {}),
-                    (AssemblyConfig(correction_rule="vote_all_windows"), {}),
-                    (AssemblyConfig(reduce_backend="device"), {}),
                     (AssemblyConfig(), {"mate_of": np.arange(10)}),
                     (AssemblyConfig(), {"lengths": np.full(10, 100)})]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

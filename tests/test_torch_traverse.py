@@ -90,5 +90,9 @@ def test_native_reduction_matches_reference():
                                       getattr(t, f))
     assert (t.n_edges, t.n_expansions) == (int(j.n_edges),
                                            int(j.n_expansions))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treduce(src, dst, ovl, V, 100, backend="device")
+    # the device backend (ported since) gives the same graph
+    d = treduce(src, dst, ovl, V, 100, backend="device", device="cpu")
+    for f in ("src", "dst", "ovl"):
+        np.testing.assert_array_equal(np.asarray(getattr(j, f)),
+                                      getattr(d, f).numpy())
+    assert (d.n_edges, d.n_expansions) == (t.n_edges, t.n_expansions)
