@@ -6,11 +6,13 @@
 Phases (one flushed line each, with its seconds):
 
   0  the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1  build the eight CUDA kernels (nvcc, sm_90a, one process per source,
+  1  build the nine CUDA kernels (nvcc, sm_90a, one process per source,
      all at once) and the host libraries;
   3  the overlap join at the bench's shard 0 (100,000 reads x 100 bp,
      genome 222,222 bp, seeds 7/8, min_overlap 40, seed 32): asserts the
-     reference's 1,044,016 candidates and 680,790 verified overlaps;
+     reference's 1,044,016 candidates and 680,790 verified overlaps; the
+     same reads again as ragged reads of length 100 each: arrays and
+     counts bit-equal to the fixed call's, no containment;
   4  reads to contigs at E. coli scale (4.6 Mbp genome, 50x, 100 bp,
      error 0.005, seeds 7/8, default AssemblyConfig: single_window
      corrector, host-native reduction) through
@@ -25,20 +27,36 @@ Phases (one flushed line each, with its seconds):
   7  the Pallas probe's path (scripts/probe_pallas_gather.py): its
      largest gathers, (65536, 128) and (1 << 20, 128) on axis 0 and
      (2048, 2048) on axis 1, through kernels.gather_along;
+  8  ragged reads at E. coli scale (the same genome; lengths uniform in
+     [75, 150], either strand, error 0.005 on real bases, 50x of real
+     bases, plus 10% contained reads of 47-72 bp; zero-padded to 150)
+     through pipeline.assemble(lengths=..., outdir=None): 8a the
+     default config (native reduction with per-vertex lengths), 8b
+     vote_all_windows + the device reduction; each asserts
+     genome_fraction >= 0.99 and containments removed;
+  9  8a's ragged edge list reduced by the device backend and by the
+     native one, both with per-vertex lengths: equal arrays, n_edges
+     and n_expansions asserted;
   2  each kernel against its plain PyTorch version on the inputs that
-     phases 3-7 gave it (captured during those runs, so it comes after
-     them; the call with the most input elements, for reduce_marks the
-     largest slot range; pointer_jump once for each of its ops
-     none/min/add; gather_along once per probe shape): bit equality
-     asserted, median times (CUDA events), the bound from bytes and
-     operations, and one PyTorch call computing the same function
-     where there is one (torch.searchsorted beside K2, index_select
-     beside K4 none, torch.gather beside P1).
+     its path's run gave it (phase 4, 5, 7, 8a or 8b, captured during
+     that run, so phase 2 comes last; the call with the most input
+     elements, for reduce_marks the largest slot range; pointer_jump once for each of its ops
+     none/min/add; gather_along once per probe shape; the kernels with
+     a ragged branch once more as "name:ragged", on a ragged call of
+     phase 8; K1, K2 and K4 once more as "name:8a" on 8a's ragged
+     reads, and K1 as "kmer_keys:8b" on 8b's): bit equality of outputs
+     and in-place results asserted,
+     median times (CUDA events), the bound from bytes and operations,
+     and one PyTorch call computing the same function where there is
+     one (torch.searchsorted beside K2, index_select beside K4 none,
+     torch.gather beside P1).
 
 Each path runs with the launch counts set to 0 just before it and read
-just after it: phase 4 for K1-K4, phase 5 for K5-K7, phase 7 for P1.
-Every kernel must have launched on its path. pointer_jump's counts are
-split by op. The last two lines are the kernel table and
+just after it: phase 4 for K1-K4 and K8, phase 5 for K5-K7, phase 7
+for P1, phases 8a and 8b for the ragged path. Every kernel of a path
+(PATHS) must have launched on it, and on 8a/8b K3, K5, K6, K7 and K8
+with their lengths pointers (the ":ragged" keys). pointer_jump's
+counts are split by op. The last two lines are the kernel table and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them;
 without a GPU the script exits non-zero at once.
 """
@@ -65,6 +83,10 @@ SHARD0_CANDIDATES = 1_044_016
 SHARD0_VERIFIED = 680_790
 ECOLI = dict(genome_len=4_600_000, coverage=50.0, read_len=100,
              error_rate=0.005, seeds=(7, 8))
+# phase 8: ragged reads of the same genome (simulate_ragged_reads, the
+# recipe of tests/test_ragged.py:15-36 with lo = 75)
+ECOLI_RAGGED = dict(lo=75, hi=150, coverage=50.0, error_rate=0.005,
+                    contained_frac=0.1, seed=8)
 # the reference (sage2_tpu) on the same input, BASELINE.md round 4:
 # printed as a guide, not a gate
 REFERENCE_ASSEMBLY = {"n_contigs": 5, "n50": 1_435_616,
@@ -75,8 +97,10 @@ PROBE_SHAPES = ((65536, 128, 0), (1 << 20, 128, 0), (2048, 2048, 1))
 
 _CSRC = "sage2_tpu_torch/kernels/csrc/"
 # one row of the kernel table per key (pointer_jump once per op,
-# gather_along once per probe shape): source, the TPU kernel it
-# replaces, and the phase whose run gives its launch count
+# gather_along once per probe shape, ":ragged" for a call with lengths,
+# a ":<phase>" suffix for a second row from another path): source, the
+# TPU kernel it replaces, and the phase whose run gives the row its
+# inputs and its launch count
 KERNEL_INFO = {
     "kmer_keys": (_CSRC + "kmer_keys.cu",
                   "sage2_tpu/ops/bitpack.py:126", "4"),
@@ -96,10 +120,41 @@ KERNEL_INFO = {
                       "sage2_tpu/graph/reduce.py:133", "5"),
     "reduce_marks": (_CSRC + "reduce_marks.cu",
                      "sage2_tpu/graph/reduce.py:520", "5"),
+    "canonical_reads": (_CSRC + "canonical_reads.cu",
+                        "sage2_tpu/overlap/prepare.py:55", "4"),
+    "canonical_reads:ragged": (_CSRC + "canonical_reads.cu",
+                               "sage2_tpu/overlap/prepare.py:55", "8a"),
+    "overlap_join:ragged": (_CSRC + "overlap_join.cu",
+                            "sage2_tpu/overlap/detect.py:863", "8a"),
+    "vote_windows:ragged": (_CSRC + "vote_windows.cu",
+                            "sage2_tpu/kmer/correct.py:134", "8b"),
+    "reduce_counts:ragged": (_CSRC + "reduce_counts.cu",
+                             "sage2_tpu/graph/reduce.py:133", "8b"),
+    "reduce_marks:ragged": (_CSRC + "reduce_marks.cu",
+                            "sage2_tpu/graph/reduce.py:520", "8b"),
 }
 for _n, _w, _a in PROBE_SHAPES:
     KERNEL_INFO[f"gather_along:{_a}:{_n}x{_w}"] = (
         _CSRC + "gather_along.cu", "scripts/probe_pallas_gather.py:73", "7")
+
+_JUMPS = ["pointer_jump:none", "pointer_jump:min", "pointer_jump:add"]
+# the kernels without a ragged branch once more at the ragged path's
+# shapes (2.2 M reads of 150 bp, 4.5 M vertices)
+for _key, _path in [("kmer_keys", "8a"), ("lookup_counts", "8a"),
+                    *((_k, "8a") for _k in _JUMPS), ("kmer_keys", "8b")]:
+    KERNEL_INFO[f"{_key}:{_path}"] = KERNEL_INFO[_key][:2] + (_path,)
+# the keys that must launch on each path
+PATHS = {
+    "4": ["kmer_keys", "lookup_counts", "canonical_reads", "overlap_join",
+          *_JUMPS],
+    "5": ["vote_windows", "reduce_counts", "reduce_marks"],
+    "7": [k for k in KERNEL_INFO if k.startswith("gather_along")],
+    "8a": ["kmer_keys", "lookup_counts", "canonical_reads:ragged",
+           "overlap_join:ragged", *_JUMPS],
+    "8b": ["kmer_keys", "vote_windows:ragged", "canonical_reads:ragged",
+           "overlap_join:ragged", "reduce_counts:ragged",
+           "reduce_marks:ragged", *_JUMPS],
+}
 
 T_START = time.perf_counter()
 
@@ -132,23 +187,36 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def base_key(row: str) -> str:
+    """The launch-count key of a kernel-table row (its ":<phase>" suffix
+    dropped)."""
+    path = KERNEL_INFO[row][2]
+    return row[:-len(path) - 1] if row.endswith(":" + path) else row
+
+
 class Capture:
     """Wraps the kernel wrappers of ``sage2_tpu_torch.kernels`` (the
-    callers look them up on the module at each call). For each key of
+    callers look them up on the module at each call). For each row of
     KERNEL_INFO it keeps a clone of the arguments of the call with the
-    most input elements, and it splits the wrapper's own launch counts
-    (``kernels.LAUNCHES``) by key."""
+    most input elements made on the row's own path, and it splits the
+    wrapper's own launch counts (``kernels.LAUNCHES``) by key."""
 
     def __init__(self, kernels):
         self.kernels = kernels
         self.originals = {n: getattr(kernels, n) for n in kernels.KERNELS}
         self.args: dict = {}
-        self.launches = {key: 0 for key in KERNEL_INFO}
+        self.phase = None
+        self.launches = {base_key(row): 0 for row in KERNEL_INFO}
         for name, fn in self.originals.items():
             setattr(kernels, name, self._wrap(name, fn))
 
     def _wrap(self, name, fn):
         import torch
+
+        # where each kernel with a ragged branch takes its lengths
+        ragged_at = {"canonical_reads": 1, "overlap_join": 7,
+                     "vote_windows": 5, "reduce_counts": 5,
+                     "reduce_marks": 9}
 
         def call(*args):
             key = name
@@ -160,21 +228,34 @@ class Capture:
                 key = f"{name}:{args[2]}:{args[0].shape[0]}x{args[0].shape[1]}"
             elif name == "reduce_marks":
                 size += args[-1] - args[-2]      # the slot range
-            kept = self.args.get(key)
-            if kept is None or size > kept[0]:
-                self.args[key] = (size, tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args))
+            at = ragged_at.get(name)
+            if at is not None and len(args) > at and isinstance(
+                    args[at], torch.Tensor):
+                key += ":ragged"
+            row = (key if KERNEL_INFO[key][2] == self.phase
+                   else f"{key}:{self.phase}")
+            kept = self.args.get(row)
+            keep = row in KERNEL_INFO and (kept is None or size > kept[0])
+            if keep:        # cloned before the call: some update in place
+                kept = [a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args]
             before = self.kernels.LAUNCHES[name]
             out = fn(*args)
             self.launches[key] += self.kernels.LAUNCHES[name] - before
+            if keep:
+                if name == "overlap_join" and len(args) > 8 and callable(
+                        args[8]):
+                    kept[8] = out[0].shape[0]   # the slots a rule let in
+                self.args[row] = (size, tuple(kept))
             return out
 
         return call
 
-    def reset_launch_counts(self) -> None:
+    def reset_launch_counts(self, phase: str) -> None:
+        """Counts to 0, for the path of ``phase``."""
         self.kernels.reset_launch_counts()
         self.launches = dict.fromkeys(self.launches, 0)
+        self.phase = phase
 
     def path_launches(self, path: str) -> dict:
         """Launches by key since the last reset; raises unless every
@@ -183,8 +264,8 @@ class Capture:
         if sum(self.launches.values()) != sum(self.kernels.LAUNCHES.values()):
             raise AssertionError(f"launch counts {self.kernels.LAUNCHES} "
                                  f"do not add up to {self.launches}")
-        for key, info in KERNEL_INFO.items():
-            if info[2] == path and self.launches[key] == 0:
+        for key in PATHS[path]:
+            if self.launches[key] == 0:
                 raise AssertionError(f"kernel {key} not launched on the "
                                      f"path of phase {path}")
         return dict(self.launches)
@@ -197,7 +278,8 @@ class Capture:
 def work(key: str, args: tuple, total: int = 0):
     """(bytes moved, integer operations) of one call: each input read
     once and each output written once; operations counted from this
-    call's shapes."""
+    call's shapes and, for ragged reads, from their lengths."""
+    name = key.split(":")[0]
     if key == "kmer_keys":
         reads, k = args
         N, L = reads.shape
@@ -208,32 +290,47 @@ def work(key: str, args: tuple, total: int = 0):
         T, Q = table.numel(), queries.numel()
         steps = max(1, math.ceil(math.log2(T + 1)))
         return T * 12 + Q * 12, Q * steps * 4
-    if key == "overlap_join":
+    if name == "overlap_join":
         s_keys, s_rows, payload = args[:3]
+        contained = args[7] if len(args) > 7 else None
         W = payload.shape[1]
         n = s_keys.numel()
-        return (n * 12 + payload.numel() * 4 + total * 13,
-                n * 8 + total * (6 * (W - 2) + 20))
+        marks = 0 if contained is None else contained.numel()
+        return (n * 12 + payload.numel() * 4 + total * 13 + marks,
+                n * 8 + total * (6 * (W - 2) + 22))
     if key.startswith("pointer_jump"):
         p, val, op = args
         per = 8 if op == "none" else 16
         return p.numel() * per, p.numel() * 2
-    if key == "vote_windows":
-        reads, table, _, k, _ = args
+    if name == "vote_windows":
+        reads, table, _, k, _ = args[:5]
+        lengths = args[5] if len(args) > 5 else None
         N, L = reads.shape
-        NP = N * (L - k + 1)
+        if lengths is None:
+            NP = N * (L - k + 1)
+        else:                       # the windows inside their reads
+            NP = int((lengths.long() - k + 1).clamp(min=0).sum())
         steps = max(1, math.ceil(math.log2(table.numel() + 1)))
         # (3k + 1) searches a window, 4 ops a step; key edits and votes
-        return (reads.numel() * 8 + table.numel() * 12,
+        return (reads.numel() * 8 + table.numel() * 12 + N * 4,
                 NP * (3 * k + 1) * (steps * 4 + 8) + NP * k * 6)
-    if key == "reduce_counts":
-        keys, src, dst, ovl, V, _ = args
+    if name == "reduce_counts":
+        keys, src, dst, ovl, V, read_len = args
         E = keys.numel()
         steps = max(1, math.ceil(math.log2(E + 1)))
-        return (E * 8 + E * 12 + (3 * V + 1) * 4 + E * 4,
+        lens = read_len.numel() * 4 if hasattr(read_len, "numel") else 0
+        return (E * 8 + E * 12 + (3 * V + 1) * 4 + E * 4 + lens,
                 (V + 1) * 3 * steps * 4 + E * (steps * 4 + 10))
-    if key == "reduce_marks":
+    if name == "reduce_marks":
         return marks_work(args, total)
+    if name == "canonical_reads":
+        reads, lengths = args[:2]
+        N, L = reads.shape
+        W = -(-L // 16)
+        # codes in, RC out, two word rows and a flag; a shift and an
+        # add per base for each of the two packings
+        return (reads.numel() * 8 + N * W * 16 + N
+                + (0 if lengths is None else N * 4), reads.numel() * 8)
     tbl = args[0]                                   # gather_along
     return tbl.numel() * 12, tbl.numel() * 2
 
@@ -248,7 +345,8 @@ def marks_work(args: tuple, n_marked: int):
     searches a slot."""
     import torch
 
-    (_, offsets, src, dst, _, _, _, start, startd, _, j0, j1) = args
+    (_, offsets, src, dst, _, _, _, start, startd, read_len, j0,
+     j1) = args
     E = src.numel()
     bounds = torch.searchsorted(
         offsets, torch.tensor([j0, j1 - 1], device=offsets.device),
@@ -269,8 +367,9 @@ def marks_work(args: tuple, n_marked: int):
     max_deg = int((startd[1:] - startd[:-1]).max())
     steps = (max(1, math.ceil(math.log2(E + 1)))
              + max(1, math.ceil(math.log2(max_deg + 1))))
+    n_v = v_hi - v_lo + 2       # startd, and lens of ragged reads
     nbytes = (n_e * 24 + n_rows * 8 + run_rows * 8
-              + (v_hi - v_lo + 2) * 4 + n_marked)
+              + n_v * (8 if hasattr(read_len, "numel") else 4) + n_marked)
     return nbytes, (j1 - j0) * (steps * 4 + 20)
 
 
@@ -305,7 +404,12 @@ def main() -> int:
 
     from sage2_tpu_torch import kernels
     from sage2_tpu_torch.config import AssemblyConfig
-    from sage2_tpu_torch.data import simulate_genome, simulate_reads
+    from sage2_tpu_torch import pipeline
+    from sage2_tpu_torch.data import (
+        simulate_genome,
+        simulate_ragged_reads,
+        simulate_reads,
+    )
     from sage2_tpu_torch.graph import flow_native, reduce_native
     from sage2_tpu_torch.graph.reduce import transitive_reduction_auto
     from sage2_tpu_torch.kernels import plain
@@ -362,7 +466,7 @@ def main() -> int:
     v0 = torch.ones(r0.shape[0], dtype=torch.bool, device=dev)
     find_overlaps_auto(r0, v0, s["min_overlap"], 32)   # first (cold) run
     torch.cuda.synchronize()
-    capture.reset_launch_counts()
+    capture.reset_launch_counts("3")
     runs = []
     for _ in range(3):
         t1 = time.perf_counter()
@@ -376,18 +480,38 @@ def main() -> int:
                 f"{res.n_verified} verified; expected "
                 f"{SHARD0_CANDIDATES}, {SHARD0_VERIFIED}")
     best = min(runs)
+    launches = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+    # the same reads as ragged reads of length 100 each: the second
+    # call starts from its own memoized capacity, as the fixed calls do
+    full = torch.full((r0.shape[0],), s["read_len"], dtype=torch.int32,
+                      device=dev)
+    for _ in range(2):
+        rag = find_overlaps_auto(r0, v0, s["min_overlap"], 32,
+                                 lengths=full)
+    torch.cuda.synchronize()
+    for field in ("src", "dst", "ovl"):
+        if not torch.equal(getattr(rag, field), getattr(res, field)):
+            raise AssertionError(f"shard 0 with full lengths differs from "
+                                 f"the fixed call in {field}")
+    if (rag.n_edges, rag.n_candidates, rag.n_verified, rag.overflow) != (
+            res.n_edges, res.n_candidates, res.n_verified, res.overflow):
+        raise AssertionError(f"shard 0 with full lengths: counts {rag[3:7]}"
+                             f" != fixed {res[3:7]}")
+    if rag.n_contained != 0 or bool(rag.contained.any()):
+        raise AssertionError(f"shard 0: {rag.n_contained} containments "
+                             f"among reads of one length")
     phase("3 overlap shard0", t0, n_candidates=res.n_candidates,
           n_verified=res.n_verified, n_edges=res.n_edges,
           best_s=f"{best:.4f}", reads_per_s=f"{s['n_reads'] / best:.0f}",
-          launches=json.dumps({k: v // 3 for k, v in
-                               kernels.LAUNCHES.items()}))
-    del r0, v0, res
+          launches=json.dumps(launches), full_lengths_equal=True,
+          n_contained=rag.n_contained)
+    del r0, v0, res, rag, full
 
     # --- phase 4: E. coli scale, reads to contigs -----------------------
     t0 = time.perf_counter()
     log = MetricsLog(None, echo=False)
     with tempfile.TemporaryDirectory() as outdir:
-        capture.reset_launch_counts()
+        capture.reset_launch_counts("4")
         contigs, stats = assemble(reads, AssemblyConfig(), outdir=outdir,
                                   metrics=log, device="cuda")
         launches = dict(kernels.LAUNCHES)
@@ -400,11 +524,12 @@ def main() -> int:
             n_vertices = z["valid2"].shape[0]
     report_assembly("4 ecoli", t0, t_asm, log, launches, contigs, stats,
                     genome, genome_fraction)
+    del contigs, stats
 
     # --- phase 5: voting corrector + device reduction -------------------
     t0 = time.perf_counter()
     log = MetricsLog(None, echo=False)
-    capture.reset_launch_counts()
+    capture.reset_launch_counts("5")
     contigs, stats = assemble(
         reads, AssemblyConfig(correction_rule="vote_all_windows",
                               reduce_backend="device"),
@@ -446,7 +571,7 @@ def main() -> int:
     # --- phase 7: the Pallas probe's gathers ----------------------------
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    capture.reset_launch_counts()
+    capture.reset_launch_counts("7")
     for n, w, axis in PROBE_SHAPES:
         tbl = torch.arange(n * w, dtype=torch.int32, device=dev).reshape(n, w)
         idx = torch.randint(0, n if axis == 0 else w, (n, w), generator=gen,
@@ -455,29 +580,107 @@ def main() -> int:
     torch.cuda.synchronize()
     launches_by_key["7"] = capture.path_launches("7")
     phase("7 probe gathers", t0, shapes=json.dumps(PROBE_SHAPES))
+
+    # --- phase 8: ragged reads at E. coli scale -------------------------
+    t0 = time.perf_counter()
+    rr = ECOLI_RAGGED
+    ragged, lengths = simulate_ragged_reads(
+        genome, rr["lo"], rr["hi"], rr["coverage"], rr["error_rate"],
+        seed=rr["seed"], contained_frac=rr["contained_frac"])
+    phase("8 inputs", t0, reads=ragged.shape[0], width=ragged.shape[1],
+          real_bases=int(lengths.sum()),
+          coverage=f"{lengths.sum() / len(genome):.2f}")
+    # 8a's reduce-stage input, kept for phase 9
+    reduce_input = {}
+
+    def keep_reduce_input(src, dst, ovl, n_vertices, read_len, **kw):
+        reduce_input.update(edges=(src, dst, ovl), n_vertices=n_vertices,
+                            lens=read_len)
+        return transitive_reduction_auto(src, dst, ovl, n_vertices,
+                                         read_len, **kw)
+
+    for label, cfg in (("8a", AssemblyConfig()),
+                       ("8b", AssemblyConfig(
+                           correction_rule="vote_all_windows",
+                           reduce_backend="device"))):
+        t0 = time.perf_counter()
+        log = MetricsLog(None, echo=False)
+        pipeline.transitive_reduction_auto = (
+            keep_reduce_input if label == "8a" else transitive_reduction_auto)
+        capture.reset_launch_counts(label)
+        contigs, stats = assemble(ragged, cfg, outdir=None, metrics=log,
+                                  lengths=lengths, device="cuda")
+        launches = dict(kernels.LAUNCHES)
+        launches_by_key[label] = capture.path_launches(label)
+        ragged_launches = {k: v for k, v in launches_by_key[label].items()
+                           if k.endswith(":ragged")}
+        pipeline.transitive_reduction_auto = transitive_reduction_auto
+        n_contained = [r["n_contained"] for r in log.records
+                       if r["stage"] == "containment"]
+        if not n_contained or n_contained[0] <= 0:
+            raise AssertionError(f"phase {label}: no contained reads "
+                                 f"removed ({n_contained})")
+        report_assembly(f"{label} ecoli ragged", t0,
+                        time.perf_counter() - t0, log, launches, contigs,
+                        stats, genome, genome_fraction)
+        say(f"  n_contained={n_contained[0]} ragged_launches="
+            f"{json.dumps(ragged_launches)}")
+        del contigs, stats
     capture.close()
+    del ragged, lengths
+
+    # --- phase 9: ragged device reduction against the native one --------
+    t0 = time.perf_counter()
+    edges, V, lens = (reduce_input["edges"], reduce_input["n_vertices"],
+                      reduce_input["lens"])
+    t1 = time.perf_counter()
+    nat = transitive_reduction_auto(*edges, V, lens, backend="native")
+    t_nat = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    dev_red = transitive_reduction_auto(*edges, V, lens, backend="device",
+                                        device="cuda")
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t1
+    for field in ("src", "dst", "ovl"):
+        got = getattr(dev_red, field).cpu().numpy()
+        if not np.array_equal(got, getattr(nat, field)):
+            raise AssertionError(f"ragged device reduction differs from "
+                                 f"the native one in {field}")
+    if (dev_red.n_edges, dev_red.n_expansions, dev_red.overflow) != (
+            nat.n_edges, nat.n_expansions, nat.overflow):
+        raise AssertionError(
+            f"ragged device reduction n_edges/n_expansions/overflow "
+            f"{dev_red[3:]} != native {nat[3:]}")
+    phase("9 ragged reduce device vs native", t0, n_edges_in=int(
+        np.count_nonzero(edges[0] != 2**31 - 1)), n_edges=nat.n_edges,
+        n_expansions=nat.n_expansions, native_s=f"{t_nat:.3f}",
+        device_s=f"{t_dev:.3f}", equal=True)
+    del nat, dev_red, edges, reduce_input
 
     # --- phase 2: each kernel against its plain version -----------------
     t0 = time.perf_counter()
     rows = []
-    for key, (source, replaces, path) in KERNEL_INFO.items():
+    for row, (source, replaces, path) in KERNEL_INFO.items():
         t1 = time.perf_counter()
+        key = base_key(row)
         name = key.split(":")[0]
-        args = capture.args[key][1]
+        args = capture.args.pop(row)[1]     # freed after its row
         wrapper = getattr(kernels, name)
         ref = getattr(plain, name)
 
         def fresh():
-            # reduce_marks updates its first argument in place
+            # reduce_marks and overlap_join (its containment marks)
+            # update an argument in place
             return tuple(a.clone() if isinstance(a, torch.Tensor) else a
                          for a in args)
 
-        got = wrapper(*fresh())
-        want = ref(*fresh())
+        a_got, a_want = fresh(), fresh()
+        got = wrapper(*a_got)
+        want = ref(*a_want)
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
+        err = max(max_abs_err(got, want), max_abs_err(a_got, a_want))
         if err != 0:
-            raise AssertionError(f"{key}: kernel differs from its plain "
+            raise AssertionError(f"{row}: kernel differs from its plain "
                                  f"version (max abs err {err})")
         if name == "overlap_join":
             total = got[4]
@@ -494,7 +697,7 @@ def main() -> int:
         t_ops = ops / OPS_PER_S * 1e3
         n_launches = launches_by_key[path][key]
         rows.append({
-            "name": key, "route": "cuda", "source": source,
+            "name": row, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
@@ -502,7 +705,7 @@ def main() -> int:
             "library_ms": library_ms,
         })
         shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-        say(f"  {key}: equal, {ms:.3f} ms (plain {plain_ms:.3f} ms"
+        say(f"  {row}: equal, {ms:.3f} ms (plain {plain_ms:.3f} ms"
             + (f", {library} {library_ms:.3f} ms" if library else "")
             + f"), bound {max(t_bytes, t_ops):.3f} ms, launches "
             f"{n_launches} (phase {path}), inputs {shape}, check "

@@ -10,11 +10,14 @@ Example:
 
 ``assemble``, ``correct`` and ``overlap`` run on the GPU (``--device
 cuda``, the default) and fail when there is none; ``--device cpu`` runs
-the plain PyTorch versions. ``correct`` and ``overlap`` write what the
+the plain PyTorch versions. ``--length-policy pad`` keeps every read at
+its own length (ragged reads; a file whose reads all have one length
+takes the fixed-length path). ``correct`` and ``overlap`` write what the
 reference's subcommands write, quirks included: both correct with the
 single_window rule whatever ``--correction-rule`` says, and ``overlap``
 reduces in core with ``--reduce-capacity`` and writes the result
-without checking its overflow flag.
+without checking its overflow flag; under ``--length-policy pad`` both
+take the zero-padded reads without their lengths.
 """
 
 from __future__ import annotations
@@ -49,9 +52,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         " device kernels (device), or by edge-list"
                         " residency (auto: the host, where the pipeline"
                         " keeps the edges)")
-    p.add_argument("--length-policy", choices=["strict", "trim", "filter"],
+    p.add_argument("--length-policy",
+                   choices=["strict", "trim", "filter", "pad"],
                    default="strict",
-                   help="how to handle mixed read lengths at ingest")
+                   help="how to handle mixed read lengths at ingest;"
+                        " 'pad' keeps every read at its own length"
+                        " (lossless ragged mode)")
+    p.add_argument("--paired", action="store_true",
+                   help="paired reads: not ported yet (ROADMAP Queue 1"
+                        " item 14)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions)")
 
@@ -141,9 +150,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                         prefix="genome")
         return 0
 
-    from sage2_tpu_torch.io import load_reads
+    if args.paired:
+        print("--paired: not ported yet: paired reads and scaffolding "
+              "(ROADMAP Queue 1 item 14)", file=sys.stderr)
+        return 2
 
-    reads = load_reads(args.reads, length_policy=args.length_policy)
+    read_lengths = None
+    if args.length_policy == "pad":
+        from sage2_tpu_torch.io.fastq import load_reads_ragged
+
+        reads, read_lengths = load_reads_ragged(args.reads)
+        if reads.size and (read_lengths == read_lengths[0]).all():
+            read_lengths = None        # uniform after all: fixed path
+    else:
+        from sage2_tpu_torch.io import load_reads
+
+        reads = load_reads(args.reads, length_policy=args.length_policy)
     if reads.size == 0:
         print("no reads loaded", file=sys.stderr)
         return 1
@@ -155,6 +177,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         contigs, stats = assemble(
             reads, cfg, outdir=args.outdir,
             resume_from=args.resume_from, device=args.device,
+            lengths=read_lengths,
         )
         print(json.dumps(stats, indent=1))
         return 0

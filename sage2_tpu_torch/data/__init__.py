@@ -3,6 +3,7 @@
 from sage2_tpu_torch.data.simulate import (
     simulate_complex_genome,
     simulate_genome,
+    simulate_ragged_reads,
     simulate_read_pairs,
     simulate_reads,
     write_fastq,
@@ -11,6 +12,7 @@ from sage2_tpu_torch.data.simulate import (
 __all__ = [
     "simulate_complex_genome",
     "simulate_genome",
+    "simulate_ragged_reads",
     "simulate_read_pairs",
     "simulate_reads",
     "write_fastq",

@@ -142,6 +142,51 @@ def simulate_reads(
     return reads, starts.astype(np.int64)
 
 
+def simulate_ragged_reads(
+    genome: np.ndarray,
+    lo: int,
+    hi: int,
+    coverage: float,
+    error_rate: float = 0.0,
+    seed: int = 1,
+    contained_frac: float = 0.1,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Mixed-length reads, as trimmed Illumina data gives them (the
+    recipe of tests/test_ragged.py:15-36, in whole-array numpy).
+
+    n = ceil(coverage * G / mean length) reads of lengths uniform in
+    [lo, hi], at uniform starts, from either strand with probability
+    1/2; then ``contained_frac * n`` forward-strand reads of lengths in
+    [lo // 2 + 10, lo - 2), which lie inside longer ones; substitution
+    errors at ``error_rate`` on real bases only. Returns (reads (n', hi)
+    int8, zero past each read's length; lengths (n',) int32).
+    """
+    rng = np.random.default_rng(seed)
+    G = len(genome)
+    n = int(np.ceil(coverage * G / ((lo + hi) / 2)))
+    n_c = int(n * contained_frac)
+    lens = np.concatenate([rng.integers(lo, hi + 1, n),
+                           rng.integers(lo // 2 + 10, lo - 2, n_c)])
+    starts = rng.integers(0, G - lens)
+    flip = np.concatenate([rng.random(n) < 0.5, np.zeros(n_c, bool)])
+    reads = np.zeros((n + n_c, hi), np.int8)
+    j = np.arange(hi)[None, :]
+    block = 1 << 18                  # reads a step: bounds the temporaries
+    for b0 in range(0, n + n_c, block):
+        ln = lens[b0 : b0 + block, None]
+        real = j < ln
+        # forward bases, or the reverse complement of the real ones
+        pos = np.where(flip[b0 : b0 + block, None], ln - 1 - j, j)
+        idx = starts[b0 : b0 + block, None] + np.where(real, pos, 0)
+        r = genome[idx].astype(np.int8)
+        r = np.where(flip[b0 : b0 + block, None], 3 - r, r)
+        if error_rate > 0:
+            err = real & (rng.random(r.shape) < error_rate)
+            r = np.where(err, (r + rng.integers(1, 4, r.shape)) % 4, r)
+        reads[b0 : b0 + block] = np.where(real, r, 0)
+    return reads, lens.astype(np.int32)
+
+
 def simulate_read_pairs(
     genome: np.ndarray,
     read_len: int = 100,

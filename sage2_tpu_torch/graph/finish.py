@@ -201,6 +201,10 @@ def pop_bubbles(
             groups.setdefault((a, b), []).append(uid)
     removed = 0
     for (a, b), uids in groups.items():
+        # a branch popped with its twin in an earlier group is gone (the
+        # reference looks it up here and raises KeyError: ROADMAP
+        # Queue 3, "Fixed")
+        uids = [uid for uid in uids if uid in g.unitigs]
         if len(uids) < 2:
             continue
         # twin-consistent tie-break key: min over the unitig and its twin

@@ -3,10 +3,12 @@ sage2_tpu/graph/reduce.py: the in-core transitive_reduction :44, the
 chunked transitive_reduction_chunked :220, the native backend :364 and
 the dispatcher transitive_reduction_auto :470).
 
-Myers (2005) string-graph reduction: edge v->x (offset sl = L -
+Myers (2005) string-graph reduction: edge v->x (offset sl = len(v) -
 overlap) is removed when some w has v->w and w->x with sl_vx = sl_vw +
 sl_wx. Implication is defined on the original edge set, so one pass
-suffices.
+suffices. ``read_len`` is the read length, or a (V,) array of
+per-vertex lengths for ragged reads (offsets stay additive along paths,
+each in its source read's coordinates).
 
 Two backends:
 
@@ -22,8 +24,7 @@ Two backends:
 The in-core form probes only the slots below its ``capacity`` and
 reports ``overflow``, as the reference does (the slot order is edge
 order, then rank in w's (src, sl) run, which is why the sort is
-stable). The chunked form probes every slot. Ragged reads are not
-ported yet (ROADMAP Queue 1 item 10).
+stable). The chunked form probes every slot.
 """
 
 from __future__ import annotations
@@ -37,8 +38,6 @@ from sage2_tpu_torch import kernels
 from sage2_tpu_torch.graph import reduce_native
 from sage2_tpu_torch.ops.sort import I32_MAX, sort_by_pair
 from sage2_tpu_torch.utils.device import resolve_device
-
-_RAGGED = "ragged reads are not ported yet (ROADMAP Queue 1 item 10)"
 
 # the most expansion slots one K7 launch probes (the reference's chunk_cap)
 LAUNCH_SLOTS = 1 << 24
@@ -65,7 +64,7 @@ class ReducedGraph(NamedTuple):
 
 
 def transitive_reduction_native(
-    src, dst, ovl, n_vertices: int, read_len: int,
+    src, dst, ovl, n_vertices: int, read_len,
     n_threads: Optional[int] = None,
 ) -> ReducedGraph:
     src_np = np.ascontiguousarray(np.asarray(src), np.int32)
@@ -92,16 +91,20 @@ def _device_reduce(src, dst, ovl, n_vertices: int, read_len,
     """The device backend: prep (sort + K6), marks over the slots
     [0, min(total, slot_end)) in K7 launches of ``launch_slots``, and
     compaction. ``slot_end`` None means every slot."""
-    if not isinstance(read_len, (int, np.integer)):
-        raise NotImplementedError(_RAGGED)
     if not all(isinstance(t, torch.Tensor) for t in (src, dst, ovl)):
         raise TypeError("the device reduction takes torch tensors; "
                         "transitive_reduction_auto places numpy arrays")
-    L = int(read_len)
     src, dst, ovl = (t.to(torch.int32).contiguous() for t in (src, dst, ovl))
     E = src.shape[0]
     is_edge = src != I32_MAX
-    sl = torch.where(is_edge, L - ovl, I32_MAX)
+    if isinstance(read_len, (int, np.integer)):
+        L = src_len = int(read_len)
+    else:
+        # per-vertex lengths: K6 and K7 read len(v) from the tensor
+        L = torch.as_tensor(read_len).to(device=src.device,
+                                         dtype=torch.int32).contiguous()
+        src_len = L[src.clamp(0, max(n_vertices - 1, 0)).long()]
+    sl = torch.where(is_edge, src_len - ovl, I32_MAX)
     keys, order = sort_by_pair(src, sl)
     ss_dst = dst[order]
     ss_sl = (keys & 0xFFFFFFFF).to(torch.int32)
@@ -169,15 +172,14 @@ def transitive_reduction_auto(
     arrays for the device backend ("cuda" by default)."""
     if backend not in ("auto", "native", "device"):
         raise ValueError(f"unknown reduce backend: {backend!r}")
-    if not isinstance(read_len, (int, np.integer)):
-        raise NotImplementedError(_RAGGED)
     host_resident = isinstance(src, np.ndarray)
     if backend == "native" or (backend == "auto" and host_resident):
         if not host_resident:
             src, dst, ovl = (t.cpu().numpy() for t in (src, dst, ovl))
+        if isinstance(read_len, torch.Tensor):
+            read_len = read_len.cpu().numpy()
         return transitive_reduction_native(src, dst, ovl, n_vertices,
-                                           int(read_len),
-                                           n_threads=n_threads)
+                                           read_len, n_threads=n_threads)
     if host_resident:
         dev = resolve_device(device)
         src, dst, ovl = (torch.from_numpy(np.require(a, np.int32, "CW"))

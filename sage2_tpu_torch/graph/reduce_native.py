@@ -60,23 +60,34 @@ def reduce_marks(
     dst: np.ndarray,
     ovl: np.ndarray,
     n_vertices: int,
-    read_len: int,
+    read_len,
     n_threads: Optional[int] = None,
 ) -> tuple[np.ndarray, int]:
     """Removal mask + exact expansion total of the (src, dst)-sorted
-    int32 edge arrays (padding src == INT32_MAX at the tail), for
-    fixed-length reads of ``read_len``."""
+    int32 edge arrays (padding src == INT32_MAX at the tail);
+    ``read_len`` is the read length, or a (V,) array of per-vertex
+    lengths for ragged reads."""
     lib = _load()
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
     ovl = np.ascontiguousarray(ovl, np.int32)
     E = src.shape[0]
     removed = np.zeros(E, np.uint8)
+    if isinstance(read_len, (int, np.integer)):
+        fixed, lens_ptr = int(read_len), None
+    else:
+        fixed = -1
+        lens = np.ascontiguousarray(read_len, np.int32)
+        if lens.shape[0] < n_vertices:
+            # the C++ side reads lens[v] for every v < n_vertices
+            raise ValueError(f"reduce_marks: lens has {lens.shape[0]} "
+                             f"entries but n_vertices={n_vertices}")
+        lens_ptr = _ptr(lens)
     nt = n_threads or os.cpu_count() or 1
     total = lib.sage2_transitive_reduce(
         _ptr(src), _ptr(dst), _ptr(ovl), ctypes.c_int64(E),
-        ctypes.c_int32(int(n_vertices)), ctypes.c_int32(int(read_len)),
-        None, ctypes.c_int32(int(nt)),
+        ctypes.c_int32(int(n_vertices)), ctypes.c_int32(fixed),
+        lens_ptr, ctypes.c_int32(int(nt)),
         removed.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
     )
     if total < 0:

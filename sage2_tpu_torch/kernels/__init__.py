@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
-Eight kernels (sources in ``kernels/csrc``):
+Nine kernels (sources in ``kernels/csrc``):
 
   K1 ``kmer_keys``      forward, RC and canonical k-mer keys
   K2 ``lookup_counts``  binary search of query keys in a count table
@@ -12,6 +12,8 @@ Eight kernels (sources in ``kernels/csrc``):
                         transitive reduction (two launches)
   K7 ``reduce_marks``   expansion, membership probe and removal marks of
                         the device transitive reduction, one slot range
+  K8 ``canonical_reads`` reverse complement, packed words and canonical
+                        choice of each read (the dedup stage)
   P1 ``gather_along``   gather along one axis of an (N, W) table (the
                         Pallas probe's kernel; on no path of the package)
 
@@ -32,7 +34,7 @@ import ctypes
 import os
 import shutil
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -40,7 +42,8 @@ from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.utils import native_build
 
 KERNELS = ("kmer_keys", "lookup_counts", "overlap_join", "pointer_jump",
-           "vote_windows", "reduce_counts", "reduce_marks", "gather_along")
+           "vote_windows", "reduce_counts", "reduce_marks", "canonical_reads",
+           "gather_along")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -57,21 +60,26 @@ _ARGTYPES = {
     "overlap_join": {
         "sage2_join_count": [_P, _P, _I64, _I, _I, _P, _P, _P],
         "sage2_join_write": [_P, _P, _I, _I64, _P, _P, _P, _I, _I, _I,
-                             _I, _P, _P, _P, _P, _P],
+                             _I, _I64, _P, _P, _P, _P, _P, _P],
     },
     "pointer_jump": {
         "sage2_pointer_jump": [_P, _P, _P, _P, _I64, _I, _P],
     },
     "vote_windows": {
-        "sage2_vote_windows": [_P, _I64, _I, _I, _P, _P, _I64, _I, _P, _P],
+        "sage2_vote_windows": [_P, _P, _I64, _I, _I, _P, _P, _I64, _I, _P,
+                               _P],
     },
     "reduce_counts": {
         "sage2_reduce_vertices": [_P, _P, _I64, _I64, _P, _P, _P, _P],
-        "sage2_reduce_edges": [_P, _P, _P, _P, _I64, _I, _P, _P, _P, _P],
+        "sage2_reduce_edges": [_P, _P, _P, _P, _I64, _I, _P, _P, _P, _P,
+                               _P],
     },
     "reduce_marks": {
         "sage2_reduce_marks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                               _I, _I64, _I64, _P],
+                               _I, _P, _I64, _I64, _P],
+    },
+    "canonical_reads": {
+        "sage2_canonical_reads": [_P, _P, _I64, _I, _P, _P, _P, _P, _P],
     },
     "gather_along": {
         "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P],
@@ -211,18 +219,32 @@ def overlap_join(
     g: int,
     trim: int,
     min_overlap: int,
+    contained: Optional[torch.Tensor] = None,
+    slot_limit: Union[int, Callable[[int], int], None] = None,
 ):
     """(ok bool, cand_a, cand_b, ovl int32, total) over the sorted live
     seed rows: ``s_keys`` int64 and ``s_rows`` int32 row ids, sorted by
     key with entries before queries inside a key; ``payload`` (rows,
-    Wt + 2) int32 indexed by row id. Output arrays hold exactly
-    ``total`` candidates (one host sync reads it between the passes)."""
-    if _on_cpu(s_keys, s_rows, payload):
+    Wt + 2) int32 indexed by row id, its last column the read length.
+    ``total`` counts every candidate (one host sync reads it between the
+    passes); the output arrays hold the first ``min(total, limit)`` of
+    them, ``limit`` being ``slot_limit`` or, for a function,
+    ``slot_limit(total)`` (all without a limit).
+
+    ``contained``: None (fixed-length reads), or a (reads,) uint8
+    tensor in which the write pass sets ``contained[b] = 1`` for each
+    verified pair of those slots that holds read b whole (ragged
+    reads)."""
+    tensors = (s_keys, s_rows, payload) + (
+        () if contained is None else (contained,))
+    if _on_cpu(*tensors):
         return plain.overlap_join(s_keys, s_rows, payload, R, g, trim,
-                                  min_overlap)
+                                  min_overlap, contained, slot_limit)
     _dtype(s_keys, torch.int64, "s_keys")
     _dtype(s_rows, torch.int32, "s_rows")
     _dtype(payload, torch.int32, "payload")
+    if contained is not None:
+        _dtype(contained, torch.uint8, "contained")
     dev = s_keys.device
     n = s_keys.shape[0]
 
@@ -230,6 +252,7 @@ def overlap_join(
         return torch.empty(size, dtype=dtype, device=dev)
 
     if n == 0:
+        plain.slots_to_write(0, slot_limit)
         z = empty(0, torch.int32)
         return empty(0, torch.bool), z, z.clone(), z.clone(), 0
     counts = empty(n, torch.int32)
@@ -239,12 +262,14 @@ def overlap_join(
     LAUNCHES["overlap_join"] += 1
     offsets = torch.cumsum(counts, 0, dtype=torch.int64)
     total = int(offsets[-1])
+    n_out = plain.slots_to_write(total, slot_limit)
     starts = offsets - counts
-    ok = empty(total, torch.bool)
-    cand = [empty(total, torch.int32) for _ in range(3)]
+    ok = empty(n_out, torch.bool)
+    cand = [empty(n_out, torch.int32) for _ in range(3)]
     _launch("overlap_join", "sage2_join_write", _ptr(s_rows), _ptr(payload),
             payload.shape[1], n, _ptr(counts), _ptr(ebase), _ptr(starts),
-            R, g, trim, min_overlap, _ptr(ok), *map(_ptr, cand), _stream())
+            R, g, trim, min_overlap, n_out, _ptr(ok), *map(_ptr, cand),
+            _ptr(contained), _stream())
     LAUNCHES["overlap_join"] += 1
     return (ok, *cand, total)
 
@@ -284,20 +309,28 @@ def _vote_smem(L: int, k: int) -> int:
 
 def vote_windows(
     reads: torch.Tensor, table: torch.Tensor, counts: torch.Tensor,
-    k: int, threshold: int,
+    k: int, threshold: int, lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One voting round: the (N, L) int32 reads with every base whose
     covering windows vote for one other base by a unique maximum
     replaced (sage2_tpu/kmer/correct.py voting_round). ``table``: sorted
-    unique int64 canonical keys with int32 ``counts``; 1 < k <= 31."""
+    unique int64 canonical keys with int32 ``counts``; 1 < k <= 31.
+    ``lengths``: (N,) int32 per-read lengths of ragged reads (windows
+    past a read's end do not vote, bases past it are not replaced), or
+    None."""
     if not 1 < k <= 31:
         raise ValueError(f"k must be in (1, 31], got {k}")
     N, L = reads.shape
     if L < k:
         raise ValueError(f"k ({k}) exceeds read length ({L})")
-    if _on_cpu(reads, table, counts):
-        return plain.vote_windows(reads, table, counts, k, threshold)
+    tensors = (reads, table, counts) + (
+        () if lengths is None else (lengths,))
+    if _on_cpu(*tensors):
+        return plain.vote_windows(reads, table, counts, k, threshold,
+                                  lengths)
     _dtype(reads, torch.int32, "reads")
+    if lengths is not None:
+        _dtype(lengths, torch.int32, "lengths")
     _dtype(table, torch.int64, "table")
     _dtype(counts, torch.int32, "counts")
     if _vote_smem(L, k) > _MAX_SMEM:
@@ -305,16 +338,24 @@ def vote_windows(
                          f"than a block has")
     out = torch.empty_like(reads)
     if N:
-        _launch("vote_windows", "sage2_vote_windows", _ptr(reads), N, L, k,
-                _ptr(table), _ptr(counts), table.shape[0], threshold,
-                _ptr(out), _stream())
+        _launch("vote_windows", "sage2_vote_windows", _ptr(reads),
+                _ptr(lengths), N, L, k, _ptr(table), _ptr(counts),
+                table.shape[0], threshold, _ptr(out), _stream())
         LAUNCHES["vote_windows"] += 1
     return out
 
 
+def _lens(read_len):
+    """(scalar length, per-vertex lengths tensor or None) of a
+    ``read_len`` that is an int or a (V,) int32 tensor."""
+    if isinstance(read_len, torch.Tensor):
+        return 0, read_len
+    return int(read_len), None
+
+
 def reduce_counts(
     keys: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-    ovl: torch.Tensor, n_vertices: int, read_len: int,
+    ovl: torch.Tensor, n_vertices: int, read_len,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(start, maxsl, startd, counts) of the device reduction's prep.
 
@@ -324,13 +365,17 @@ def reduce_counts(
     int32 ``start`` (V,) (first adjacency key of each vertex), ``maxsl``
     (V,) (its largest sl, -1 without edges), ``startd`` (V + 1,) (each
     vertex's first row in the (src, dst) order) and ``counts`` (E,)
-    (each edge's expansion count); see kernels/csrc/reduce_counts.cu."""
-    if _on_cpu(keys, src, dst, ovl):
+    (each edge's expansion count); see kernels/csrc/reduce_counts.cu.
+    ``read_len``: the read length, or a (V,) int32 tensor of per-vertex
+    lengths (ragged reads); an edge's sl is len(src) - ovl."""
+    L, lens = _lens(read_len)
+    tensors = (keys, src, dst, ovl) + (() if lens is None else (lens,))
+    if _on_cpu(*tensors):
         return plain.reduce_counts(keys, src, dst, ovl, n_vertices,
                                    read_len)
     _dtype(keys, torch.int64, "keys")
-    for t in (src, dst, ovl):
-        _dtype(t, torch.int32, "edge arrays")
+    for t in tensors[1:]:
+        _dtype(t, torch.int32, "edge arrays and lengths")
     E, V = src.shape[0], n_vertices
 
     def empty(n):
@@ -342,8 +387,8 @@ def reduce_counts(
     LAUNCHES["reduce_counts"] += 1
     if E:
         _launch("reduce_counts", "sage2_reduce_edges", _ptr(keys),
-                _ptr(src), _ptr(dst), _ptr(ovl), E, read_len, _ptr(start),
-                _ptr(maxsl), _ptr(counts), _stream())
+                _ptr(src), _ptr(dst), _ptr(ovl), E, L, _ptr(lens),
+                _ptr(start), _ptr(maxsl), _ptr(counts), _stream())
         LAUNCHES["reduce_counts"] += 1
     return start, maxsl, startd, counts
 
@@ -352,12 +397,13 @@ def reduce_marks(
     removed: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
     dst: torch.Tensor, ovl: torch.Tensor, ss_sl: torch.Tensor,
     ss_dst: torch.Tensor, start: torch.Tensor, startd: torch.Tensor,
-    read_len: int, j0: int, j1: int,
+    read_len, j0: int, j1: int,
 ) -> torch.Tensor:
     """Probe the expansion slots [j0, j1) and set ``removed[pos] = 1``
     (uint8, in place) for each edge a length-2 path implies; returns
     ``removed``. ``offsets``: (E,) int64 inclusive prefix sum of K6's
     counts; ``ss_sl``, ``ss_dst``: sl and dst in the (src, sl) order;
+    ``read_len``: an int, or a (V,) int32 tensor of per-vertex lengths;
     see kernels/csrc/reduce_marks.cu."""
     E = src.shape[0]
     total = int(offsets[-1]) if E else 0
@@ -365,17 +411,52 @@ def reduce_marks(
         raise ValueError(f"slot range [{j0}, {j1}) outside [0, {total})")
     tensors = (removed, offsets, src, dst, ovl, ss_sl, ss_dst, start,
                startd)
-    if _on_cpu(*tensors):
+    L, lens = _lens(read_len)
+    if _on_cpu(*tensors, *(() if lens is None else (lens,))):
         return plain.reduce_marks(*tensors, read_len, j0, j1)
     _dtype(removed, torch.uint8, "removed")
     _dtype(offsets, torch.int64, "offsets")
-    for t in tensors[2:]:
-        _dtype(t, torch.int32, "edge and run arrays")
+    for t in tensors[2:] + (() if lens is None else (lens,)):
+        _dtype(t, torch.int32, "edge, run and length arrays")
     if j1 > j0:
         _launch("reduce_marks", "sage2_reduce_marks",
-                *map(_ptr, tensors), E, read_len, j0, j1, _stream())
+                *map(_ptr, tensors), E, L, _ptr(lens), j0, j1, _stream())
         LAUNCHES["reduce_marks"] += 1
     return removed
+
+
+def canonical_reads(
+    reads: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+    rc_only: bool = False,
+):
+    """(rc, fwd_w, rc_w, take_rc) of (N, L) int32 reads: ``rc`` (N, L)
+    int32 the reverse complement of each read's first ``lengths[i]``
+    bases (all L without lengths), zero past them; ``fwd_w`` and
+    ``rc_w`` (N, ceil(L / 16)) int64 the packed words of the read and
+    of ``rc`` (ops.bitpack.pack_read_words, codes past the length taken
+    as 0); ``take_rc`` (N,) bool: ``rc_w`` is the lexicographically
+    smaller. With ``rc_only`` the last three are None."""
+    tensors = (reads,) + (() if lengths is None else (lengths,))
+    if _on_cpu(*tensors):
+        return plain.canonical_reads(reads, lengths, rc_only)
+    _dtype(reads, torch.int32, "reads")
+    if lengths is not None:
+        _dtype(lengths, torch.int32, "lengths")
+    N, L = reads.shape
+    W = -(-L // 16)
+    dev = reads.device
+    rc = torch.empty_like(reads)
+    fwd_w = rc_w = take_rc = None
+    if not rc_only:
+        fwd_w = torch.empty((N, W), dtype=torch.int64, device=dev)
+        rc_w = torch.empty((N, W), dtype=torch.int64, device=dev)
+        take_rc = torch.empty(N, dtype=torch.bool, device=dev)
+    if N:
+        _launch("canonical_reads", "sage2_canonical_reads", _ptr(reads),
+                _ptr(lengths), N, L, _ptr(rc), _ptr(fwd_w), _ptr(rc_w),
+                _ptr(take_rc), _stream())
+        LAUNCHES["canonical_reads"] += 1
+    return rc, fwd_w, rc_w, take_rc
 
 
 def gather_along(tbl: torch.Tensor, idx: torch.Tensor,

@@ -23,7 +23,19 @@
 //
 // Precondition: rows are sorted by key and, within a key, entries (slot
 // t < g of a read) before queries, each by row id. Dead rows (invalid
-// reads) are not passed at all.
+// reads, and for ragged reads the seeds that pass a read's end) are not
+// passed at all.
+//
+// Ragged reads: each payload row carries its read's length, and the
+// verify compares min(len_a - p, len_b - o) bases, so nothing past either
+// read's end takes part. The write pass then also marks containments
+// (the reference's ok_contained, :1011, scattered at :836-843): a
+// verified pair with len_b <= ovl stores contained[b] = 1. Racing stores
+// write the same 1, so the marks need no atomics and no candidate-sized
+// array. Fixed-length reads pass no `contained` (len_b == L > ovl
+// always). Only slots below `slot_limit` are written and marked: the
+// reference's candidate capacity, when the caller keeps fewer slots than
+// there are candidates.
 //
 // Bound: bytes. The count pass reads each key and row id about twice;
 // the write pass reads one payload row per query and one per candidate
@@ -56,9 +68,10 @@ __global__ void join_write_kernel(
     const int32_t* __restrict__ rows, const uint32_t* __restrict__ payload,
     int W2, int64_t n, const int32_t* __restrict__ counts,
     const int32_t* __restrict__ ebase, const int64_t* __restrict__ starts,
-    int R, int g, int trim, int min_overlap, bool* __restrict__ ok,
-    int32_t* __restrict__ cand_a, int32_t* __restrict__ cand_b,
-    int32_t* __restrict__ cand_ovl) {
+    int R, int g, int trim, int min_overlap, int64_t slot_limit,
+    bool* __restrict__ ok, int32_t* __restrict__ cand_a,
+    int32_t* __restrict__ cand_b, int32_t* __restrict__ cand_ovl,
+    uint8_t* __restrict__ contained) {
   const int Wt = W2 - 2;  // payload row: [Wt words, prev/first word, len]
   SAGE2_GRID_STRIDE(i, n) {
     const int c = counts[i];
@@ -71,7 +84,9 @@ __global__ void join_write_kernel(
     const uint32_t apw = pa[Wt];  // bases [p-16, p) of a, right-aligned
     const int64_t slot0 = starts[i];
     const int64_t e0 = ebase[i];
-    for (int r = 0; r < c; ++r) {
+    int64_t n_slots = slot_limit - slot0;  // slots below the limit
+    if (n_slots > c) n_slots = c;
+    for (int r = 0; r < n_slots; ++r) {
       const int32_t eid = rows[e0 + r];
       const int32_t b = eid / R;
       const int o = eid % R;  // entry offset inside read b's prefix
@@ -93,6 +108,7 @@ __global__ void join_write_kernel(
       match = match && lhs == rhs;
       const int64_t slot = slot0 + r;
       ok[slot] = match && ovl < len_b && ovl >= min_overlap;
+      if (contained != nullptr && match && len_b <= ovl) contained[b] = 1;
       cand_a[slot] = a;
       cand_b[slot] = b;
       cand_ovl[slot] = ovl;
@@ -113,13 +129,15 @@ SAGE2_EXPORT int sage2_join_count(const void* keys, const void* rows,
 }
 
 // payload: (n_rows_total, W2) int32 words indexed by row id; starts: (n,)
-// int64 first slot of each query; ok/cand_*: (total,) outputs.
+// int64 first slot of each query; ok/cand_*: (min(total, slot_limit),)
+// outputs; contained: (reads,) uint8 marks, or NULL.
 SAGE2_EXPORT int sage2_join_write(const void* rows, const void* payload,
                                   int W2, int64_t n, const void* counts,
                                   const void* ebase, const void* starts,
                                   int R, int g, int trim, int min_overlap,
-                                  void* ok, void* cand_a, void* cand_b,
-                                  void* cand_ovl, void* stream) {
+                                  int64_t slot_limit, void* ok, void* cand_a,
+                                  void* cand_b, void* cand_ovl,
+                                  void* contained, void* stream) {
   join_write_kernel<<<sage2_blocks(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rows),
@@ -127,7 +145,8 @@ SAGE2_EXPORT int sage2_join_write(const void* rows, const void* payload,
       static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(ebase),
       static_cast<const int64_t*>(starts), R, g, trim, min_overlap,
-      static_cast<bool*>(ok), static_cast<int32_t*>(cand_a),
-      static_cast<int32_t*>(cand_b), static_cast<int32_t*>(cand_ovl));
+      slot_limit, static_cast<bool*>(ok), static_cast<int32_t*>(cand_a),
+      static_cast<int32_t*>(cand_b), static_cast<int32_t*>(cand_ovl),
+      static_cast<uint8_t*>(contained));
   return static_cast<int>(cudaGetLastError());
 }

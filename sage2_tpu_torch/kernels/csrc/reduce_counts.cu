@@ -17,10 +17,13 @@
 //                              src array (the membership probe's run
 //                              table; v = V gives the end of the last run);
 //   edge pass    one thread per edge e of the (src, dst) order: with
-//                sl = L - ovl[e] and bound = maxsl[src] - sl, the number of
-//                dst's out-edges with sl <= bound,
+//                sl = len(src) - ovl[e] and bound = maxsl[src] - sl, the
+//                number of dst's out-edges with sl <= bound,
 //                  counts[e] = upper bound of (dst, bound) - start[dst],
-//                or 0 for padding rows and negative bounds.
+//                or 0 for padding rows and negative bounds. len(v) is the
+//                scalar read length, or lens[v] for ragged reads (the
+//                reference's (V,) read_len, :139-143); the caller's keys
+//                carry the same sl.
 //
 // Bound: operations, a few binary searches of log2(E) dependent loads per
 // vertex and per edge; the bytes are the keys and edge arrays read once.
@@ -68,6 +71,7 @@ __global__ void reduce_edge_kernel(const int64_t* __restrict__ keys,
                                    const int32_t* __restrict__ dst,
                                    const int32_t* __restrict__ ovl,
                                    int64_t E, int read_len,
+                                   const int32_t* __restrict__ lens,
                                    const int32_t* __restrict__ start,
                                    const int32_t* __restrict__ maxsl,
                                    int32_t* __restrict__ counts) {
@@ -75,8 +79,9 @@ __global__ void reduce_edge_kernel(const int64_t* __restrict__ keys,
     const int32_t v = src[e];
     int32_t n = 0;
     if (v != kI32Max) {
+      const int len_v = lens == nullptr ? read_len : lens[v];
       const int64_t bound =
-          static_cast<int64_t>(maxsl[v]) - (read_len - ovl[e]);
+          static_cast<int64_t>(maxsl[v]) - (len_v - ovl[e]);
       if (bound >= 0) {
         const int64_t w = dst[e];
         const int64_t upto = bound_of<int64_t>(keys, E, (w << 32) | bound,
@@ -90,7 +95,8 @@ __global__ void reduce_edge_kernel(const int64_t* __restrict__ keys,
 
 // keys: (E,) sorted int64 src << 32 | sl; src, dst, ovl: (E,) int32 in
 // (src, dst) order, padding src == INT32_MAX at the tail; start, maxsl:
-// (V,) int32; startd: (V + 1,) int32; counts: (E,) int32.
+// (V,) int32; startd: (V + 1,) int32; counts: (E,) int32; lens: (V,)
+// int32 per-vertex read lengths, or NULL (every read is read_len long).
 SAGE2_EXPORT int sage2_reduce_vertices(const void* keys, const void* src,
                                        int64_t E, int64_t V, void* start,
                                        void* maxsl, void* startd,
@@ -106,13 +112,15 @@ SAGE2_EXPORT int sage2_reduce_vertices(const void* keys, const void* src,
 SAGE2_EXPORT int sage2_reduce_edges(const void* keys, const void* src,
                                     const void* dst, const void* ovl,
                                     int64_t E, int read_len,
-                                    const void* start, const void* maxsl,
-                                    void* counts, void* stream) {
+                                    const void* lens, const void* start,
+                                    const void* maxsl, void* counts,
+                                    void* stream) {
   reduce_edge_kernel<<<sage2_blocks(E), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), static_cast<const int32_t*>(src),
       static_cast<const int32_t*>(dst), static_cast<const int32_t*>(ovl), E,
-      read_len, static_cast<const int32_t*>(start),
+      read_len, static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(maxsl), static_cast<int32_t*>(counts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,10 @@
 //   x    = ss_dst[e2]; the path v -> w -> x with v = src[e1] is skipped
 //          when x == v; otherwise x is bisected in v's out-run of the
 //          (src, dst) order, dst[startd[v] : startd[v + 1]], and a hit
-//          with L - ovl[pos] == sl[e1] + ss_sl[e2] marks removed[pos] = 1.
+//          with len(v) - ovl[pos] == sl[e1] + ss_sl[e2] marks
+//          removed[pos] = 1, where sl[e1] = len(v) - ovl[e1] and len(v)
+//          is the scalar read length, or lens[v] for ragged reads (the
+//          reference's c_plen, :551).
 //
 // Racing stores write the same 1, so the marks do not depend on the
 // order of the threads. The wrapper launches the slot space in ranges of
@@ -34,8 +37,8 @@ __global__ void reduce_marks_kernel(
     const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
     const int32_t* __restrict__ ovl, const int32_t* __restrict__ ss_sl,
     const int32_t* __restrict__ ss_dst, const int32_t* __restrict__ start,
-    const int32_t* __restrict__ startd, int64_t E, int read_len, int64_t j0,
-    int64_t j1) {
+    const int32_t* __restrict__ startd, int64_t E, int read_len,
+    const int32_t* __restrict__ lens, int64_t j0, int64_t j1) {
   SAGE2_GRID_STRIDE(i, j1 - j0) {
     const int64_t j = j0 + i;
     int64_t lo = 0, hi = E;
@@ -53,7 +56,8 @@ __global__ void reduce_marks_kernel(
     const int32_t v = src[e1];
     const int32_t x = ss_dst[e2];
     if (x == v) continue;
-    const int32_t sls = (read_len - ovl[e1]) + ss_sl[e2];
+    const int32_t len_v = lens == nullptr ? read_len : lens[v];
+    const int32_t sls = (len_v - ovl[e1]) + ss_sl[e2];
     int64_t a = startd[v], b = startd[v + 1];
     const int64_t end = b;
     while (a < b) {
@@ -64,21 +68,23 @@ __global__ void reduce_marks_kernel(
         b = mid;
       }
     }
-    if (a < end && dst[a] == x && read_len - ovl[a] == sls) removed[a] = 1;
+    if (a < end && dst[a] == x && len_v - ovl[a] == sls) removed[a] = 1;
   }
 }
 
 // removed: (E,) uint8, marks added in place; offsets: (E,) int64 inclusive
 // prefix sum of the expansion counts; src, dst, ovl: (E,) int32 in (src,
 // dst) order; ss_sl, ss_dst: (E,) int32 in (src, sl) order; start: (V,)
-// int32; startd: (V + 1,) int32; 0 <= j0 <= j1 <= offsets[E - 1].
+// int32; startd: (V + 1,) int32; lens: (V,) int32 per-vertex read
+// lengths, or NULL (every read is read_len long); 0 <= j0 <= j1 <=
+// offsets[E - 1].
 SAGE2_EXPORT int sage2_reduce_marks(void* removed, const void* offsets,
                                     const void* src, const void* dst,
                                     const void* ovl, const void* ss_sl,
                                     const void* ss_dst, const void* start,
                                     const void* startd, int64_t E,
-                                    int read_len, int64_t j0, int64_t j1,
-                                    void* stream) {
+                                    int read_len, const void* lens,
+                                    int64_t j0, int64_t j1, void* stream) {
   reduce_marks_kernel<<<sage2_blocks(j1 - j0), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint8_t*>(removed), static_cast<const int64_t*>(offsets),
@@ -86,6 +92,7 @@ SAGE2_EXPORT int sage2_reduce_marks(void* removed, const void* offsets,
       static_cast<const int32_t*>(ovl), static_cast<const int32_t*>(ss_sl),
       static_cast<const int32_t*>(ss_dst),
       static_cast<const int32_t*>(start),
-      static_cast<const int32_t*>(startd), E, read_len, j0, j1);
+      static_cast<const int32_t*>(startd), E, read_len,
+      static_cast<const int32_t*>(lens), j0, j1);
   return static_cast<int>(cudaGetLastError());
 }

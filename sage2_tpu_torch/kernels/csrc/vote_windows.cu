@@ -23,6 +23,11 @@
 //      the replacement is the argmax (the lowest base among ties, which
 //      the rule excludes anyway).
 //
+// Ragged reads (a length per read): a window that runs past the read's
+// end (w >= len - k + 1) casts no vote, and a base at or past the end is
+// never replaced (the reference's :152-153 and :185-186). Without
+// lengths every read is L long.
+//
 // The table may be pruned to its solid entries (prune_table_for_
 // correction): a sub-threshold entry and an absent key give the same
 // verdict, so the result does not change.
@@ -50,6 +55,7 @@ __device__ __forceinline__ int32_t table_count(const int64_t* __restrict__ t,
 }
 
 __global__ void vote_windows_kernel(const int32_t* __restrict__ reads,
+                                    const int32_t* __restrict__ lengths,
                                     int64_t n_reads, int L, int k,
                                     const int64_t* __restrict__ table,
                                     const int32_t* __restrict__ counts,
@@ -65,6 +71,8 @@ __global__ void vote_windows_kernel(const int32_t* __restrict__ reads,
 
   for (int64_t r = blockIdx.x; r < n_reads; r += gridDim.x) {
     const int32_t* read = reads + r * L;
+    const int len = lengths == nullptr ? L : lengths[r];
+    const int P_r = len - k + 1;  // windows inside the read (may be <= 0)
     for (int p = threadIdx.x; p < L; p += blockDim.x) {
       s_base[p] = read[p];
       s_votes[4 * p] = s_votes[4 * p + 1] = 0;
@@ -89,6 +97,7 @@ __global__ void vote_windows_kernel(const int32_t* __restrict__ reads,
     for (int i = threadIdx.x; i < P * k; i += blockDim.x) {
       const int w = i / k;
       const int j = i - w * k;
+      if (w >= P_r) continue;  // past the read's end: no vote
       const int64_t cur = s_base[w + j];
       const int sf = 2 * (k - 1 - j);   // position j of the forward key
       const int sr = 2 * j;             // position k-1-j of the RC key
@@ -122,7 +131,7 @@ __global__ void vote_windows_kernel(const int32_t* __restrict__ reads,
       }
       int n_at_max = 0;
       for (int b = 0; b < 4; ++b) n_at_max += v[b] == m;
-      out[r * L + p] = (m > v[cur] && n_at_max == 1) ? best : cur;
+      out[r * L + p] = (m > v[cur] && n_at_max == 1 && p < len) ? best : cur;
     }
     __syncthreads();
   }
@@ -135,9 +144,11 @@ static int64_t vote_windows_smem(int L, int k) {
   return 20 * P + 20 * int64_t{L};
 }
 
-// reads, out: (n_reads, L) int32 codes 0-3; table: (T,) sorted unique int64
-// canonical keys (1 < k <= 31); counts: (T,) int32.
-SAGE2_EXPORT int sage2_vote_windows(const void* reads, int64_t n_reads, int L,
+// reads, out: (n_reads, L) int32 codes 0-3; lengths: (n_reads,) int32 or
+// NULL; table: (T,) sorted unique int64 canonical keys (1 < k <= 31);
+// counts: (T,) int32.
+SAGE2_EXPORT int sage2_vote_windows(const void* reads, const void* lengths,
+                                    int64_t n_reads, int L,
                                     int k, const void* table,
                                     const void* counts, int64_t T,
                                     int threshold, void* out, void* stream) {
@@ -153,7 +164,8 @@ SAGE2_EXPORT int sage2_vote_windows(const void* reads, int64_t n_reads, int L,
   vote_windows_kernel<<<static_cast<int>(grid), kThreads,
                         static_cast<size_t>(smem),
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(reads), n_reads, L, k,
+      static_cast<const int32_t*>(reads),
+      static_cast<const int32_t*>(lengths), n_reads, L, k,
       static_cast<const int64_t*>(table), static_cast<const int32_t*>(counts),
       T, threshold, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -11,11 +11,11 @@ whole-tensor ops and are no yardstick of speed.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from sage2_tpu_torch.ops.sort import expand_by_counts
+from sage2_tpu_torch.ops.sort import words_less
 
 _U32 = 0xFFFFFFFF
 
@@ -88,6 +88,16 @@ def lookup_counts(
     return out.to(torch.int32).reshape(queries.shape)
 
 
+def slots_to_write(total: int, slot_limit) -> int:
+    """How many of ``total`` candidate slots K3 writes: all without a
+    limit, else at most ``slot_limit``, or ``slot_limit(total)`` when it
+    is a function of the count (called once)."""
+    if slot_limit is None:
+        return total
+    limit = slot_limit(total) if callable(slot_limit) else slot_limit
+    return max(0, min(total, limit))
+
+
 def overlap_join(
     s_keys: torch.Tensor,
     s_rows: torch.Tensor,
@@ -96,13 +106,20 @@ def overlap_join(
     g: int,
     trim: int,
     min_overlap: int,
+    contained: Optional[torch.Tensor] = None,
+    slot_limit: Union[int, Callable[[int], int], None] = None,
+    block: int = 1 << 22,
 ):
     """(ok, cand_a, cand_b, ovl, total) of the sorted seed rows.
 
     ``s_keys``/``s_rows``: live seed rows sorted by key, entries before
     queries within a key; ``payload``: (rows, Wt + 2) int32 indexed by
     row id. One candidate per (query, entry of its run), in sorted
-    query order and entry order within a query.
+    query order and entry order within a query; the first
+    ``slots_to_write(total, slot_limit)`` of them are returned. ``contained`` (uint8, updated
+    in place): read b of each verified pair among those with len_b <=
+    ovl, the reference's ok_contained scattered (detect.py:836-843).
+    The slots are computed ``block`` at a time.
     """
     dev = s_keys.device
     n = s_keys.shape[0]
@@ -116,35 +133,48 @@ def overlap_join(
                             device=dev).index_add_(
         0, run, is_entry.to(torch.int64))
     counts = torch.where(is_entry, 0, n_entries[run])
-    total = int(counts.sum())
-
-    qi, rank, _ = expand_by_counts(counts, total)
-    ei = run_start[run[qi]] + rank
-    qid = s_rows[qi].to(torch.int64)
-    eid = s_rows[ei].to(torch.int64)
-    pa = payload[qid].to(torch.int64) & _U32
-    pb = payload[eid].to(torch.int64) & _U32
-    Wt = payload.shape[1] - 2
-
-    cand_a = qid // R
-    p = (qid % R - g + 1) * g
-    cand_b = eid // R
-    o = eid % R
-    len_a = pa[:, Wt + 1]
-    len_b = pb[:, Wt + 1]
-    ovl = len_a - (p - o)
-    match = cand_a != cand_b
-    lc2 = 2 * torch.minimum(len_a - p, len_b - o)
-    for t in range(Wt):
-        vb = (lc2 - (t + trim) * 32).clamp(0, 32)
-        diff = (pa[:, t] ^ pb[:, t]) >> (32 - vb).clamp(max=31)
-        match &= (vb == 0) | (diff == 0)
-    lhs = pa[:, Wt] & (torch.bitwise_left_shift(torch.ones_like(o), 2 * o) - 1)
-    rhs = torch.where(o == 0, 0, pb[:, Wt] >> (32 - 2 * o).clamp(0, 31))
-    match &= lhs == rhs
-    ok = match & (ovl < len_b) & (ovl >= min_overlap)
+    offsets = torch.cumsum(counts, 0)
+    total = int(offsets[-1]) if n else 0
+    n_out = slots_to_write(total, slot_limit)
     i32 = torch.int32
-    return ok, cand_a.to(i32), cand_b.to(i32), ovl.to(i32), total
+    ok = torch.empty(n_out, dtype=torch.bool, device=dev)
+    cand = [torch.empty(n_out, dtype=i32, device=dev) for _ in range(3)]
+    Wt = payload.shape[1] - 2
+    # the candidate slots in blocks, to bound the per-slot temporaries
+    for j0 in range(0, n_out, block):
+        j = torch.arange(j0, min(j0 + block, n_out), device=dev)
+        qi = torch.searchsorted(offsets, j, right=True)
+        rank = j - (offsets[qi] - counts[qi])
+        ei = run_start[run[qi]] + rank
+        qid = s_rows[qi].to(torch.int64)
+        eid = s_rows[ei].to(torch.int64)
+        pa = payload[qid].to(torch.int64) & _U32
+        pb = payload[eid].to(torch.int64) & _U32
+
+        cand_a = qid // R
+        p = (qid % R - g + 1) * g
+        cand_b = eid // R
+        o = eid % R
+        len_a = pa[:, Wt + 1]
+        len_b = pb[:, Wt + 1]
+        ovl = len_a - (p - o)
+        match = cand_a != cand_b
+        lc2 = 2 * torch.minimum(len_a - p, len_b - o)
+        for t in range(Wt):
+            vb = (lc2 - (t + trim) * 32).clamp(0, 32)
+            diff = (pa[:, t] ^ pb[:, t]) >> (32 - vb).clamp(max=31)
+            match &= (vb == 0) | (diff == 0)
+        lhs = pa[:, Wt] & (torch.bitwise_left_shift(torch.ones_like(o), 2 * o)
+                           - 1)
+        rhs = torch.where(o == 0, 0, pb[:, Wt] >> (32 - 2 * o).clamp(0, 31))
+        match &= lhs == rhs
+        if contained is not None:
+            contained[cand_b[match & (len_b <= ovl)]] = 1
+        sl = slice(j0, j0 + j.shape[0])
+        ok[sl] = match & (ovl < len_b) & (ovl >= min_overlap)
+        for out, x in zip(cand, (cand_a, cand_b, ovl)):
+            out[sl] = x.to(i32)
+    return (ok, *cand, total)
 
 
 def pointer_jump(
@@ -178,18 +208,25 @@ def _count_of(table: torch.Tensor, counts: torch.Tensor,
 
 def vote_windows(
     reads: torch.Tensor, table: torch.Tensor, counts: torch.Tensor,
-    k: int, threshold: int, rows_per_chunk: int = 1 << 16,
+    k: int, threshold: int, lengths: Optional[torch.Tensor] = None,
+    rows_per_chunk: int = 1 << 16,
 ) -> torch.Tensor:
     """One round of the voting rule, as sage2_tpu/kmer/correct.py
     voting_round computes it: for each window position j and base b the
     canonical key of every window with base b at j, its solid verdict
     added to votes[b, :, w + j]; then the unique-max replace rule.
-    Processed in chunks of reads to bound the (4, N, L) temporaries."""
+    ``lengths``: windows past a read's end do not vote and bases past
+    it are not replaced. Processed in chunks of reads to bound the
+    (4, N, L) temporaries."""
     N, L = reads.shape
     P = L - k + 1
     out = []
     for r0 in range(0, N, rows_per_chunk):
         r = reads[r0 : r0 + rows_per_chunk]
+        wvalid = None
+        if lengths is not None:
+            ln = lengths[r0 : r0 + rows_per_chunk].to(torch.int64)[:, None]
+            wvalid = torch.arange(P, device=r.device)[None, :] < ln - (k - 1)
         fwd, rc, _ = kmer_keys(r, k)
         votes = torch.zeros((4,) + tuple(r.shape), dtype=torch.int32,
                             device=r.device)
@@ -201,24 +238,37 @@ def vote_windows(
                 vf = fwd + (b - cur) * wf
                 vr = rc + ((3 - b) - (3 - cur)) * wr
                 cnt = _count_of(table, counts, torch.minimum(vf, vr))
-                votes[b, :, j : j + P] += (cnt >= threshold).to(torch.int32)
+                solid = cnt >= threshold
+                if wvalid is not None:
+                    solid &= wvalid
+                votes[b, :, j : j + P] += solid.to(torch.int32)
         votes = votes.permute(1, 2, 0)                      # (n, L, 4)
         vcur = votes.gather(2, r.to(torch.int64)[..., None])[..., 0]
         m = votes.max(dim=2).values
         n_at_max = (votes == m[..., None]).sum(dim=2)
         best = votes.argmax(dim=2).to(r.dtype)
         replace = (m > vcur) & (n_at_max == 1)
+        if lengths is not None:
+            replace &= torch.arange(L, device=r.device)[None, :] < ln
         out.append(torch.where(replace, best, r))
     return torch.cat(out) if out else reads.clone()
 
 
+def _src_len(read_len, v: torch.Tensor):
+    """The read length of vertices ``v``: the scalar, or the (V,)
+    per-vertex lengths gathered."""
+    if isinstance(read_len, torch.Tensor):
+        return read_len[v].to(torch.int64)
+    return read_len
+
+
 def reduce_counts(
     keys: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-    ovl: torch.Tensor, n_vertices: int, read_len: int,
+    ovl: torch.Tensor, n_vertices: int, read_len,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """(start, maxsl, startd, counts) by torch.searchsorted over the
     composite keys, as sage2_tpu/graph/reduce.py _reduce_prep_host
-    computes them."""
+    computes them; ``read_len`` an int or (V,) per-vertex lengths."""
     V = n_vertices
     dev = keys.device
     i32 = torch.int32
@@ -233,8 +283,8 @@ def reduce_counts(
     startd = torch.searchsorted(
         src, torch.arange(V + 1, dtype=i32, device=dev))
     is_edge = src != 2**31 - 1
-    sl = read_len - ovl.to(torch.int64)
     v = src.to(torch.int64).clamp(max=max(V - 1, 0))
+    sl = _src_len(read_len, v) - ovl.to(torch.int64)
     bound = torch.where(is_edge, maxsl[v] - sl, -1)
     w = torch.where(is_edge, dst, 0).to(torch.int64)
     upto = torch.searchsorted(keys, (w << 32) | bound.clamp(min=0),
@@ -247,13 +297,14 @@ def reduce_marks(
     removed: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
     dst: torch.Tensor, ovl: torch.Tensor, ss_sl: torch.Tensor,
     ss_dst: torch.Tensor, start: torch.Tensor, startd: torch.Tensor,
-    read_len: int, j0: int, j1: int,
+    read_len, j0: int, j1: int,
 ) -> torch.Tensor:
     """Marks of the slots [j0, j1) as the in-core reference computes
     them (sage2_tpu/graph/reduce.py:93-116): slot to edge by a search
     of the prefix sum, membership by a search of (v, x) in the whole
-    (src, dst) order. ``removed`` is updated in place and returned;
-    ``startd`` is not needed here."""
+    (src, dst) order, both offsets in len(v) (``read_len`` an int or
+    (V,) per-vertex lengths). ``removed`` is updated in place and
+    returned; ``startd`` is not needed here."""
     dev = src.device
     j = torch.arange(j0, j1, dtype=torch.int64, device=dev)
     e1 = torch.searchsorted(offsets, j, right=True)
@@ -262,15 +313,43 @@ def reduce_marks(
     e2 = start[dst[e1].to(torch.int64)].to(torch.int64) + rank
     v = src[e1].to(torch.int64)
     x = ss_dst[e2].to(torch.int64)
-    sls = (read_len - ovl[e1]) + ss_sl[e2]
+    len_v = _src_len(read_len, v)
+    sls = (len_v - ovl[e1]) + ss_sl[e2]
     pair = (src.to(torch.int64) << 32) | dst.to(torch.int64)
     q = (v << 32) | x
     pos = torch.searchsorted(pair, q)
     pos_c = pos.clamp(max=src.shape[0] - 1)
     hit = ((x != v) & (pos < src.shape[0]) & (pair[pos_c] == q)
-           & (read_len - ovl[pos_c] == sls))
+           & (len_v - ovl[pos_c] == sls))
     removed[pos_c[hit]] = 1
     return removed
+
+
+def canonical_reads(
+    reads: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+    rc_only: bool = False,
+):
+    """(rc, fwd_w, rc_w, take_rc): the reverse complement of each
+    read's real bases re-padded with 0 (ops.bitpack.revcomp_ragged;
+    (3 - r).flip without lengths), the packed words of the read (codes
+    past its length taken as 0) and of its reverse complement, and
+    whether the reverse complement's words are the smaller."""
+    from sage2_tpu_torch.ops import bitpack
+
+    N, L = reads.shape
+    fwd = reads
+    if lengths is None:
+        rc = bitpack.revcomp_codes(reads)
+    else:
+        lengths = lengths.clamp(0, L)
+        rc = bitpack.revcomp_ragged(reads, lengths)
+        real = torch.arange(L, device=reads.device)[None, :] < lengths[:, None]
+        fwd = torch.where(real, reads, 0)
+    if rc_only:
+        return rc, None, None, None
+    fwd_w = bitpack.pack_read_words(fwd)
+    rc_w = bitpack.pack_read_words(rc)
+    return rc, fwd_w, rc_w, words_less(rc_w, fwd_w)
 
 
 def gather_along(tbl: torch.Tensor, idx: torch.Tensor,

@@ -23,6 +23,10 @@ BACKWARD sub-pass (first base), each in two phases:
 Both cuts of the reference (lookups only for weak windows; a table
 without sub-threshold entries) leave every verdict unchanged, so the
 result is bit-identical to the dense corrector.
+
+Ragged reads (``lengths``): windows past a read's end are never weak
+(single_window) and cast no vote (vote_all_windows, K5 with a length per
+read), and the recounts mask them out of the table.
 """
 
 from __future__ import annotations
@@ -32,10 +36,13 @@ from typing import Optional
 import torch
 
 from sage2_tpu_torch import kernels
-from sage2_tpu_torch.kmer.count import KmerTable, count_kmers, lookup_counts
+from sage2_tpu_torch.kmer.count import (
+    KmerTable,
+    count_kmers,
+    lookup_counts,
+    window_mask,
+)
 from sage2_tpu_torch.ops import bitpack
-
-_RAGGED = "ragged reads are not ported yet (ROADMAP Queue 1 item 10)"
 
 
 def prune_table_for_correction(table: KmerTable, threshold: int) -> KmerTable:
@@ -47,9 +54,13 @@ def prune_table_for_correction(table: KmerTable, threshold: int) -> KmerTable:
 
 
 def _phase1_kernel(canon: torch.Tensor, pruned: KmerTable,
-                   threshold: int) -> torch.Tensor:
-    """Flat (row-major) indices of the weak windows, ascending."""
+                   threshold: int,
+                   wvalid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flat (row-major) indices of the weak windows, ascending; with
+    ``wvalid`` only windows inside their read."""
     weak = lookup_counts(pruned, canon) < threshold
+    if wvalid is not None:
+        weak &= wvalid
     return torch.nonzero(weak.reshape(-1)).reshape(-1)
 
 
@@ -90,12 +101,15 @@ def _phase2_kernel(reads: torch.Tensor, fwd: torch.Tensor, rc: torch.Tensor,
 
 
 def twophase_round(reads: torch.Tensor, pruned: KmerTable, k: int,
-                   threshold: int) -> torch.Tensor:
+                   threshold: int,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One forward + backward round of the single_window rule against an
     already-pruned table."""
+    wvalid = (None if lengths is None
+              else window_mask(lengths, reads.shape[1], k))
     for which in ("last", "first"):
         fwd, rc, canon = bitpack.kmer_keys(reads, k)
-        widx = _phase1_kernel(canon, pruned, threshold)
+        widx = _phase1_kernel(canon, pruned, threshold, wvalid)
         reads = _phase2_kernel(reads, fwd, rc, pruned, k, threshold, which,
                                widx)
     return reads
@@ -110,27 +124,31 @@ def correct_reads_twophase(
     lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Correct (N, L) int32 reads; ``table``: the first round's count
-    table (later rounds recount)."""
-    if lengths is not None:
-        raise NotImplementedError(_RAGGED)
+    table (later rounds recount); ``lengths``: (N,) per-read lengths of
+    ragged reads."""
     for r in range(rounds):
-        t = table if (r == 0 and table is not None) else count_kmers(reads, k)
+        t = table if (r == 0 and table is not None) else count_kmers(
+            reads, k, lengths)
         reads = twophase_round(reads, prune_table_for_correction(t, threshold),
-                               k, threshold)
+                               k, threshold, lengths)
     return reads
 
 
 def voting_round(reads: torch.Tensor, table: KmerTable, k: int,
-                 threshold: int) -> torch.Tensor:
+                 threshold: int,
+                 lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One round of the covering-window voting rule (semantics pinned by
     oracle_correct_voting): for each base and each candidate base b, the
     number of covering windows whose k-mer with b there is solid; the
     base becomes the unique best-voted base when that beats its own
     vote. One launch of K5 against the table pruned to its solid
-    entries (which changes no verdict)."""
+    entries (which changes no verdict). ``lengths``: (N,) per-read
+    lengths of ragged reads, or None."""
     pruned = prune_table_for_correction(table, threshold)
+    if lengths is not None:
+        lengths = lengths.to(torch.int32).contiguous()
     return kernels.vote_windows(reads, pruned.keys, pruned.count, k,
-                                threshold)
+                                threshold, lengths)
 
 
 def correct_reads(
@@ -145,14 +163,15 @@ def correct_reads(
     """Correct (N, L) int32 reads; ``table``: the first round's count
     table (later rounds recount). ``rule``: "single_window" (forward
     and backward sub-passes, one covering window per base) or
-    "vote_all_windows" (voting across every covering window)."""
+    "vote_all_windows" (voting across every covering window).
+    ``lengths``: (N,) per-read lengths of ragged (0-padded) reads."""
     if rule not in ("single_window", "vote_all_windows"):
         raise ValueError(f"unknown correction rule {rule!r}")
-    if lengths is not None:
-        raise NotImplementedError(_RAGGED)
     if rule == "single_window":
-        return correct_reads_twophase(reads, k, threshold, rounds, table)
+        return correct_reads_twophase(reads, k, threshold, rounds, table,
+                                      lengths)
     for r in range(rounds):
-        t = table if (r == 0 and table is not None) else count_kmers(reads, k)
-        reads = voting_round(reads, t, k, threshold)
+        t = table if (r == 0 and table is not None) else count_kmers(
+            reads, k, lengths)
+        reads = voting_round(reads, t, k, threshold, lengths)
     return reads

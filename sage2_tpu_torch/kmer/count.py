@@ -33,14 +33,24 @@ class KmerTable(NamedTuple):
 def count_kmers(
     reads: torch.Tensor, k: int, lengths: Optional[torch.Tensor] = None
 ) -> KmerTable:
-    """Count canonical k-mers of (N, L) int32 reads."""
-    if lengths is not None:
-        raise NotImplementedError(
-            "ragged reads are not ported yet (ROADMAP Queue 1 item 10)")
+    """Count canonical k-mers of (N, L) int32 reads. ``lengths``: (N,)
+    per-read lengths of ragged (0-padded) reads; windows past a read's
+    end are not counted."""
     if not 1 < k <= 31:
         raise ValueError(f"k must be in (1, 31], got {k}")
     _, _, canon = bitpack.kmer_keys(reads, k)
-    return count_from_keys(canon.reshape(-1), k)
+    valid = None
+    if lengths is not None:
+        valid = window_mask(lengths, reads.shape[1], k).reshape(-1)
+    return count_from_keys(canon.reshape(-1), k, valid)
+
+
+def window_mask(lengths: torch.Tensor, L: int, k: int) -> torch.Tensor:
+    """(N, L - k + 1) bool: window p lies inside its read, p < len - k
+    + 1 (sage2_tpu/kmer/count.py:47-50)."""
+    P = L - k + 1
+    return (torch.arange(P, device=lengths.device)[None, :]
+            < lengths.to(torch.int64)[:, None] - (k - 1))
 
 
 def count_from_keys(keys: torch.Tensor, k: int,

@@ -56,6 +56,19 @@ def revcomp_codes(reads: torch.Tensor) -> torch.Tensor:
     return (3 - reads).flip(-1)
 
 
+def revcomp_ragged(reads: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse complement of each read's real bases, re-padded with 0
+    at the end: (N, L) codes, (N,) lengths (sage2_tpu/overlap/prepare.py
+    revcomp_ragged). The plain version of what kernel K8 writes."""
+    L = reads.shape[-1]
+    j = torch.arange(L, device=reads.device)[None, :]
+    ln = lengths.to(torch.int64)[:, None]
+    real = j < ln
+    idx = torch.where(real, ln - 1 - j, j)
+    return torch.where(real, 3 - reads.gather(1, idx), 0).to(reads.dtype)
+
+
 def kmer_keys(
     reads: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

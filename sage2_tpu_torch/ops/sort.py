@@ -50,32 +50,6 @@ def unique_sorted_pairs(
     return is_head, group_id
 
 
-def expand_by_counts(
-    counts: torch.Tensor, capacity: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Flatten variable-size groups into a fixed-capacity index space.
-
-    For each output slot j in [0, capacity): the group it belongs to, its
-    rank within the group, and whether it is valid (slots past
-    sum(counts) are not). Same outputs as the reference, including the
-    invalid tail.
-    """
-    G = counts.shape[0]
-    dev = counts.device
-    offsets = torch.cumsum(counts.to(torch.int64), 0)
-    total = int(offsets[-1]) if G else 0
-    starts = offsets - counts
-    nonempty = (counts > 0) & (starts < capacity)
-    init = torch.full((capacity + 1,), -1, dtype=torch.int64, device=dev)
-    init[starts[nonempty]] = torch.arange(G, device=dev)[nonempty]
-    group = torch.cummax(init[:capacity], 0).values
-    group_c = group.clamp(0, max(G - 1, 0))
-    j = torch.arange(capacity, device=dev)
-    rank = j - starts[group_c] if G else j
-    valid = (j < total) & (group >= 0)
-    return group_c, rank, valid
-
-
 def words_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Lexicographic a < b over the last (word) axis; any leading shape."""
     less = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)

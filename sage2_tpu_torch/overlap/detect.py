@@ -1,5 +1,5 @@
 """All-pairs exact suffix-prefix overlap detection (port of
-sage2_tpu/overlap/detect.py, fixed-length reads).
+sage2_tpu/overlap/detect.py, fixed-length and ragged reads).
 
 Every read contributes R = g + n_pos seed rows: ENTRY rows at prefix
 offsets o in [0, g) and QUERY rows at probe positions p in {g, 2g, ...};
@@ -8,6 +8,10 @@ and every true overlap >= min_overlap has exactly one such pair. The
 rows are sorted by their exact seed key (``torch.sort``), and kernel K3
 does the rest: each query's entry range, the candidate expansion and
 the word-wise verify. The longest overlap per (src, dst) is kept.
+
+Ragged reads (``lengths``): a seed row is live only where its whole seed
+lies inside its read, each payload row carries its read's length, and
+K3 also marks the reads that lie whole inside another (``contained``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,20 @@ from sage2_tpu_torch import kernels
 from sage2_tpu_torch.ops import bitpack
 from sage2_tpu_torch.ops.sort import I32_MAX
 
-_RAGGED = "ragged reads are not ported yet (ROADMAP Queue 1 item 10)"
+# find_overlaps_auto's last good candidate capacity per problem shape
+# (M, L, min_overlap, seed_len, stride, ragged): [capacity,
+# steady_validated], as sage2_tpu/overlap/detect.py keeps it.
+# steady_validated turns True once a validate=False call has confirmed
+# the capacity on the caller's inputs; later validate=False calls then
+# take it unchecked. Bounded; the oldest entry goes first.
+_CAP_MEMO: dict = {}
+_CAP_MEMO_MAX = 256
+
+
+def _memo_put(key, value) -> None:
+    if key not in _CAP_MEMO and len(_CAP_MEMO) >= _CAP_MEMO_MAX:
+        _CAP_MEMO.pop(next(iter(_CAP_MEMO)))
+    _CAP_MEMO[key] = value
 
 
 class OverlapResult(NamedTuple):
@@ -28,8 +45,10 @@ class OverlapResult(NamedTuple):
 
     src, dst: int32 vertex ids (padding rows INT32_MAX); ovl: int32
     overlap length (padding 0); n_edges, n_candidates, n_verified: ints;
-    overflow: candidates exceeded the capacity (only possible with an
-    explicit ``capacity`` to find_overlaps).
+    overflow: candidates exceeded the capacity (an explicit ``capacity``
+    to find_overlaps, or a memoized one taken unchecked); contained:
+    (M,) bool, the read lies whole inside a longer one (ragged reads;
+    all False for fixed-length reads); n_contained: its count.
     """
 
     src: torch.Tensor
@@ -39,6 +58,8 @@ class OverlapResult(NamedTuple):
     n_candidates: int
     n_verified: int
     overflow: bool
+    contained: torch.Tensor
+    n_contained: int
 
 
 def auto_stride(min_overlap: int, seed_len: int, pa: int) -> int:
@@ -107,7 +128,8 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
 
 
 def build_seed_rows(
-    reads2: torch.Tensor, valid2: torch.Tensor, s: int, geo: JoinGeometry
+    reads2: torch.Tensor, valid2: torch.Tensor, s: int, geo: JoinGeometry,
+    lengths: Optional[torch.Tensor] = None,
 ):
     """Seed rows of the join for (M, L) reads.
 
@@ -117,14 +139,19 @@ def build_seed_rows(
     +16); xw is, for ENTRY rows, the read's first word (the B side of
     the prefix check), for QUERY rows the word ending at pos (base
     pos - 1 in its low 2 bits; the A side); len the read length (the
-    reference's _row_payload, :562). Rows of invalid reads are not live.
+    reference's _row_payload, :562): L, or ``lengths[m]`` for ragged
+    reads. Rows of invalid reads are not live, nor for ragged reads the
+    rows whose seed passes the read's end (pos + s > len, :676-678).
     """
     M, L = reads2.shape
     g, n_pos, R = geo.g, geo.n_pos, geo.R
     positions = list(range(g)) + [g * (j + 1) for j in range(n_pos)]
     words0 = bitpack.pack_read_words(reads2)
     first = words0[:, 0]
-    length = torch.full_like(first, L)
+    if lengths is None:
+        length = torch.full_like(first, L)
+    else:
+        length = lengths.to(torch.int64)
     keys, rows = [], []
     for i, pos in enumerate(positions):
         if pos + s > L:
@@ -141,6 +168,9 @@ def build_seed_rows(
             xw = bitpack.word_at(words0, pos - 16)
         rows.append(_as_int32(torch.stack(aw + [xw, length], dim=1)))
     live = valid2[:, None].expand(M, R)
+    if lengths is not None:
+        pos = torch.tensor(positions, device=reads2.device)
+        live = live & (pos[None, :] + s <= length[:, None])
     return torch.stack(keys, dim=1), live, torch.stack(rows, dim=1)
 
 
@@ -163,13 +193,16 @@ def sorted_seed_rows(keys, live, geo: JoinGeometry):
 
 
 def fused_join_core(keys, live, payload, geo: JoinGeometry,
-                    min_overlap: int):
+                    min_overlap: int, contained=None, slot_limit=None):
     """Sort the live seed rows and join them (kernel K3). Returns (ok,
-    cand_a, cand_b, ovl, total), one entry per candidate."""
+    cand_a, cand_b, ovl, total), one entry per candidate slot below
+    ``slot_limit`` (an int, or a function of ``total``; see
+    kernels.overlap_join); ``contained`` (uint8, ragged reads) gets the
+    containment marks of those slots."""
     s_keys, s_rows = sorted_seed_rows(keys, live, geo)
     return kernels.overlap_join(
         s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), geo.R, geo.g,
-        geo.trim, min_overlap,
+        geo.trim, min_overlap, contained, slot_limit,
     )
 
 
@@ -199,22 +232,36 @@ def _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len: int,
     return src, dst, ovl, n_edges
 
 
-def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of):
+def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,
+            lengths=None):
     M, L = reads2.shape
     s = min(seed_len, min_overlap, 32)
     geo = join_geometry(L, min_overlap, s, stride)
     if M * geo.R >= (1 << 31) - 1:
         raise ValueError(f"seed rows {M * geo.R} overflow 31-bit row ids")
-    keys, live, payload = build_seed_rows(reads2, valid2, s, geo)
+    keys, live, payload = build_seed_rows(reads2, valid2, s, geo, lengths)
+    cont = (None if lengths is None else
+            torch.zeros(M, dtype=torch.uint8, device=reads2.device))
+    caps = []
+
+    def limit(total):
+        # the capacity from K3's count pass: like the reference, only the
+        # first C candidate slots are written and marked for containment
+        caps.append(capacity_of(total))
+        return caps[0]
+
     ok, cand_a, cand_b, ovl, total = fused_join_core(
-        keys, live, payload, geo, min_overlap)
-    C = capacity_of(total)
-    if total > C:
-        # the reference keeps only the first C candidate slots
-        ok, cand_a, cand_b, ovl = ok[:C], cand_a[:C], cand_b[:C], ovl[:C]
+        keys, live, payload, geo, min_overlap, cont, limit)
+    C = caps[0]
     src, dst, e_ovl, n_edges = _reduce_fused(ok, cand_a, cand_b, ovl, L, C)
-    return OverlapResult(src, dst, e_ovl, n_edges, total,
-                         int(ok.sum()), total > C)
+    if cont is None:
+        contained, n_contained = torch.zeros(
+            M, dtype=torch.bool, device=reads2.device), 0
+    else:
+        contained = cont.bool()
+        n_contained = int(contained.sum())
+    return OverlapResult(src, dst, e_ovl, n_edges, total, int(ok.sum()),
+                         total > C, contained, n_contained)
 
 
 def find_overlaps(
@@ -228,11 +275,11 @@ def find_overlaps(
 ) -> OverlapResult:
     """All maximal proper exact suffix-prefix overlaps >= min_overlap of
     the valid rows of (M, L) int32 ``reads2``, with a fixed candidate
-    ``capacity`` (``overflow`` set when exceeded)."""
-    if lengths is not None:
-        raise NotImplementedError(_RAGGED)
+    ``capacity`` (``overflow`` set when exceeded). ``lengths``: (M,)
+    per-read lengths of ragged (0-padded) reads; containments are then
+    marked in ``contained``."""
     return _detect(reads2, valid2, min_overlap, seed_len, stride,
-                   lambda total: capacity)
+                   lambda total: capacity, lengths)
 
 
 def find_overlaps_auto(
@@ -243,27 +290,49 @@ def find_overlaps_auto(
     min_capacity: int = 1 << 14,
     stride: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
+    validate: bool = True,
 ) -> OverlapResult:
-    """find_overlaps with the reference's self-sizing capacity: start at
-    16 candidates per read on a 64k grain and, when the candidates
-    exceed it, take the exact count plus 5% (rounded to the grain).
+    """find_overlaps with the reference's self-sizing capacity
+    (sage2_tpu/overlap/detect.py:1190-1277), which sets the length of
+    the padded edge arrays.
 
-    The capacity sets the length of the padded edge arrays, as in the
-    reference. K3's count pass knows the exact candidate count before
-    anything is written, so the retry costs no second join here.
+    The first call of a problem shape starts at 16 candidates per read
+    on a 64k grain and, when the candidates exceed that, takes the exact
+    count plus 5% (rounded to the grain) until they fit; it then
+    memoizes the tight capacity (count plus 5%) for the shape, and
+    later calls start from it. ``validate=False`` with a memoized
+    capacity: the first such call checks it once against its inputs
+    (re-entering the sizing on overflow), later ones take it unchecked,
+    so a denser same-shape input may then come back with ``overflow``
+    set. K3's count pass knows the exact candidate count before anything
+    is written, so the sizing costs no second join here.
     """
-    if lengths is not None:
-        raise NotImplementedError(_RAGGED)
+    M = reads2.shape[0]
     grain = 1 << 16
 
     def round_up(n):
         return max(min_capacity, -(-int(n) // grain) * grain)
 
+    key = (M, reads2.shape[1], min_overlap, seed_len, stride,
+           lengths is not None)
+
     def capacity_of(total: int) -> int:
-        cap = round_up(16 * reads2.shape[0])
+        memo = _CAP_MEMO.get(key)
+        if not validate and memo is not None:
+            if memo[1]:
+                return memo[0]
+            if total <= memo[0]:
+                memo[1] = True
+                return memo[0]
+        cap = (memo[0] if memo else None) or round_up(16 * M)
         while total > cap:
             cap = max(round_up(total * 1.05), cap + grain)
+        new_cap = round_up(total * 1.05)
+        if memo is not None and memo[0] == new_cap:
+            memo[1] = True
+        else:
+            _memo_put(key, [new_cap, False])
         return cap
 
     return _detect(reads2, valid2, min_overlap, seed_len, stride,
-                   capacity_of)
+                   capacity_of, lengths)

@@ -1,11 +1,15 @@
 """Pipeline orchestration, reads to contigs (port of the in-core,
-single-device, unpaired branch of sage2_tpu/pipeline.py).
+single-device, unpaired branch of sage2_tpu/pipeline.py, for
+fixed-length and ragged reads).
 
 Stages: count + correct (either rule), dedup + overlap, transitive
 reduction (host native, or on the device with ``reduce_backend=
 "device"``), unitig labeling, and the host finish (unitig graph, tips,
 bubbles, min-cost flow). The device stages run on ``device`` ("cuda" by
 default, through the CUDA kernels; "cpu" runs their plain versions).
+Ragged reads (``lengths``) also go through SAGE's containment removal
+after the overlap stage: a read that lies whole inside a longer one
+leaves the graph with its edges.
 
 Stage artifacts are the reference's: corrected.npz, edges.npz,
 reduced.npz, labels.npz, contigs.fasta, stats.json and manifest.json
@@ -39,6 +43,7 @@ from sage2_tpu_torch.graph.reduce import transitive_reduction_auto
 from sage2_tpu_torch.graph.traverse import contract_unitigs
 from sage2_tpu_torch.io.writer import write_fasta
 from sage2_tpu_torch.kmer import correct_reads, count_kmers
+from sage2_tpu_torch.ops.sort import I32_MAX
 from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
 from sage2_tpu_torch.utils.device import resolve_device
 from sage2_tpu_torch.utils.metrics import MetricsLog
@@ -109,8 +114,6 @@ def _unsupported(config: AssemblyConfig, n_reads: int, mate_of,
         return "streaming beyond device memory (ROADMAP Queue 1 item 11)"
     if config.spill_dir:
         return "the spill store (ROADMAP Queue 1 item 11)"
-    if lengths is not None:
-        return "ragged reads (ROADMAP Queue 1 item 10)"
     if mate_of is not None:
         return "paired reads and scaffolding (ROADMAP Queue 1 item 14)"
     return None
@@ -129,9 +132,11 @@ def assemble(
     """Assemble reads (N, L) int codes -> (contigs, stats).
 
     ``device``: "cuda" (default; raises when no GPU is available) or
-    "cpu". ``mate_of`` and ``lengths`` exist for the reference's
-    signature; paired and ragged inputs raise NotImplementedError, as
-    does any configuration off the ported path.
+    "cpu". ``lengths``: (N,) per-read lengths of ragged reads, padded
+    with zeros to the array width (``--length-policy pad``).
+    ``mate_of`` exists for the reference's signature; paired inputs
+    raise NotImplementedError, as does any configuration off the ported
+    path.
     """
     dev = resolve_device(device)
     missing = _unsupported(config, reads.shape[0], mate_of, lengths)
@@ -142,7 +147,8 @@ def assemble(
     log = metrics or MetricsLog(
         os.path.join(outdir, "metrics.jsonl") if outdir else None
     )
-    return _assemble_inner(reads, config, outdir, log, resume_from, dev)
+    return _assemble_inner(reads, config, outdir, log, resume_from, dev,
+                           lengths)
 
 
 def _sync(dev: torch.device) -> None:
@@ -150,7 +156,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _assemble_inner(reads, config, outdir, log, resume_from, dev):
+def _drop_vertices(edges, gone: np.ndarray):
+    """The edges touching no vertex of the mask ``gone``, re-padded to
+    the input length with (INT32_MAX, INT32_MAX, 0); and their count."""
+    e_src, e_dst, e_ovl = edges
+    real = e_src != I32_MAX
+    keep = real.copy()
+    keep[real] = ~(gone[e_src[real]] | gone[e_dst[real]])
+    n_keep = int(keep.sum())
+    out = []
+    for a, fill in ((e_src, I32_MAX), (e_dst, I32_MAX), (e_ovl, 0)):
+        b = np.full(a.shape[0], fill, np.int32)
+        b[:n_keep] = a[keep]
+        out.append(b)
+    return tuple(out), n_keep
+
+
+def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     N, L = reads.shape
     start = STAGES.index(resume_from) if resume_from else 0
     prior = load_reference_artifacts(outdir) if start else {}
@@ -161,17 +183,20 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev):
                              f"{name}.npz in {outdir}")
         return prior[name]
 
+    lens = None if lengths is None else torch.from_numpy(
+        np.asarray(lengths, np.int32)).to(dev)
+
     # --- stage 1+2: count + correct ------------------------------------
     if start <= STAGES.index("correct"):
         r = torch.from_numpy(reads.astype(np.int32)).to(dev)
         with log.timed("count", n_reads=N, read_len=L, k=config.k):
-            table = count_kmers(r, config.k)
+            table = count_kmers(r, config.k, lens)
             _sync(dev)
         log.log("count_result", n_unique=int(table.n_unique))
         with log.timed("correct", rounds=config.correction_rounds):
             corrected = correct_reads(
                 r, config.k, config.solid_threshold,
-                config.correction_rounds, table=table,
+                config.correction_rounds, table=table, lengths=lens,
                 rule=config.correction_rule,
             )
             _sync(dev)
@@ -187,39 +212,60 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev):
     if start <= STAGES.index("overlap"):
         with log.timed("dedup"):
             rs = prepare_reads(
-                torch.from_numpy(corrected_np.astype(np.int32)).to(dev))
+                torch.from_numpy(corrected_np.astype(np.int32)).to(dev),
+                lens)
             _sync(dev)
         with log.timed("overlap"):
             res = find_overlaps_auto(
                 rs.reads2, rs.valid2, config.min_overlap,
-                config.effective_seed_len,
+                config.effective_seed_len, lengths=rs.lengths2,
             )
             _sync(dev)
+        if res.overflow:
+            raise RuntimeError("find_overlaps_auto returned an overflowed "
+                               "candidate capacity")
         edges = (res.src.cpu().numpy(), res.dst.cpu().numpy(),
                  res.ovl.cpu().numpy())
-        log.log("overlap_result", n_edges=res.n_edges,
+        n_edges = res.n_edges
+        valid2_np = rs.valid2.cpu().numpy()
+        if lengths is not None:
+            # SAGE containment removal (sage2_tpu/pipeline.py:670-696): a
+            # read contained in either orientation leaves the graph with
+            # its edges
+            cont = res.contained.cpu().numpy()
+            cont = cont | np.roll(cont, cont.shape[0] // 2)
+            log.log("containment", n_contained=int(cont.sum()))
+            if cont.any():
+                edges, n_edges = _drop_vertices(edges, cont)
+                valid2_np = valid2_np & ~cont
+        log.log("overlap_result", n_edges=n_edges,
                 n_candidates=res.n_candidates,
                 n_unique_reads=int(rs.n_unique))
-        n_edges = res.n_edges
         reads2_np = rs.reads2.to(torch.int8).cpu().numpy()
-        valid2_np = rs.valid2.cpu().numpy()
         mult_np = rs.multiplicity.cpu().numpy()
+        extra = {}
+        lengths2_np = None
+        if rs.lengths2 is not None:
+            lengths2_np = rs.lengths2.cpu().numpy()
+            extra["lengths2"] = lengths2_np
         del rs, res
         _save(outdir, log, "edges", src=edges[0], dst=edges[1],
               ovl=edges[2], n_edges=n_edges, reads2=reads2_np,
-              valid2=valid2_np, multiplicity=mult_np)
+              valid2=valid2_np, multiplicity=mult_np, **extra)
         _manifest(outdir, config, "overlap")
     else:
         z = stage_input("edges")
-        if "lengths2" in z or "mate_pairs" in z:
+        if "mate_pairs" in z:
             raise NotImplementedError(
-                "not ported yet: resuming a ragged or paired run "
-                "(ROADMAP Queue 1 items 10, 14)")
+                "not ported yet: resuming a paired run "
+                "(ROADMAP Queue 1 item 14)")
         edges = (z["src"], z["dst"], z["ovl"])
         reads2_np, valid2_np, mult_np = (z["reads2"], z["valid2"],
                                          z["multiplicity"])
+        lengths2_np = z.get("lengths2")
 
     V = reads2_np.shape[0]
+    vlen_arg = L if lengths2_np is None else lengths2_np
 
     # --- stage 4: transitive reduction --------------------------------
     # host arrays: "auto" and "native" reduce them on the host, "device"
@@ -227,7 +273,7 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev):
     if start <= STAGES.index("reduce"):
         with log.timed("reduce", backend=config.reduce_backend):
             red = transitive_reduction_auto(
-                edges[0], edges[1], edges[2], V, L,
+                edges[0], edges[1], edges[2], V, vlen_arg,
                 backend=config.reduce_backend, device=dev,
             )
             redges = tuple(a.cpu().numpy() if isinstance(a, torch.Tensor)
@@ -260,7 +306,7 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev):
     with log.timed("finish"):
         g = build_unitig_graph(
             lab["head"], lab["dist"], lab["ovl_next"], redges,
-            valid2_np, mult_np, L,
+            valid2_np, mult_np, vlen_arg,
         )
         n_unitigs_raw = len(g.unitigs)
         capn = V // 2
@@ -287,7 +333,8 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev):
             log.log("flow_traversal", **flow_stats)
         else:
             paths = join_paths(g)
-        contigs = emit_contigs(g, paths, reads2_np, config)
+        contigs = emit_contigs(g, paths, reads2_np, config,
+                               lengths=lengths2_np)
     stats = assembly_stats(contigs)
     log.log("finish_result", n_unitigs=n_unitigs_raw, tips_removed=n_tips,
             single_copy_coverage=round(c1, 2),

@@ -57,6 +57,16 @@ def test_lookup_counts_matches_reference(pruned):
 
 
 def test_count_rejects_ragged():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcount.count_kmers(torch.zeros((2, 40), dtype=torch.int32), 25,
-                           lengths=torch.tensor([40, 30]))
+    """Ragged reads were refused before they were ported; now windows
+    past a read's end are left out of the count, as in the reference."""
+    reads = _reads(7)[:50, :40].copy()
+    lens = np.array([40, 30] * 25, np.int32)
+    reads[np.arange(40)[None, :] >= lens[:, None]] = 0
+    jt = jcount.count_kmers(jnp.asarray(reads), 25, lengths=jnp.asarray(lens))
+    tt = tcount.count_kmers(torch.from_numpy(reads), 25,
+                            lengths=torch.from_numpy(lens))
+    n = int(jt.n_unique)
+    assert tt.n_unique == n < tcount.count_kmers(torch.from_numpy(reads),
+                                                 25).n_unique
+    np.testing.assert_array_equal(_ref_keys(jt, n), tt.keys.numpy())
+    np.testing.assert_array_equal(np.asarray(jt.count)[:n], tt.count.numpy())

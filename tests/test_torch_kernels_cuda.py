@@ -16,7 +16,11 @@ import pytest
 import torch
 
 from sage2_tpu_torch import kernels
-from sage2_tpu_torch.data import simulate_genome, simulate_reads
+from sage2_tpu_torch.data import (
+    simulate_genome,
+    simulate_ragged_reads,
+    simulate_reads,
+)
 from sage2_tpu_torch.graph import reduce as reduce_mod
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.kmer.correct import prune_table_for_correction
@@ -182,3 +186,99 @@ def test_gather_along_kernel(cuda, N, W, axis):
     assert kernels.LAUNCHES["gather_along"] == before + 1
     _equal([got], [plain.gather_along(tbl, idx, axis)])
     _equal([got], [torch.gather(tbl, axis, idx.long())])
+
+
+def _ragged(seed=7, n_genome=30_000):
+    """Mixed-length reads (60-100 bp plus contained ones) and lengths."""
+    g = simulate_genome(n_genome, seed=seed)
+    r, lens = simulate_ragged_reads(g, 60, 100, 30, 0.002, seed=seed + 1)
+    return (torch.from_numpy(r.astype(np.int32)),
+            torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_canonical_reads_kernel(cuda, ragged):
+    r, lens = _ragged()
+    r, lens = r.to(cuda), (lens.to(cuda) if ragged else None)
+    before = kernels.LAUNCHES["canonical_reads"]
+    got = kernels.canonical_reads(r, lens)
+    _equal(got, plain.canonical_reads(r, lens))
+    assert got[3].any() and not got[3].all()
+    _equal(kernels.canonical_reads(r, lens, rc_only=True)[:1], got[:1])
+    assert kernels.LAUNCHES["canonical_reads"] == before + 2
+
+
+def _ragged_rows(cuda, min_overlap=40):
+    r, lens = _ragged()
+    rs = prepare_reads(r.to(cuda), lens.to(cuda))
+    geo = join_geometry(r.shape[1], min_overlap, 32)
+    keys, live, payload = build_seed_rows(rs.reads2, rs.valid2, 32, geo,
+                                          rs.lengths2)
+    s_keys, s_rows = sorted_seed_rows(keys, live, geo)
+    return rs, (s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), geo.R,
+                geo.g, geo.trim, min_overlap)
+
+
+def _half(total):
+    return total // 2
+
+
+@pytest.mark.parametrize("slot_limit", [None, 5000, _half])
+def test_overlap_join_kernel_ragged(cuda, slot_limit):
+    rs, args = _ragged_rows(cuda)
+    M = rs.reads2.shape[0]
+    cont = [torch.zeros(M, dtype=torch.uint8, device=cuda) for _ in range(2)]
+    before = kernels.LAUNCHES["overlap_join"]
+    got = kernels.overlap_join(*args, cont[0], slot_limit)
+    assert kernels.LAUNCHES["overlap_join"] == before + 2
+    _equal(got, plain.overlap_join(*args, cont[1], slot_limit))
+    assert torch.equal(cont[0], cont[1]) and cont[0].any()
+    if slot_limit is not None:
+        limit = _half(got[4]) if slot_limit is _half else slot_limit
+        assert got[0].shape[0] == limit < got[4]
+
+
+def test_vote_windows_kernel_ragged(cuda):
+    r, lens = _ragged()
+    r, lens = r.to(cuda), lens.to(cuda)
+    t = prune_table_for_correction(count_kmers(r, 25, lens), 2)
+    args = (r, t.keys, t.count, 25, 2, lens)
+    before = kernels.LAUNCHES["vote_windows"]
+    got = kernels.vote_windows(*args)
+    assert kernels.LAUNCHES["vote_windows"] == before + 1
+    assert (got != r).any()
+    _equal([got], [plain.vote_windows(*args)])
+
+
+def test_reduce_kernels_ragged(cuda):
+    rs, _ = _ragged_rows(cuda)
+    res = find_overlaps_auto(rs.reads2, rs.valid2, 40, 32,
+                             lengths=rs.lengths2)
+    src, dst, ovl, lens = res.src, res.dst, res.ovl, rs.lengths2
+    V = rs.reads2.shape[0]
+    sl = torch.where(src != 2**31 - 1,
+                     lens[src.clamp(max=V - 1).long()] - ovl, 2**31 - 1)
+    keys, order = sort_by_pair(src, sl)
+    before = kernels.LAUNCHES["reduce_counts"]
+    got = kernels.reduce_counts(keys, src, dst, ovl, V, lens)
+    assert kernels.LAUNCHES["reduce_counts"] == before + 2
+    _equal(got, plain.reduce_counts(keys, src, dst, ovl, V, lens))
+    start, _, startd, counts = got
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(offsets[-1])
+    assert total > 0
+    ss_sl = (keys & 0xFFFFFFFF).to(torch.int32)
+    rest = (offsets, src, dst, ovl, ss_sl, dst[order], start, startd, lens)
+    removed = torch.zeros_like(src, dtype=torch.uint8)
+    before = kernels.LAUNCHES["reduce_marks"]
+    a = kernels.reduce_marks(removed.clone(), *rest, 0, total)
+    assert kernels.LAUNCHES["reduce_marks"] == before + 1
+    _equal([a], [plain.reduce_marks(removed.clone(), *rest, 0, total)])
+    assert a.any()
+    dev = reduce_mod.transitive_reduction_auto(src, dst, ovl, V, lens,
+                                               backend="device")
+    nat = reduce_mod.transitive_reduction_native(
+        src.cpu().numpy(), dst.cpu().numpy(), ovl.cpu().numpy(), V,
+        lens.cpu().numpy())
+    _equal(dev, tuple(torch.from_numpy(a) if isinstance(a, np.ndarray)
+                      else a for a in nat))

@@ -74,10 +74,15 @@ def test_resume_continues_a_reference_run(runs, stage, tmp_path):
 
 
 def test_unported_paths_raise(runs):
+    """Off the ported path, assemble raises naming the ROADMAP item;
+    ragged reads (``lengths``) are on it now and assemble."""
     reads = runs[0]
     for cfg, kw in [(AssemblyConfig(mesh_shape=(2,)), {}),
                     (AssemblyConfig(max_device_reads=5), {}),
-                    (AssemblyConfig(), {"mate_of": np.arange(10)}),
-                    (AssemblyConfig(), {"lengths": np.full(10, 100)})]:
+                    (AssemblyConfig(), {"mate_of": np.arange(10)})]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             assemble(reads[:10], cfg, device="cpu", **kw)
+    n = 400
+    _, stats = assemble(reads[:n], AssemblyConfig(), device="cpu",
+                        lengths=np.full(n, reads.shape[1]))
+    assert stats == assemble(reads[:n], AssemblyConfig(), device="cpu")[1]

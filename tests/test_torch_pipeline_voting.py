@@ -88,19 +88,21 @@ def _roadmap_items():
 
 
 def test_unsupported_names_current_roadmap_items():
-    """Both correction rules and every reduce backend are ported; each
-    remaining refusal names the open ROADMAP item that ports it."""
+    """Both correction rules, every reduce backend and ragged reads are
+    ported; each remaining refusal names the open ROADMAP item that
+    ports it."""
     for rule in ("single_window", "vote_all_windows"):
         for backend in ("auto", "native", "device"):
             cfg = AssemblyConfig(correction_rule=rule,
                                  reduce_backend=backend)
             assert _unsupported(cfg, 10, None, None) is None
+            assert _unsupported(cfg, 10, None, np.full(10, 100)) is None
     items = _roadmap_items()
+    assert not any("Ragged" in title for title in items.values())
     for cfg, mate_of, lengths, word in [
             (AssemblyConfig(mesh_shape=(2,)), None, None, "parallel"),
             (AssemblyConfig(max_device_reads=5), None, None, "stream"),
             (AssemblyConfig(spill_dir="x"), None, None, "stream"),
-            (AssemblyConfig(), None, np.full(10, 100), "Ragged"),
             (AssemblyConfig(), np.arange(10), None, "Paired")]:
         msg = _unsupported(cfg, 10, mate_of, lengths)
         n = int(re.search(r"ROADMAP Queue 1 item (\d+)", msg).group(1))

@@ -161,9 +161,15 @@ def test_auto_dispatch(graph, monkeypatch):
     with pytest.raises(ValueError, match="unknown reduce backend"):
         treduce.transitive_reduction_auto(src, dst, ovl, V, L,
                                           backend="gpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        treduce.transitive_reduction_auto(src, dst, ovl, V,
-                                          np.full(V, L, np.int32))
+    # per-vertex lengths (ragged reads, refused before they were ported)
+    # all equal to L reduce as the scalar L, on either backend
+    lens = np.full(V, L, np.int32)
+    for backend in ("native", "device"):
+        _assert_same(treduce.transitive_reduction_auto(
+            src, dst, ovl, V, L, backend="native"),
+            treduce.transitive_reduction_auto(src, dst, ovl, V, lens,
+                                              backend=backend,
+                                              device="cpu"))
 
 
 def test_device_backend_on_host_arrays_needs_a_gpu(graph, monkeypatch):
