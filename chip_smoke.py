@@ -6,8 +6,8 @@
 Phases (one flushed line each, with its seconds):
 
   0  the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1  build the nine CUDA kernels (nvcc, sm_90a, one process per source,
-     all at once) and the host libraries;
+  1  build the twelve CUDA kernels (nvcc, sm_90a, one process per
+     source, all at once) and the host libraries;
   3  the overlap join at the bench's shard 0 (100,000 reads x 100 bp,
      genome 222,222 bp, seeds 7/8, min_overlap 40, seed 32): asserts the
      reference's 1,044,016 candidates and 680,790 verified overlaps; the
@@ -37,32 +37,51 @@ Phases (one flushed line each, with its seconds):
   9  8a's ragged edge list reduced by the device backend and by the
      native one, both with per-vertex lengths: equal arrays, n_edges
      and n_expansions asserted;
+  10 phase 4's reads streamed beyond device memory in chunks of
+     1,000,000 reads (the reference README's --max-device-reads): 10a
+     the default config with a spill dir and artifacts (3 count/correct
+     chunks, 3 overlap query chunks of 2 M reads against one seed table,
+     the spilled native reduction), 10b the voting corrector and the
+     device reduction with --entry-block-reads 3,000,000 (2 entry
+     blocks: the block-nested join), no artifacts; 10a's contigs and
+     stats asserted equal to phase 4's, 10b's to phase 5's. Phases 4,
+     5, 10a and 10b each print their peak device memory
+     (torch.cuda.max_memory_allocated after a reset);
   2  each kernel against its plain PyTorch version on the inputs that
-     its path's run gave it (phase 4, 5, 7, 8a or 8b, captured during
-     that run, so phase 2 comes last; the call with the most input
-     elements, for reduce_marks the largest slot range; pointer_jump once for each of its ops
-     none/min/add; gather_along once per probe shape; the kernels with
-     a ragged branch once more as "name:ragged", on a ragged call of
-     phase 8; K1, K2 and K4 once more as "name:8a" on 8a's ragged
-     reads, and K1 as "kmer_keys:8b" on 8b's): bit equality of outputs
-     and in-place results asserted,
+     its path's run gave it (captured during that run, so phase 2 comes
+     last): one row for each kernel of each path (PATHS), "name" on its
+     first path and "name:<path>" on every other (phases 4, 5, 7, 8a,
+     8b, 10a, 10b; not 3, 6 or 9). A row takes the path's call with the
+     most input elements (for reduce_marks the largest slot range;
+     pointer_jump once for each of its ops none/min/add; gather_along
+     once per probe shape; the kernels with a ragged branch as
+     "name:ragged" on a call with lengths, K11 as "merge_runs:weighted"
+     on a table merge); K9 and K10 take a later entry block's table
+     (base > 0) and a query chunk after the first where the path has
+     them. Bit equality of outputs and in-place results asserted,
      median times (CUDA events), the bound from bytes and operations,
      and one PyTorch call computing the same function where there is
-     one (torch.searchsorted beside K2, index_select beside K4 none,
-     torch.gather beside P1).
+     one (torch.searchsorted beside K2 and beside K9's bucket table,
+     index_select beside K4 none, torch.gather beside P1,
+     torch.unique_consecutive beside K11).
 
 Each path runs with the launch counts set to 0 just before it and read
-just after it: phase 4 for K1-K4 and K8, phase 5 for K5-K7, phase 7
-for P1, phases 8a and 8b for the ragged path. Every kernel of a path
+just after it: phase 4 for K1-K4, K8 and K11, phase 5 for K5-K7, phase
+7 for P1, phases 8a and 8b for the ragged path, 10a and 10b for the
+streamed path (K9-K11 with K1, K2, K8, K4, and with K5-K7). Every kernel of a path
 (PATHS) must have launched on it, and on 8a/8b K3, K5, K6, K7 and K8
 with their lengths pointers (the ":ragged" keys). pointer_jump's
-counts are split by op. The last two lines are the kernel table and
+counts are split by op. The kernels' captured inputs wait in device
+memory outside PyTorch's allocator, so they do not count in the peaks;
+each path starts with PyTorch's cached memory released, to leave them
+room. The last two lines are the kernel table and
 {"ok": true, "device": {...}}. Any failure exits non-zero before them;
 without a GPU the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -71,6 +90,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 # card peaks (H100 SXM data sheet): device memory rate, and the 32-bit
 # rate outside the tensor cores, used for the integer kernels' work
@@ -87,6 +107,9 @@ ECOLI = dict(genome_len=4_600_000, coverage=50.0, read_len=100,
 # recipe of tests/test_ragged.py:15-36 with lo = 75)
 ECOLI_RAGGED = dict(lo=75, hi=150, coverage=50.0, error_rate=0.005,
                     contained_frac=0.1, seed=8)
+# phase 10: the reference README's streaming flags (README.md:66-72)
+STREAM_CHUNK = 1_000_000
+ENTRY_BLOCK = 3_000_000
 # the reference (sage2_tpu) on the same input, BASELINE.md round 4:
 # printed as a guide, not a gate
 REFERENCE_ASSEMBLY = {"n_contigs": 5, "n50": 1_435_616,
@@ -132,21 +155,26 @@ KERNEL_INFO = {
                              "sage2_tpu/graph/reduce.py:133", "8b"),
     "reduce_marks:ragged": (_CSRC + "reduce_marks.cu",
                             "sage2_tpu/graph/reduce.py:520", "8b"),
+    "seed_table": (_CSRC + "seed_table.cu", "sage2_tpu/stream.py:193",
+                   "10a"),
+    "probe_join": (_CSRC + "probe_join.cu", "sage2_tpu/stream.py:240",
+                   "10a"),
+    "merge_runs": (_CSRC + "merge_runs.cu", "sage2_tpu/kmer/count.py:72",
+                   "10a"),
+    "merge_runs:weighted": (_CSRC + "merge_runs.cu",
+                            "sage2_tpu/stream.py:30", "10a"),
 }
 for _n, _w, _a in PROBE_SHAPES:
     KERNEL_INFO[f"gather_along:{_a}:{_n}x{_w}"] = (
         _CSRC + "gather_along.cu", "scripts/probe_pallas_gather.py:73", "7")
 
 _JUMPS = ["pointer_jump:none", "pointer_jump:min", "pointer_jump:add"]
-# the kernels without a ragged branch once more at the ragged path's
-# shapes (2.2 M reads of 150 bp, 4.5 M vertices)
-for _key, _path in [("kmer_keys", "8a"), ("lookup_counts", "8a"),
-                    *((_k, "8a") for _k in _JUMPS), ("kmer_keys", "8b")]:
-    KERNEL_INFO[f"{_key}:{_path}"] = KERNEL_INFO[_key][:2] + (_path,)
 # the keys that must launch on each path
+_STREAMED = ["seed_table", "probe_join", "merge_runs", "merge_runs:weighted",
+             "canonical_reads", "kmer_keys", *_JUMPS]
 PATHS = {
     "4": ["kmer_keys", "lookup_counts", "canonical_reads", "overlap_join",
-          *_JUMPS],
+          "merge_runs", *_JUMPS],
     "5": ["vote_windows", "reduce_counts", "reduce_marks"],
     "7": [k for k in KERNEL_INFO if k.startswith("gather_along")],
     "8a": ["kmer_keys", "lookup_counts", "canonical_reads:ragged",
@@ -154,7 +182,16 @@ PATHS = {
     "8b": ["kmer_keys", "vote_windows:ragged", "canonical_reads:ragged",
            "overlap_join:ragged", "reduce_counts:ragged",
            "reduce_marks:ragged", *_JUMPS],
+    "10a": [*_STREAMED, "lookup_counts"],
+    "10b": [*_STREAMED, "vote_windows", "reduce_counts", "reduce_marks"],
 }
+# every kernel of a path is held against its plain version at that
+# path's shapes: a second row "<key>:<path>" where its first row comes
+# from another path
+for _path, _keys in PATHS.items():
+    for _key in _keys:
+        if KERNEL_INFO[_key][2] != _path:
+            KERNEL_INFO[f"{_key}:{_path}"] = KERNEL_INFO[_key][:2] + (_path,)
 
 T_START = time.perf_counter()
 
@@ -194,18 +231,76 @@ def base_key(row: str) -> str:
     return row[:-len(path) - 1] if row.endswith(":" + path) else row
 
 
+class RawDeviceCopies:
+    """Device copies of tensors in memory from cudaMalloc itself, outside
+    PyTorch's caching allocator, so that torch.cuda.max_memory_allocated
+    does not count them. The copy is a device-to-device copy_ on the
+    current stream; ``free`` releases the memory (cudaFree waits for the
+    device)."""
+
+    _TYPESTR = {"int8": "|i1", "uint8": "|u1", "bool": "|b1",
+                "int32": "<i4", "int64": "<i8"}
+
+    def __init__(self):
+        import ctypes
+
+        try:                    # the runtime PyTorch itself loaded
+            rt = ctypes.CDLL("libcudart.so.12")
+        except OSError:
+            rt = ctypes.CDLL(os.path.join(
+                os.environ.get("CUDA_HOME", "/usr/local/cuda"), "lib64",
+                "libcudart.so"))
+        rt.cudaMalloc.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                  ctypes.c_size_t]
+        rt.cudaFree.argtypes = [ctypes.c_void_p]
+        self.ctypes, self.rt = ctypes, rt
+        self.kept = 0           # bytes copied so far
+
+    def copy(self, t):
+        """(a tensor viewing the raw copy of ``t``, its handle)."""
+        import torch
+
+        ptr = self.ctypes.c_void_p()
+        size = max(1, t.numel() * t.element_size())
+        rc = self.rt.cudaMalloc(self.ctypes.byref(ptr), size)
+        if rc != 0:     # PyTorch's cache may hold the memory: release it
+            self.rt.cudaGetLastError()
+            torch.cuda.empty_cache()
+            rc = self.rt.cudaMalloc(self.ctypes.byref(ptr), size)
+        if rc != 0:
+            raise RuntimeError(f"cudaMalloc failed: error {rc}")
+        view = types.SimpleNamespace(__cuda_array_interface__={
+            "shape": tuple(t.shape), "data": (ptr.value, False),
+            "typestr": self._TYPESTR[str(t.dtype).split(".")[1]],
+            "strides": None, "version": 2})
+        out = torch.as_tensor(view, device="cuda")
+        if out.numel() and out.data_ptr() != ptr.value:
+            raise RuntimeError("torch.as_tensor copied the raw buffer")
+        out.copy_(t)
+        self.kept += size
+        return out, ptr.value
+
+    def free(self, handle) -> None:
+        self.rt.cudaFree(self.ctypes.c_void_p(handle))
+
+
 class Capture:
     """Wraps the kernel wrappers of ``sage2_tpu_torch.kernels`` (the
     callers look them up on the module at each call). For each row of
-    KERNEL_INFO it keeps a clone of the arguments of the call with the
-    most input elements made on the row's own path, and it splits the
-    wrapper's own launch counts (``kernels.LAUNCHES``) by key."""
+    KERNEL_INFO it keeps a copy of the arguments of the call with the
+    most input elements made on the row's own path, in device memory
+    outside PyTorch's allocator (``RawDeviceCopies``: fast, and unseen
+    by the phases' peak-memory readings); ``inputs`` hands them back as
+    ordinary tensors. It splits the wrappers' own launch counts
+    (``kernels.LAUNCHES``) by key."""
 
     def __init__(self, kernels):
         self.kernels = kernels
         self.originals = {n: getattr(kernels, n) for n in kernels.KERNELS}
+        self.copies = RawDeviceCopies()
         self.args: dict = {}
         self.phase = None
+        self.entry_base = 0     # the first read of the last seed table
         self.launches = {base_key(row): 0 for row in KERNEL_INFO}
         for name, fn in self.originals.items():
             setattr(kernels, name, self._wrap(name, fn))
@@ -213,10 +308,14 @@ class Capture:
     def _wrap(self, name, fn):
         import torch
 
-        # where each kernel with a ragged branch takes its lengths
-        ragged_at = {"canonical_reads": 1, "overlap_join": 7,
-                     "vote_windows": 5, "reduce_counts": 5,
-                     "reduce_marks": 9}
+        # where each kernel with a ragged branch takes its lengths, and
+        # K11 its weights: a call given one gets the key suffix
+        branch_at = {"canonical_reads": (1, "ragged"),
+                     "overlap_join": (7, "ragged"),
+                     "vote_windows": (5, "ragged"),
+                     "reduce_counts": (5, "ragged"),
+                     "reduce_marks": (9, "ragged"),
+                     "merge_runs": (1, "weighted")}
 
         def call(*args):
             key = name
@@ -228,17 +327,30 @@ class Capture:
                 key = f"{name}:{args[2]}:{args[0].shape[0]}x{args[0].shape[1]}"
             elif name == "reduce_marks":
                 size += args[-1] - args[-2]      # the slot range
-            at = ragged_at.get(name)
+            # the streamed join's rows prefer a later entry block (a
+            # table and slab of global ids from base > 0) and a query
+            # chunk after the first, then the most input elements
+            rank = (size,)
+            if name == "seed_table":
+                self.entry_base = args[6] if len(args) > 6 else 0
+                rank = (self.entry_base > 0, size)
+            elif name == "probe_join":
+                rank = (self.entry_base > 0,
+                        (args[8] if len(args) > 8 else 0) > 0, size)
+            at, suffix = branch_at.get(name, (None, None))
             if at is not None and len(args) > at and isinstance(
                     args[at], torch.Tensor):
-                key += ":ragged"
+                key += ":" + suffix
             row = (key if KERNEL_INFO[key][2] == self.phase
                    else f"{key}:{self.phase}")
             kept = self.args.get(row)
-            keep = row in KERNEL_INFO and (kept is None or size > kept[0])
-            if keep:        # cloned before the call: some update in place
-                kept = [a.clone() if isinstance(a, torch.Tensor) else a
-                        for a in args]
+            keep = row in KERNEL_INFO and (kept is None or rank > kept[0])
+            if keep:        # copied before the call: some update in place
+                self._drop(row)
+                copies = [self.copies.copy(a) if isinstance(
+                    a, torch.Tensor) else (a, None) for a in args]
+                kept = [c[0] for c in copies]
+                handles = [c[1] for c in copies if c[1] is not None]
             before = self.kernels.LAUNCHES[name]
             out = fn(*args)
             self.launches[key] += self.kernels.LAUNCHES[name] - before
@@ -246,13 +358,33 @@ class Capture:
                 if name == "overlap_join" and len(args) > 8 and callable(
                         args[8]):
                     kept[8] = out[0].shape[0]   # the slots a rule let in
-                self.args[row] = (size, tuple(kept))
+                self.args[row] = (rank, tuple(kept), handles)
             return out
 
         return call
 
+    def _drop(self, row: str) -> None:
+        if row in self.args:
+            for h in self.args.pop(row)[2]:
+                self.copies.free(h)
+
+    def inputs(self, row: str) -> tuple:
+        """The kept arguments of ``row`` as tensors of PyTorch's own (the
+        raw copies are freed)."""
+        import torch
+
+        args = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in self.args[row][1])
+        self._drop(row)
+        return args
+
     def reset_launch_counts(self, phase: str) -> None:
-        """Counts to 0, for the path of ``phase``."""
+        """Counts to 0, for the path of ``phase``; PyTorch's cached
+        memory goes back to the card, so the kept copies have room."""
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         self.kernels.reset_launch_counts()
         self.launches = dict.fromkeys(self.launches, 0)
         self.phase = phase
@@ -324,13 +456,38 @@ def work(key: str, args: tuple, total: int = 0):
     if name == "reduce_marks":
         return marks_work(args, total)
     if name == "canonical_reads":
-        reads, lengths = args[:2]
+        reads = args[0]
+        lengths = args[1] if len(args) > 1 else None
         N, L = reads.shape
         W = -(-L // 16)
         # codes in, RC out, two word rows and a flag; a shift and an
         # add per base for each of the two packings
         return (reads.numel() * 8 + N * W * 16 + N
                 + (0 if lengths is None else N * 4), reads.numel() * 8)
+    if name == "seed_table":
+        words0, valid, _, _, g = args[:5]
+        m, W = words0.shape
+        n, nb = m * g, 1 << args[5]
+        # words and flags in; the bucket table and the slab out; a key
+        # built, sorted and decoded per entry
+        return (words0.numel() * 8 + m + nb * 8 + n * (W + 1) * 4,
+                n * (40 + 2 * W))
+    if name == "probe_join":
+        words0, valid, table, slab, _, _, g, pa = args[:8]
+        m, W = words0.shape
+        Q = m * -(-pa // g)
+        steps = max(1, math.ceil(math.log2(Q + 1)))
+        # words, flags, the probed table rows and candidate slab rows in
+        # (each at most once); 13 bytes a candidate out
+        return (words0.numel() * 8 + m + min(Q, table.shape[0]) * 8
+                + min(total, slab.shape[0]) * (W + 1) * 4 + total * 13,
+                Q * 12 + total * (steps * 4 + W * 8 + 20))
+    if name == "merge_runs":
+        keys, weights = args[0], args[1] if len(args) > 1 else None
+        n = keys.numel()
+        # keys (and weights) in; each unique key and its sum out
+        return (n * 8 + (0 if weights is None else n * 4) + total * 12,
+                n * 4)
     tbl = args[0]                                   # gather_along
     return tbl.numel() * 12, tbl.numel() * 2
 
@@ -511,6 +668,7 @@ def main() -> int:
     t0 = time.perf_counter()
     log = MetricsLog(None, echo=False)
     with tempfile.TemporaryDirectory() as outdir:
+        torch.cuda.reset_peak_memory_stats()
         capture.reset_launch_counts("4")
         contigs, stats = assemble(reads, AssemblyConfig(), outdir=outdir,
                                   metrics=log, device="cuda")
@@ -524,11 +682,13 @@ def main() -> int:
             n_vertices = z["valid2"].shape[0]
     report_assembly("4 ecoli", t0, t_asm, log, launches, contigs, stats,
                     genome, genome_fraction)
-    del contigs, stats
+    peaks = {"4": peak_gib()}
+    incore = {"4": (contigs, stats)}
 
     # --- phase 5: voting corrector + device reduction -------------------
     t0 = time.perf_counter()
     log = MetricsLog(None, echo=False)
+    torch.cuda.reset_peak_memory_stats()
     capture.reset_launch_counts("5")
     contigs, stats = assemble(
         reads, AssemblyConfig(correction_rule="vote_all_windows",
@@ -538,10 +698,12 @@ def main() -> int:
     launches_by_key["5"] = capture.path_launches("5")
     report_assembly("5 ecoli vote+device", t0, time.perf_counter() - t0,
                     log, launches, contigs, stats, genome, genome_fraction)
-    del contigs, stats
+    peaks["5"] = peak_gib()
+    incore["5"] = (contigs, stats)
 
     # --- phase 6: device reduction against the native one ---------------
     t0 = time.perf_counter()
+    capture.reset_launch_counts("6")    # no row takes this phase's calls
     t1 = time.perf_counter()
     nat = transitive_reduction_auto(*edges, n_vertices, ECOLI["read_len"],
                                     backend="native")
@@ -626,11 +788,11 @@ def main() -> int:
         say(f"  n_contained={n_contained[0]} ragged_launches="
             f"{json.dumps(ragged_launches)}")
         del contigs, stats
-    capture.close()
     del ragged, lengths
 
     # --- phase 9: ragged device reduction against the native one --------
     t0 = time.perf_counter()
+    capture.reset_launch_counts("9")    # no row takes this phase's calls
     edges, V, lens = (reduce_input["edges"], reduce_input["n_vertices"],
                       reduce_input["lens"])
     t1 = time.perf_counter()
@@ -657,6 +819,52 @@ def main() -> int:
         device_s=f"{t_dev:.3f}", equal=True)
     del nat, dev_red, edges, reduce_input
 
+    # --- phase 10: streamed beyond device memory ------------------------
+    streamed = (
+        ("10a", AssemblyConfig(max_device_reads=STREAM_CHUNK), "4"),
+        ("10b", AssemblyConfig(correction_rule="vote_all_windows",
+                               reduce_backend="device",
+                               max_device_reads=STREAM_CHUNK,
+                               entry_block_reads=ENTRY_BLOCK), "5"),
+    )
+    for label, cfg, twin in streamed:
+        t0 = time.perf_counter()
+        log = MetricsLog(None, echo=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            if label == "10a":
+                cfg = dataclasses.replace(
+                    cfg, spill_dir=os.path.join(tmp, "spill"))
+            torch.cuda.reset_peak_memory_stats()
+            capture.reset_launch_counts(label)
+            contigs, stats = assemble(
+                reads, cfg, outdir=os.path.join(tmp, "out") if
+                label == "10a" else None, metrics=log, device="cuda")
+            launches = dict(kernels.LAUNCHES)
+            launches_by_key[label] = capture.path_launches(label)
+            t_asm = time.perf_counter() - t0
+            spilled = sorted(os.listdir(cfg.spill_dir)) if cfg.spill_dir \
+                else []
+        peaks[label] = peak_gib()
+        report_assembly(f"{label} ecoli streamed", t0, t_asm, log, launches,
+                        contigs, stats, genome, genome_fraction)
+        want_contigs, want_stats = incore[twin]
+        if stats != want_stats or len(contigs) != len(want_contigs) or any(
+                not np.array_equal(a, b)
+                for a, b in zip(contigs, want_contigs)):
+            raise AssertionError(f"phase {label}: streamed assembly differs "
+                                 f"from phase {twin}'s in-core one")
+        chunks = [r for r in log.records if r["stage"] == "streaming"]
+        retries = [r for r in log.records if r["stage"] == "overlap_retry"]
+        say(f"  equal to phase {twin}: contigs and stats; streaming "
+            f"{json.dumps(chunks[0]['chunk_reads'])} reads a chunk, "
+            f"overlap retries {len(retries)}, spill files {spilled}")
+        del contigs, stats
+    capture.close()
+    say("peak device memory (GiB, max_memory_allocated): "
+        + json.dumps(peaks) + f"; kernel inputs kept for phase 2: "
+        f"{capture.copies.kept / 2**30:.3f} GiB")
+    del incore
+
     # --- phase 2: each kernel against its plain version -----------------
     t0 = time.perf_counter()
     rows = []
@@ -664,7 +872,7 @@ def main() -> int:
         t1 = time.perf_counter()
         key = base_key(row)
         name = key.split(":")[0]
-        args = capture.args.pop(row)[1]     # freed after its row
+        args = capture.inputs(row)          # freed after its row
         wrapper = getattr(kernels, name)
         ref = getattr(plain, name)
 
@@ -682,10 +890,12 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"{row}: kernel differs from its plain "
                                  f"version (max abs err {err})")
-        if name == "overlap_join":
+        if name in ("overlap_join", "probe_join"):
             total = got[4]
         elif name == "reduce_marks":            # marks this range sets
             total = int((got != args[0]).sum())
+        elif name == "merge_runs":              # unique keys
+            total = got[0].numel()
         else:
             total = 0
         heavy = name == "vote_windows"
@@ -708,8 +918,10 @@ def main() -> int:
         say(f"  {row}: equal, {ms:.3f} ms (plain {plain_ms:.3f} ms"
             + (f", {library} {library_ms:.3f} ms" if library else "")
             + f"), bound {max(t_bytes, t_ops):.3f} ms, launches "
-            f"{n_launches} (phase {path}), inputs {shape}, check "
-            f"{time.perf_counter() - t1:.1f} s")
+            f"{n_launches} (phase {path}), inputs {shape}"
+            + (f", {total} candidates" if name in ("overlap_join",
+                                                   "probe_join") else "")
+            + f", check {time.perf_counter() - t1:.1f} s")
     phase("2 kernels vs plain", t0)
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
@@ -718,6 +930,13 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def peak_gib() -> float:
+    """Peak device memory allocated since the last reset, GiB."""
+    import torch
+
+    return round(torch.cuda.max_memory_allocated() / 2**30, 3)
 
 
 def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
@@ -757,6 +976,22 @@ def library_time(key: str, args: tuple):
         tbl, idx, axis = args
         idx64 = idx.long()
         return time_ms(lambda: torch.gather(tbl, axis, idx64)), "gather"
+    if key == "seed_table":
+        from sage2_tpu_torch.kernels import plain
+
+        # the bucket table's starts: a search of every bucket in the
+        # sorted bucket column of the valid entries
+        table = plain.seed_table(*args)[0]
+        nb = table.shape[0]
+        column = torch.repeat_interleave(
+            torch.arange(nb, device=table.device), table[:, 1].long())
+        buckets = torch.arange(nb, device=table.device)
+        return time_ms(lambda: torch.searchsorted(column, buckets)), \
+            "searchsorted"
+    if key == "merge_runs":
+        keys = args[0]
+        return time_ms(lambda: torch.unique_consecutive(
+            keys, return_counts=True)), "unique_consecutive"
     return None, None
 
 

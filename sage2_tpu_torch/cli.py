@@ -12,7 +12,11 @@ Example:
 cuda``, the default) and fail when there is none; ``--device cpu`` runs
 the plain PyTorch versions. ``--length-policy pad`` keeps every read at
 its own length (ragged reads; a file whose reads all have one length
-takes the fixed-length path). ``correct`` and ``overlap`` write what the
+takes the fixed-length path). ``--max-device-reads N`` streams the
+assembly in chunks of N reads (``--entry-block-reads``, ``--spill-dir``:
+the streamed join's entry blocks and the host spill store); ``correct``
+and ``overlap`` take these flags and run in core, as the reference's
+do. ``correct`` and ``overlap`` write what the
 reference's subcommands write, quirks included: both correct with the
 single_window rule whatever ``--correction-rule`` says, and ``overlap``
 reduces in core with ``--reduce-capacity`` and writes the result
@@ -58,6 +62,24 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="how to handle mixed read lengths at ingest;"
                         " 'pad' keeps every read at its own length"
                         " (lossless ragged mode)")
+    p.add_argument("--max-device-reads", type=int, default=None,
+                   metavar="N",
+                   help="stream count/correct/dedup/overlap in chunks of"
+                        " N reads when the input is larger (bounds device"
+                        " memory; bit-identical to in-core)")
+    p.add_argument("--spill-dir", default=None, metavar="DIR",
+                   help="spill the streamed pipeline's big host arrays"
+                        " (corrected reads, read store, edge list) to"
+                        " memmaps under DIR, bounding host RSS by"
+                        " O(chunk + reduced graph); bit-identical"
+                        " results (requires --max-device-reads;"
+                        " single-device path)")
+    p.add_argument("--entry-block-reads", type=int, default=None,
+                   metavar="N",
+                   help="streamed overlap: also stream the ENTRY side in"
+                        " blocks of N reads (block-nested join) — lifts"
+                        " the single-device HBM ceiling; default: auto"
+                        " above the measured ceiling; bit-identical")
     p.add_argument("--paired", action="store_true",
                    help="paired reads: not ported yet (ROADMAP Queue 1"
                         " item 14)")
@@ -79,6 +101,9 @@ def _config(args):
         candidate_capacity=args.candidate_capacity,
         reduce_capacity=args.reduce_capacity,
         reduce_backend=args.reduce_backend,
+        max_device_reads=args.max_device_reads,
+        spill_dir=args.spill_dir,
+        entry_block_reads=args.entry_block_reads,
     )
 
 

@@ -1,7 +1,8 @@
 """Transitive reduction of the string graph (port of
 sage2_tpu/graph/reduce.py: the in-core transitive_reduction :44, the
-chunked transitive_reduction_chunked :220, the native backend :364 and
-the dispatcher transitive_reduction_auto :470).
+chunked transitive_reduction_chunked :220, the native backend :364, its
+spilled form transitive_reduction_spill :414 and the dispatcher
+transitive_reduction_auto :470).
 
 Myers (2005) string-graph reduction: edge v->x (offset sl = len(v) -
 overlap) is removed when some w has v->w and w->x with sl_vx = sl_vw +
@@ -81,6 +82,43 @@ def transitive_reduction_native(
         np.concatenate([src_np[keep], np.full(pad, I32_MAX, np.int32)]),
         np.concatenate([dst_np[keep], np.full(pad, I32_MAX, np.int32)]),
         np.concatenate([ovl_np[keep], np.zeros(pad, np.int32)]),
+        n_edges, int(total), False,
+    )
+
+
+def transitive_reduction_spill(
+    store, src, dst, ovl, n_vertices: int, read_len,
+    n_threads: Optional[int] = None, window: int = 1 << 22,
+) -> ReducedGraph:
+    """The native reduction with O(window) host RAM: the marks land in
+    the store's ``reduce_marks`` memmap and the kept edges are compacted
+    window by window into its ``reduced_src``/``reduced_dst``/
+    ``reduced_ovl`` files, padded to a 2^14 grain above n_edges (not to
+    the input length) with (INT32_MAX, INT32_MAX, 0). The edges are
+    transitive_reduction_native's."""
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    ovl = np.ascontiguousarray(ovl, np.int32)
+    E = src.shape[0]
+    marks = store.empty("reduce_marks", np.uint8, (E,))
+    _, total = reduce_native.reduce_marks(
+        src, dst, ovl, n_vertices, read_len, n_threads=n_threads,
+        removed_out=marks)
+    writers = [store.writer(n, np.int32)
+               for n in ("reduced_src", "reduced_dst", "reduced_ovl")]
+    n_edges = 0
+    for w0 in range(0, E, window):
+        s = src[w0 : w0 + window]
+        keep = (s != I32_MAX) & (marks[w0 : w0 + window] == 0)
+        n_edges += int(keep.sum())
+        writers[0].append(s[keep])
+        writers[1].append(dst[w0 : w0 + window][keep])
+        writers[2].append(ovl[w0 : w0 + window][keep])
+    pad_to = max(1, -(-n_edges // (1 << 14)) * (1 << 14))
+    return ReducedGraph(
+        writers[0].close(pad_to=pad_to, fill=I32_MAX),
+        writers[1].close(pad_to=pad_to, fill=I32_MAX),
+        writers[2].close(pad_to=pad_to, fill=0),
         n_edges, int(total), False,
     )
 

@@ -62,17 +62,26 @@ def reduce_marks(
     n_vertices: int,
     read_len,
     n_threads: Optional[int] = None,
+    removed_out: Optional[np.ndarray] = None,
 ) -> tuple[np.ndarray, int]:
     """Removal mask + exact expansion total of the (src, dst)-sorted
     int32 edge arrays (padding src == INT32_MAX at the tail);
     ``read_len`` is the read length, or a (V,) array of per-vertex
-    lengths for ragged reads."""
+    lengths for ragged reads. Memmap inputs pass straight to the C++
+    side. ``removed_out``: an (E,) uint8 destination (a spill memmap)
+    for the marks, returned as they are (no bool copy)."""
     lib = _load()
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
     ovl = np.ascontiguousarray(ovl, np.int32)
     E = src.shape[0]
-    removed = np.zeros(E, np.uint8)
+    if removed_out is not None:
+        if removed_out.shape != (E,) or removed_out.dtype != np.uint8:
+            raise ValueError(f"removed_out must be ({E},) uint8")
+        removed = removed_out
+        removed[:] = 0
+    else:
+        removed = np.zeros(E, np.uint8)
     if isinstance(read_len, (int, np.integer)):
         fixed, lens_ptr = int(read_len), None
     else:
@@ -95,4 +104,6 @@ def reduce_marks(
             "sage2_transitive_reduce: malformed edge list (src/dst out of "
             "range or not (src, dst)-sorted)"
         )
+    if removed_out is not None:
+        return removed, int(total)
     return removed.astype(bool), int(total)

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
-Nine kernels (sources in ``kernels/csrc``):
+Twelve kernels (sources in ``kernels/csrc``):
 
   K1 ``kmer_keys``      forward, RC and canonical k-mer keys
   K2 ``lookup_counts``  binary search of query keys in a count table
@@ -14,14 +14,23 @@ Nine kernels (sources in ``kernels/csrc``):
                         the device transitive reduction, one slot range
   K8 ``canonical_reads`` reverse complement, packed words and canonical
                         choice of each read (the dedup stage)
+  K9 ``seed_table``     sort keys of the streamed join's entry seeds, and
+                        over the sorted keys its bucket table and slab
+                        (two launches around one torch.sort)
+  K10 ``probe_join``    probe, expansion, slab decode and verify of one
+                        query chunk of the streamed join (two launches)
+  K11 ``merge_runs``    unique keys and summed weights of the runs of a
+                        sorted key array (k-mer counting, table merges;
+                        two launches)
   P1 ``gather_along``   gather along one axis of an (N, W) table (the
                         Pallas probe's kernel; on no path of the package)
 
 Each wrapper takes its plain version (``kernels.plain``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
-to ``LAUNCHES[name]`` for each kernel it launches (``overlap_join`` and
-``reduce_counts`` launch two per call).
+to ``LAUNCHES[name]`` for each kernel it launches (``overlap_join``,
+``reduce_counts``, ``seed_table``, ``probe_join`` and ``merge_runs``
+launch two per call).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
@@ -43,7 +52,7 @@ from sage2_tpu_torch.utils import native_build
 
 KERNELS = ("kmer_keys", "lookup_counts", "overlap_join", "pointer_jump",
            "vote_windows", "reduce_counts", "reduce_marks", "canonical_reads",
-           "gather_along")
+           "seed_table", "probe_join", "merge_runs", "gather_along")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -80,6 +89,20 @@ _ARGTYPES = {
     },
     "canonical_reads": {
         "sage2_canonical_reads": [_P, _P, _I64, _I, _P, _P, _P, _P, _P],
+    },
+    "seed_table": {
+        "sage2_seed_keys": [_P, _P, _I64, _I, _I, _I, _I64, _P, _P],
+        "sage2_seed_table": [_P, _I64, _P, _I, _I, _I64, _I, _P, _P, _P],
+    },
+    "probe_join": {
+        "sage2_probe_count": [_P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P,
+                              _P],
+        "sage2_probe_write": [_P, _I64, _I, _I, _I, _I, _I, _I64, _P, _P,
+                              _P, _P, _I64, _P, _P, _P, _P, _P],
+    },
+    "merge_runs": {
+        "sage2_run_heads": [_P, _I64, _P, _P],
+        "sage2_run_write": [_P, _P, _I64, _P, _P, _P, _P, _P],
     },
     "gather_along": {
         "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P],
@@ -457,6 +480,155 @@ def canonical_reads(
                 _ptr(take_rc), _stream())
         LAUNCHES["canonical_reads"] += 1
     return rc, fwd_w, rc_w, take_rc
+
+
+def _entry_geometry(words0: torch.Tensor, L: int, s: int, g: int,
+                    positions) -> None:
+    """Checks shared by K9 and K10: the words cover L bases and every
+    seed of ``positions`` lies inside the read."""
+    if words0.dim() != 2 or words0.shape[1] != -(-L // 16):
+        raise ValueError(f"words0 must be (m, ceil(L / 16)) for L = {L}, got "
+                         f"{tuple(words0.shape)}")
+    if not 1 <= s <= 32 or not 1 <= g <= 16:
+        raise ValueError(f"need 1 <= s <= 32 and 1 <= g <= 16, got {s}, {g}")
+    for p in positions:
+        if p + s > L:
+            raise ValueError(f"seed position {p} + seed length {s} exceeds "
+                             f"read length {L}")
+
+
+def seed_table(
+    words0: torch.Tensor, valid: torch.Tensor, L: int, s: int, g: int,
+    bucket_bits: int, base: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(table, slab) of the streamed join's entry side for the reads of
+    one block: ``words0`` (m, ceil(L / 16)) int64 their unshifted packed
+    words, ``valid`` (m,) bool, ``base`` the global id of the block's
+    first read. The entries are (read, offset o < g) with global id
+    (base + read) * g + o, keyed by the 16-base word at o (masked to
+    ``s`` bases below 16; all-ones for an invalid read) and sorted by
+    (word, invalid bit, id). ``table`` (2^bucket_bits, 2) int32: each
+    bucket's [first sorted slot, count] among the valid entries, an
+    empty bucket [first slot of a higher bucket, 0]; ``slab`` (m * g,
+    W + 1) int32: each sorted slot's [entry id, words of its read] (uint32
+    bit patterns). Kernel K9, two launches around one torch.sort (see
+    kernels/csrc/seed_table.cu)."""
+    m = words0.shape[0]
+    _entry_geometry(words0, L, s, g, range(g))
+    if not 1 <= bucket_bits <= min(26, 2 * s):
+        raise ValueError(f"bucket_bits {bucket_bits} outside [1, "
+                         f"{min(26, 2 * s)}]")
+    if (base + m) * g >= 1 << 31:
+        raise ValueError(f"entry ids up to {(base + m) * g} overflow 31 bits")
+    if _on_cpu(words0, valid):
+        return plain.seed_table(words0, valid, L, s, g, bucket_bits, base)
+    _dtype(words0, torch.int64, "words0")
+    _dtype(valid, torch.bool, "valid")
+    W = words0.shape[1]
+    dev = words0.device
+    n = m * g
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    if n:
+        _launch("seed_table", "sage2_seed_keys", _ptr(words0), _ptr(valid),
+                m, W, s, g, base, _ptr(keys), _stream())
+        LAUNCHES["seed_table"] += 1
+    keys = torch.sort(keys).values
+    table = torch.empty((1 << bucket_bits, 2), dtype=torch.int32, device=dev)
+    slab = torch.empty((n, W + 1), dtype=torch.int32, device=dev)
+    _launch("seed_table", "sage2_seed_table", _ptr(keys), n, _ptr(words0), W,
+            g, base, bucket_bits, _ptr(table), _ptr(slab), _stream())
+    LAUNCHES["seed_table"] += 1
+    return table, slab
+
+
+def probe_join(
+    words0: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,
+    slab: torch.Tensor, L: int, s: int, g: int, pa: int, base: int = 0,
+    capacity: Optional[int] = None,
+):
+    """(ok bool, cand_a, cand_b, ovl int32, total) of one query chunk
+    against a seed table from ``seed_table``: ``words0`` (m, ceil(L /
+    16)) int64 the chunk's unshifted words, ``valid`` (m,) bool, ``base``
+    the global id of its first read, ``pa`` = L - min_overlap. Each read
+    probes the table at positions g, 2g, ... (ceil(pa / g) of them); a
+    probe's candidates are its bucket's entries, in slot order (probes
+    row-major, then rank in the bucket). A candidate (a, b, p0 = probe
+    position - entry offset) is ok when a != b, p0 <= pa and a[p0:] ==
+    b[:L - p0]; ovl = L - clip(p0, 1, pa). ``total`` is the candidate
+    count; when it exceeds ``capacity`` nothing is expanded and the four
+    arrays are empty (the reference's fail-fast overflow). Kernel K10,
+    two launches (see kernels/csrc/probe_join.cu)."""
+    n_pos = -(-pa // g)
+    _entry_geometry(words0, L, s, g, [g * (j + 1) for j in range(n_pos)])
+    B = table.shape[0].bit_length() - 1
+    if table.shape != (1 << B, 2) or slab.dim() != 2 or (
+            slab.shape[1] != words0.shape[1] + 1):
+        raise ValueError(f"table {tuple(table.shape)} and slab "
+                         f"{tuple(slab.shape)} do not fit the words")
+    if _on_cpu(words0, valid, table, slab):
+        return plain.probe_join(words0, valid, table, slab, L, s, g, pa,
+                                base, capacity)
+    _dtype(words0, torch.int64, "words0")
+    _dtype(valid, torch.bool, "valid")
+    _dtype(table, torch.int32, "table")
+    _dtype(slab, torch.int32, "slab")
+    m, W = words0.shape
+    dev = words0.device
+    Q = m * n_pos
+
+    def empty(size, dtype):
+        return torch.empty(size, dtype=dtype, device=dev)
+
+    lo_idx, counts = empty(Q, torch.int32), empty(Q, torch.int32)
+    if Q:
+        _launch("probe_join", "sage2_probe_count", _ptr(words0), _ptr(valid),
+                m, W, s, g, n_pos, B, _ptr(table), _ptr(lo_idx),
+                _ptr(counts), _stream())
+        LAUNCHES["probe_join"] += 1
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
+    total = int(offsets[-1]) if Q else 0
+    n_out = 0 if capacity is not None and total > capacity else total
+    ok = empty(n_out, torch.bool)
+    cand = [empty(n_out, torch.int32) for _ in range(3)]
+    if n_out:
+        _launch("probe_join", "sage2_probe_write", _ptr(words0), m, W, g,
+                n_pos, pa, L, base, _ptr(slab), _ptr(lo_idx), _ptr(counts),
+                _ptr(offsets), n_out, _ptr(ok), *map(_ptr, cand), _stream())
+        LAUNCHES["probe_join"] += 1
+    return (ok, *cand, total)
+
+
+def merge_runs(
+    keys: torch.Tensor, weights: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unique keys int64, summed weight int32 of each) of the sorted
+    int64 ``keys``; ``weights`` (same length) int32, or None for 1
+    each. Kernel K11, two launches (see kernels/csrc/merge_runs.cu)."""
+    tensors = (keys,) + (() if weights is None else (weights,))
+    if _on_cpu(*tensors):
+        return plain.merge_runs(keys, weights)
+    _dtype(keys, torch.int64, "keys")
+    if weights is not None:
+        _dtype(weights, torch.int32, "weights")
+    n = keys.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"{n} keys overflow the int32 slots")
+    dev = keys.device
+    if n == 0:
+        return keys.clone(), torch.empty(0, dtype=torch.int32, device=dev)
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("merge_runs", "sage2_run_heads", _ptr(keys), n, _ptr(flags),
+            _stream())
+    LAUNCHES["merge_runs"] += 1
+    pos = torch.cumsum(flags, 0, dtype=torch.int32)
+    n_unique = int(pos[-1])
+    out_keys = torch.empty(n_unique, dtype=torch.int64, device=dev)
+    out_sums = torch.zeros(n_unique, dtype=torch.int32, device=dev)
+    _launch("merge_runs", "sage2_run_write", _ptr(keys), _ptr(weights), n,
+            _ptr(flags), _ptr(pos), _ptr(out_keys), _ptr(out_sums),
+            _stream())
+    LAUNCHES["merge_runs"] += 1
+    return out_keys, out_sums
 
 
 def gather_along(tbl: torch.Tensor, idx: torch.Tensor,

@@ -27,6 +27,18 @@ static inline int sage2_blocks(int64_t n) {
                    threadIdx.x;                                          \
        i < (n); i += static_cast<int64_t>(gridDim.x) * blockDim.x)
 
+// The 16 bases [q, q + 16) of a read from its unshifted packed words
+// (W int64 words holding uint32, 16 bases a word, first base in the top
+// bits), zero past the last word: the seed word of the streamed join.
+__device__ __forceinline__ uint32_t word_at(const int64_t* __restrict__ row,
+                                            int W, int q) {
+  const int w = q >> 4, r = q & 15;
+  const uint32_t cur = w < W ? static_cast<uint32_t>(row[w]) : 0u;
+  if (r == 0) return cur;
+  const uint32_t nxt = w + 1 < W ? static_cast<uint32_t>(row[w + 1]) : 0u;
+  return (cur << (2 * r)) | (nxt >> (32 - 2 * r));
+}
+
 SAGE2_EXPORT const char* sage2_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -15,7 +15,7 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from sage2_tpu_torch.ops.sort import words_less
+from sage2_tpu_torch.ops.sort import unique_sorted_pairs, words_less
 
 _U32 = 0xFFFFFFFF
 
@@ -350,6 +350,94 @@ def canonical_reads(
     fwd_w = bitpack.pack_read_words(fwd)
     rc_w = bitpack.pack_read_words(rc)
     return rc, fwd_w, rc_w, words_less(rc_w, fwd_w)
+
+
+def seed_table(
+    words0: torch.Tensor, valid: torch.Tensor, L: int, s: int, g: int,
+    bucket_bits: int, base: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(table, slab) as sage2_tpu/stream.py:193-226 builds them: the
+    seed words at offsets 0..g-1 (detect.seed_keys_from_words0),
+    detect.build_seed_table over global entry ids from base * g (one sort
+    by (word, packed invalid-bit | id), detect.table_from_sorted), and
+    each sorted slot's [entry, words0 of its read] as int32 bit
+    patterns."""
+    from sage2_tpu_torch.overlap import detect
+
+    hi, _ = detect.seed_keys_from_words0(words0, s, list(range(g)), L)
+    st = detect.build_seed_table(hi.reshape(-1), valid.repeat_interleave(g),
+                                 bucket_bits, base * g)
+    words = words0[st.entry // g - base]
+    slab = torch.cat([st.entry[:, None], words], dim=1)
+    return st.packed, detect._as_int32(slab)
+
+
+def probe_join(
+    words0: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,
+    slab: torch.Tensor, L: int, s: int, g: int, pa: int, base: int = 0,
+    capacity: Optional[int] = None, block: int = 1 << 22,
+):
+    """(ok, cand_a, cand_b, ovl, total) as sage2_tpu/stream.py:240-270
+    computes them: probe seeds at g (j + 1) (seed_keys_from_words0),
+    detect.probe_seed_table, ops.sort.expand_with_payload over the
+    exact candidate count, the slab gather and decode, and
+    detect.verify_candidates_words0. Empty arrays when ``total`` exceeds
+    ``capacity``. The slots are decoded and verified ``block`` at a
+    time."""
+    from sage2_tpu_torch.ops.sort import expand_with_payload
+    from sage2_tpu_torch.overlap import detect
+
+    n_pos = -(-pa // g)
+    B = table.shape[0].bit_length() - 1
+    dev = words0.device
+    a_hi, _ = detect.seed_keys_from_words0(
+        words0, s, [g * (j + 1) for j in range(n_pos)], L)
+    lo_idx, counts = detect.probe_seed_table(
+        detect.SeedTable(slab[:, 0], table, B), a_hi, valid)
+    counts = counts.reshape(-1)
+    total = int(counts.sum())
+    n_out = 0 if capacity is not None and total > capacity else total
+    i32 = torch.int32
+    ok = torch.empty(n_out, dtype=torch.bool, device=dev)
+    cand = [torch.empty(n_out, dtype=i32, device=dev) for _ in range(3)]
+    if n_out == 0:
+        return (ok, *cand, total)
+    q, rank, lo_of, cand_valid = expand_with_payload(
+        counts, lo_idx.reshape(-1), n_out)
+    T = slab.shape[0]
+    for j0 in range(0, n_out, block):
+        sl = slice(j0, min(j0 + block, n_out))
+        cand_a = base + q[sl] // n_pos
+        cand_p = (q[sl] % n_pos + 1) * g
+        row = slab[(lo_of[sl].to(torch.int64) + rank[sl]).clamp(max=T - 1)]
+        row = row.to(torch.int64) & _U32
+        e_b = row[:, 0]
+        cand_b = e_b // g
+        cand_p0 = cand_p - (e_b - cand_b * g)
+        v = cand_valid[sl] & (cand_a != cand_b) & (cand_p0 <= pa)
+        cand_p0 = cand_p0.clamp(1, pa)
+        ok[sl] = detect.verify_candidates_words0(
+            words0, cand_a - base, cand_p0, row[:, 1:], L, max_p=pa) & v
+        for out, x in zip(cand, (cand_a, cand_b, L - cand_p0)):
+            out[sl] = x.to(i32)
+    return (ok, *cand, total)
+
+
+def merge_runs(
+    keys: torch.Tensor, weights: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(unique keys, summed weights) of sorted keys: the head flags of
+    ops.sort.unique_sorted_pairs and an index_add_ of the weights (1
+    each without weights) by group, as sage2_tpu/kmer/count.py:72-90 and
+    sage2_tpu/stream.py:30-49 compute them."""
+    is_head, group = unique_sorted_pairs(
+        keys, torch.ones_like(keys, dtype=torch.bool))
+    w = (torch.ones_like(keys, dtype=torch.int32) if weights is None
+         else weights)
+    sums = torch.zeros(int(is_head.sum()), dtype=torch.int32,
+                       device=keys.device)
+    sums.index_add_(0, group.to(torch.int64), w)
+    return keys[is_head], sums
 
 
 def gather_along(tbl: torch.Tensor, idx: torch.Tensor,

@@ -1,8 +1,8 @@
 """Exact canonical k-mer counting (port of sage2_tpu/kmer/count.py).
 
-Canonical keys of every window (kernel K1), one ``torch.sort``, and run
-accounting give a sorted table of unique keys with their counts;
-queries against it are binary searches (kernel K2).
+Canonical keys of every window (kernel K1), one ``torch.sort``, and the
+run accounting of kernel K11 give a sorted table of unique keys with
+their counts; queries against it are binary searches (kernel K2).
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ import torch
 
 from sage2_tpu_torch import kernels
 from sage2_tpu_torch.ops import bitpack
-from sage2_tpu_torch.ops.sort import unique_sorted_pairs
 
 
 class KmerTable(NamedTuple):
@@ -56,14 +55,12 @@ def window_mask(lengths: torch.Tensor, L: int, k: int) -> torch.Tensor:
 def count_from_keys(keys: torch.Tensor, k: int,
                     valid: Optional[torch.Tensor] = None) -> KmerTable:
     """Build a sorted count table from raw canonical keys (invalid ones
-    masked out by ``valid``)."""
+    masked out by ``valid``): one torch.sort, then each run's key and
+    length (kernel K11)."""
     if valid is not None:
         keys = keys[valid]
-    s = torch.sort(keys).values
-    is_head, group_id = unique_sorted_pairs(
-        s, torch.ones_like(s, dtype=torch.bool))
-    counts = torch.bincount(group_id, minlength=int(is_head.sum()))
-    return KmerTable(s[is_head], counts.to(torch.int32), counts.shape[0], k)
+    uniq, counts = kernels.merge_runs(torch.sort(keys).values)
+    return KmerTable(uniq, counts, uniq.shape[0], k)
 
 
 def lookup_counts(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:

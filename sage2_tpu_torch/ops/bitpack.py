@@ -90,39 +90,37 @@ def set_base(key: torch.Tensor, k: int, pos: int, old: torch.Tensor,
     return key + (new.to(torch.int64) - old.to(torch.int64)) * w
 
 
-_POW4_16 = [1 << (2 * (15 - i)) for i in range(16)]
-
-
 def pack_read_words(reads: torch.Tensor) -> torch.Tensor:
     """Pack fixed-length reads to words of 16 bases (int64 holding a
     uint32): (..., L) codes -> (..., ceil(L/16)), big-endian within a
     word, final word left-aligned, so word-wise order is base-wise
-    order."""
+    order. Base j of every word is added in one step, so the
+    temporaries are word-sized, not base-sized."""
     L = reads.shape[-1]
     W = -(-L // 16)
-    r = reads.to(torch.int64)
-    pad = W * 16 - L
-    if pad:
-        r = torch.cat([r, r.new_zeros(r.shape[:-1] + (pad,))], dim=-1)
-    grouped = r.reshape(r.shape[:-1] + (W, 16))
-    w = torch.tensor(_POW4_16, dtype=torch.int64, device=r.device)
-    return (grouped * w).sum(-1)
+    out = torch.zeros(reads.shape[:-1] + (W,), dtype=torch.int64,
+                      device=reads.device)
+    for j in range(16):
+        col = reads[..., j::16]          # base j of words 0 .. n - 1
+        out *= 4
+        out[..., : col.shape[-1]] += col
+    return out
 
 
 def word_at(words0: torch.Tensor, q: int) -> torch.Tensor:
     """The word of bases [q, q + 16) of every read (zero past the end)
-    from the unshifted packing ``words0`` (M, W): the reference's
+    from the unshifted packing ``words0`` (..., W): the reference's
     ``shifted_word_packs(...)[:, q % 16, q // 16]``."""
-    W = words0.shape[1]
+    W = words0.shape[-1]
     w, r = q // 16, q % 16
     if w >= W:
-        return words0.new_zeros(words0.shape[0])
-    head = words0[:, w]
+        return words0.new_zeros(words0.shape[:-1])
+    head = words0[..., w]
     if r == 0:
         return head.clone()
     out = (head << (2 * r)) & 0xFFFFFFFF
     if w + 1 < W:
-        out |= words0[:, w + 1] >> (32 - 2 * r)
+        out |= words0[..., w + 1] >> (32 - 2 * r)
     return out
 
 

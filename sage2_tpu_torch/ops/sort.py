@@ -58,3 +58,38 @@ def words_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         less |= eq & (a[..., j] < b[..., j])
         eq &= a[..., j] == b[..., j]
     return less
+
+
+def expand_with_payload(
+    counts: torch.Tensor, payload: torch.Tensor, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flatten variable-size groups into ``capacity`` slots, carrying a
+    per-group payload (sage2_tpu/ops/sort.py:143).
+
+    For each slot j: the group holding it (the last non-empty group
+    starting at or before j), its rank in the group, the group's payload
+    and whether j is below the total count. Slots past the total keep
+    the reference's values (the last non-empty group, its rank counted
+    on). int64 group and rank.
+    """
+    dev = counts.device
+    G = counts.shape[0]
+    counts = counts.to(torch.int64)
+    offsets = torch.cumsum(counts, 0)
+    total = int(offsets[-1]) if G else 0
+    starts = offsets - counts
+    nonempty = (counts > 0) & (starts < capacity)
+    scatter_idx = torch.where(nonempty, starts, capacity)
+    init = torch.full((capacity + 1,), -1, dtype=torch.int64, device=dev)
+    init.scatter_reduce_(0, scatter_idx,
+                         torch.arange(G, dtype=torch.int64, device=dev),
+                         "amax")
+    group = torch.cummax(init[:capacity], 0).values
+    group_c = group.clamp(0, max(G - 1, 0))
+    j = torch.arange(capacity, dtype=torch.int64, device=dev)
+    if G == 0:
+        zero = torch.zeros(capacity, dtype=torch.int64, device=dev)
+        return zero, j, payload.new_zeros(capacity), j < 0
+    rank = j - starts[group_c]
+    valid = (j < total) & (group >= 0)
+    return group_c, rank, payload[group_c], valid

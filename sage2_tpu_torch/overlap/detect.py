@@ -12,6 +12,15 @@ the word-wise verify. The longest overlap per (src, dst) is kept.
 Ragged reads (``lengths``): a seed row is live only where its whole seed
 lies inside its read, each payload row carries its read's length, and
 K3 also marks the reads that lie whole inside another (``contained``).
+
+The streamed join (``sage2_tpu_torch.stream``) takes another form, the
+reference's bucket table (:226-500): entry seeds at the first g offsets
+of each read, grouped by the top B bits of their 16-base word into a
+2^B-bucket start table, and probed by each read's query seeds; every
+candidate of a bucket is verified against the whole overlap from the
+reads' unshifted words. The functions below are its plain definitions;
+kernels K9 (``seed_table``) and K10 (``probe_join``) compute them on the
+card.
 """
 
 from __future__ import annotations
@@ -127,6 +136,161 @@ def _as_int32(words: torch.Tensor) -> torch.Tensor:
         torch.int32)
 
 
+def word_at_positions(words0: torch.Tensor, positions) -> list:
+    """The word of bases [p, p + 16) for each static p (int64 holding a
+    uint32), from the unshifted packing ``words0`` (..., W); zero past
+    the read's end (:226)."""
+    return [bitpack.word_at(words0, p) for p in positions]
+
+
+def seed_keys_from_words0(words0: torch.Tensor, s: int, positions,
+                          L: int):
+    """(hi, lo), each (..., len(positions)) int64 holding a uint32: the
+    reference's left-aligned seed key at each position, masked to s
+    bases (:258)."""
+    for p in positions:
+        if p + s > L:
+            raise ValueError(f"seed position {p} + seed length {s} exceeds "
+                             f"read length {L}")
+    hi = torch.stack(word_at_positions(words0, positions), dim=-1)
+    if s < 16:
+        hi = _mask_top(hi, s)
+    if s > 16:
+        lo = torch.stack(
+            word_at_positions(words0, [p + 16 for p in positions]), dim=-1)
+        if s < 32:
+            lo = _mask_top(lo, s - 16)
+    else:
+        lo = torch.zeros_like(hi)
+    return hi, lo
+
+
+def verify_candidates_words0(
+    words0_a: torch.Tensor, cand_a: torch.Tensor, cand_p: torch.Tensor,
+    b_words: torch.Tensor, L: int, max_p: Optional[int] = None,
+    chunk: int = 1 << 20,
+) -> torch.Tensor:
+    """reads_a[a][p:] == reads_b[:L - p] for each candidate, from a's
+    unshifted words (``words0_a`` (M, W), a row per candidate) and b's
+    pre-gathered words ``b_words`` (C, W) (all int64 holding uint32):
+    a's row is shifted by p // 16 words (only offsets up to max_p // 16,
+    as the reference's select loop) and by p % 16 bases, then compared
+    word by word over L - p bases (:287). ``chunk`` candidates at a
+    time."""
+    M, W = words0_a.shape
+    max_w0 = (max_p if max_p is not None else L - 1) >> 4
+    dev = words0_a.device
+    t16 = torch.arange(W, dtype=torch.int64, device=dev)[None, :]
+    C = cand_a.shape[0]
+    out = torch.empty(C, dtype=torch.bool, device=dev)
+    for c0 in range(0, C, chunk):
+        sl = slice(c0, c0 + chunk)
+        a = cand_a[sl].to(torch.int64).clamp(0, M - 1)
+        p = cand_p[sl].to(torch.int64)
+        aw = words0_a[a]
+        w0 = p >> 4
+        idx = t16 + w0[:, None]
+        shifted = torch.where(idx < W, aw.gather(1, idx.clamp(max=W - 1)), 0)
+        a_shift = torch.where((w0 <= max_w0)[:, None], shifted, aw)
+        r2 = (2 * (p & 15))[:, None]
+        nxt = torch.cat([a_shift[:, 1:], torch.zeros_like(a_shift[:, :1])],
+                        dim=1)
+        a_al = torch.where(
+            r2 == 0, a_shift,
+            ((a_shift << r2) & 0xFFFFFFFF) | (nxt >> (32 - r2)))
+        diff = a_al ^ b_words[sl]
+        vb = (2 * (L - p)[:, None] - 32 * t16).clamp(0, 32)
+        shift = (32 - vb).clamp(0, 31)
+        ok_word = (vb == 0) | torch.where(vb == 32, diff == 0,
+                                          (diff >> shift) == 0)
+        out[sl] = ok_word.all(dim=1)
+    return out
+
+
+def _pick_bucket_bits(n_table: int, n_queries: int, seed_bits: int,
+                      bucket_bits: Optional[int]) -> int:
+    """The reference's bucket count rule (:390): 2^B near sqrt(20 * Q *
+    T), at least 2^18, capped by the seed bits and at 2^26."""
+    if bucket_bits is None:
+        bucket_bits = max(
+            (20 * n_queries * max(n_table, 1)).bit_length() // 2, 18)
+    return min(bucket_bits, seed_bits, 31, 26)
+
+
+class SeedTable(NamedTuple):
+    """Bucket index over sorted seed keys (:403).
+
+    entry: (T,) entry ids in key-sorted order (invalid last); packed:
+    (2^B, 2) int32, per bucket [start slot, entry count]; bucket_bits:
+    B.
+    """
+
+    entry: torch.Tensor
+    packed: torch.Tensor
+    bucket_bits: int
+
+
+def sort_hi_packed(hi: torch.Tensor, packed: torch.Tensor):
+    """(hi, packed) sorted by hi, then packed (both int64 holding
+    uint32), as the reference's two-operand sort: one int64 key with its
+    top bit flipped, so signed order is the unsigned (hi, packed)
+    order."""
+    key = ((hi - (1 << 31)) << 32) | packed
+    key = torch.sort(key).values
+    return (key >> 32) + (1 << 31), key & 0xFFFFFFFF
+
+
+def build_seed_table(p_hi: torch.Tensor, p_valid: torch.Tensor,
+                     bucket_bits: int, first_id: int = 0) -> SeedTable:
+    """Group the seeds by the top ``bucket_bits`` of ``hi`` (invalid ones
+    after every valid one) and build the bucket start table (:416).
+    Probes return whole buckets, so only the grouping matters, not the
+    full (hi, lo) order: the reference's ``p_lo`` is not taken. Entry
+    ids count from ``first_id`` (a streamed entry block's first id)."""
+    Mg = p_hi.shape[0]
+    if first_id + Mg >= 1 << 31:
+        raise ValueError(f"seed table too large: entry ids up to "
+                         f"{first_id + Mg} >= 2^31")
+    q_hi = torch.where(p_valid, p_hi, 0xFFFFFFFF)
+    packed = torch.where(p_valid, 0, 1 << 31) | (first_id + torch.arange(
+        Mg, device=p_hi.device))
+    b_hi, b_packed = sort_hi_packed(q_hi, packed)
+    n_valid = int(p_valid.sum())
+    b_val = (torch.arange(Mg, device=p_hi.device) < n_valid).to(torch.int32)
+    return table_from_sorted(b_hi, b_packed & 0x7FFFFFFF, b_val, bucket_bits)
+
+
+def table_from_sorted(b_hi: torch.Tensor, b_entry: torch.Tensor,
+                      b_val: torch.Tensor, bucket_bits: int) -> SeedTable:
+    """Bucket start table over an already sorted entry list, valid
+    entries first (:446): each bucket's first valid slot by a scatter
+    min, empty buckets filled from the right by a reverse cummin, the
+    end at n_valid."""
+    B = bucket_bits
+    Mg = b_hi.shape[0]
+    nb = 1 << B
+    dev = b_hi.device
+    bucket = b_hi >> (32 - B)
+    tbl = torch.full((nb + 1,), Mg, dtype=torch.int64, device=dev)
+    tbl.scatter_reduce_(0, torch.where(b_val == 1, bucket, nb),
+                        torch.arange(Mg, dtype=torch.int64, device=dev),
+                        "amin")
+    tbl[nb] = min(int(tbl[nb]), int(b_val.sum()))
+    start = torch.cummin(tbl.flip(0), 0).values.flip(0)
+    packed = torch.stack([start[:-1], start[1:] - start[:-1]], dim=1)
+    return SeedTable(b_entry, packed.to(torch.int32), B)
+
+
+def probe_seed_table(st: SeedTable, a_hi: torch.Tensor,
+                     a_row_valid: torch.Tensor):
+    """(bucket start slot, candidate count) of each query seed; count 0
+    for an invalid row (:476). a_hi (..., P), a_row_valid (...,)."""
+    row = st.packed[a_hi >> (32 - st.bucket_bits)]
+    lo_idx = row[..., 0]
+    counts = torch.where(a_row_valid[..., None], row[..., 1], 0)
+    return lo_idx, counts
+
+
 def build_seed_rows(
     reads2: torch.Tensor, valid2: torch.Tensor, s: int, geo: JoinGeometry,
     lengths: Optional[torch.Tensor] = None,
@@ -230,6 +394,17 @@ def _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len: int,
     dst[:n_edges] = b[is_last].to(torch.int32)
     ovl[:n_edges] = v[is_last].to(torch.int32)
     return src, dst, ovl, n_edges
+
+
+def reduce_edge_candidates(ok, cand_a, cand_b, cand_ovl, read_len: int):
+    """Longest overlap per (src, dst) of the ok candidates, sorted by
+    (src, dst) and padded to the candidate count (:488). Returns (src,
+    dst, ovl, n_edges); the first n_edges rows are the reference's
+    (which packs dst and ovl into one sort operand where they fit, an
+    order-preserving change; its ``max_vertex`` chose that and is not
+    taken)."""
+    return _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len,
+                         ok.shape[0])
 
 
 def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,

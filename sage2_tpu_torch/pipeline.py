@@ -1,6 +1,6 @@
-"""Pipeline orchestration, reads to contigs (port of the in-core,
-single-device, unpaired branch of sage2_tpu/pipeline.py, for
-fixed-length and ragged reads).
+"""Pipeline orchestration, reads to contigs (port of the single-device,
+unpaired branches of sage2_tpu/pipeline.py: in core for fixed-length and
+ragged reads, streamed beyond device memory for fixed-length reads).
 
 Stages: count + correct (either rule), dedup + overlap, transitive
 reduction (host native, or on the device with ``reduce_backend=
@@ -11,10 +11,20 @@ Ragged reads (``lengths``) also go through SAGE's containment removal
 after the overlap stage: a read that lies whole inside a longer one
 leaves the graph with its edges.
 
+Streaming (``config.max_device_reads`` below the read count): count,
+correct, dedup and overlap go to the device in chunks of that many reads
+(``sage2_tpu_torch.stream``; the overlap join through kernels K9 and
+K10), with the in-core result bit for bit. With ``config.spill_dir``
+the big host arrays (corrected reads, the read store, the edge lists)
+become memmaps of a spill store there (``utils.spill``), and the native
+reduction marks and compacts through it.
+
 Stage artifacts are the reference's: corrected.npz, edges.npz,
 reduced.npz, labels.npz, contigs.fasta, stats.json and manifest.json
-under ``outdir``. ``resume_from`` re-enters at a stage from those files,
-which may also come from a sage2_tpu run (load_reference_artifacts).
+under ``outdir`` (a spilled run keeps its big arrays in the spill store
+and only the small ones in the npz files). ``resume_from`` re-enters at
+a stage from those files, which may also come from a sage2_tpu run
+(load_reference_artifacts).
 """
 
 from __future__ import annotations
@@ -39,14 +49,23 @@ from sage2_tpu_torch.graph.finish import (
     prune_zero_copy_branches,
     remove_tips,
 )
-from sage2_tpu_torch.graph.reduce import transitive_reduction_auto
+from sage2_tpu_torch.graph.reduce import (
+    transitive_reduction_auto,
+    transitive_reduction_spill,
+)
 from sage2_tpu_torch.graph.traverse import contract_unitigs
 from sage2_tpu_torch.io.writer import write_fasta
 from sage2_tpu_torch.kmer import correct_reads, count_kmers
 from sage2_tpu_torch.ops.sort import I32_MAX
 from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
+from sage2_tpu_torch.stream import (
+    correct_reads_chunked,
+    find_overlaps_chunked,
+    prepare_reads_chunked,
+)
 from sage2_tpu_torch.utils.device import resolve_device
 from sage2_tpu_torch.utils.metrics import MetricsLog
+from sage2_tpu_torch.utils.spill import SpillStore
 from sage2_tpu_torch.utils.stats import assembly_stats
 
 STAGES = ["correct", "overlap", "reduce", "traverse", "finish"]
@@ -64,7 +83,7 @@ def _save(outdir: Optional[str], log: MetricsLog, name: str,
 
 
 def _manifest(outdir: Optional[str], config: AssemblyConfig,
-              stage: str) -> None:
+              stage: str, spilled: bool = False) -> None:
     if not outdir:
         return
     os.makedirs(outdir, exist_ok=True)
@@ -79,29 +98,47 @@ def _manifest(outdir: Optional[str], config: AssemblyConfig,
              "stages": []}
     if stage not in m["stages"]:
         m["stages"].append(stage)
+    # the big arrays live in the spill store, not in the npz artifacts:
+    # a resume of this outdir needs the same spill dir
+    if spilled:
+        m["spilled"] = True
     with open(path, "w") as f:
         json.dump(m, f, indent=1)
 
 
-def load_reference_artifacts(outdir: str) -> Dict[str, object]:
+def load_reference_artifacts(outdir: str,
+                             spill_dir: Optional[str] = None
+                             ) -> Dict[str, object]:
     """Read the stage artifacts of a run (of this package or of
     sage2_tpu) with numpy only: ``manifest`` (dict) and, where present,
     ``corrected``, ``edges``, ``reduced`` and ``labels`` (dicts of
-    arrays). Raises ValueError for a run whose arrays went to a spill
-    store, which the port cannot read."""
+    arrays). ``spill_dir``: the spill store of a run that spilled its
+    big arrays; its ``corrected``, ``edges_*``/``reads2`` and
+    ``reduced_*`` arrays (memmaps) take the place of the npz ones.
+    Raises ValueError for a spilled run without its spill dir."""
     with open(os.path.join(outdir, "manifest.json")) as f:
         manifest = json.load(f)
-    if manifest.get("spilled"):
+    if manifest.get("spilled") and spill_dir is None:
         raise ValueError(
             f"{outdir} was produced by a run that spilled its stage "
-            f"arrays to a spill store; the port has no spill store yet "
-            f"(ROADMAP Queue 1 item 11)")
+            f"arrays to a spill store; resume with the same --spill-dir")
     out: Dict[str, object] = {"manifest": manifest}
     for name in ARTIFACTS:
         path = os.path.join(outdir, name + ".npz")
         if os.path.exists(path):
             with np.load(path) as z:
                 out[name] = {k: z[k] for k in z.files}
+    if spill_dir is not None:
+        store = SpillStore(spill_dir)
+        if store.exists("corrected"):
+            out["corrected"] = {"reads": store.load("corrected")}
+        if "edges" in out and store.exists("edges_src"):
+            out["edges"].update(
+                {k: store.load(f"edges_{k}") for k in ("src", "dst", "ovl")},
+                reads2=store.load("reads2"))
+        if store.exists("reduced_src"):
+            out["reduced"] = {k: store.load(f"reduced_{k}")
+                              for k in ("src", "dst", "ovl")}
     return out
 
 
@@ -110,10 +147,8 @@ def _unsupported(config: AssemblyConfig, n_reads: int, mate_of,
     """The ROADMAP item a request needs, or None on the ported path."""
     if config.mesh_shape is not None:
         return "a device mesh (ROADMAP Queue 1 item 12)"
-    if config.max_device_reads is not None and n_reads > config.max_device_reads:
-        return "streaming beyond device memory (ROADMAP Queue 1 item 11)"
-    if config.spill_dir:
-        return "the spill store (ROADMAP Queue 1 item 11)"
+    if lengths is not None and _stream_chunk(config, n_reads) is not None:
+        return "streaming ragged reads (ROADMAP Queue 1 item 17)"
     if mate_of is not None:
         return "paired reads and scaffolding (ROADMAP Queue 1 item 14)"
     return None
@@ -134,9 +169,12 @@ def assemble(
     ``device``: "cuda" (default; raises when no GPU is available) or
     "cpu". ``lengths``: (N,) per-read lengths of ragged reads, padded
     with zeros to the array width (``--length-policy pad``).
-    ``mate_of`` exists for the reference's signature; paired inputs
-    raise NotImplementedError, as does any configuration off the ported
-    path.
+    ``config.max_device_reads`` below the read count streams the device
+    stages (fixed-length reads), ``config.entry_block_reads`` and
+    ``config.spill_dir`` with them; a spilled run resumes only with its
+    spill dir. ``mate_of`` exists for the reference's signature; paired
+    inputs raise NotImplementedError, as does any configuration off the
+    ported path.
     """
     dev = resolve_device(device)
     missing = _unsupported(config, reads.shape[0], mate_of, lengths)
@@ -149,6 +187,47 @@ def assemble(
     )
     return _assemble_inner(reads, config, outdir, log, resume_from, dev,
                            lengths)
+
+
+def _stream_chunk(config: AssemblyConfig, n_reads: int) -> Optional[int]:
+    """Reads per chunk of the streamed stages: max_device_reads when the
+    input exceeds it, else None (in core)."""
+    if (config.max_device_reads is not None
+            and n_reads > config.max_device_reads):
+        return config.max_device_reads
+    return None
+
+
+def _spill_store(config: AssemblyConfig, stream_chunk, resume_from, log):
+    """The run's spill store, or None: a store needs a streamed run. On a
+    fresh run the store records the config digest; a resume checks it
+    (spill_dir is outside the digest, so an equal digest means the same
+    pipeline)."""
+    if not config.spill_dir:
+        return None
+    if stream_chunk is None:
+        log.log("spill_skipped", reason="spill requires a streamed path "
+                "(set max_device_reads below the input size)")
+        return None
+    store = SpillStore(config.spill_dir)
+    if resume_from:
+        d = store.get_meta("config_digest")
+        if d is not None and d != config.digest():
+            raise ValueError(
+                f"spill dir {config.spill_dir} was written by a run with a "
+                f"different config (digest {d} != {config.digest()}); its "
+                f"arrays do not match this resume; point --spill-dir at "
+                f"the original run's spill directory")
+    else:
+        store.set_meta("config_digest", config.digest())
+    log.log("spill", dir=config.spill_dir)
+    return store
+
+
+def _writable(a: np.ndarray) -> np.ndarray:
+    """``a``, or a copy of it when it is read-only (a spill memmap read
+    back), for torch.from_numpy."""
+    return a if a.flags.writeable else np.array(a)
 
 
 def _sync(dev: torch.device) -> None:
@@ -175,7 +254,13 @@ def _drop_vertices(edges, gone: np.ndarray):
 def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     N, L = reads.shape
     start = STAGES.index(resume_from) if resume_from else 0
-    prior = load_reference_artifacts(outdir) if start else {}
+    stream_chunk = _stream_chunk(config, N)
+    if stream_chunk is not None:
+        log.log("streaming", chunk_reads=stream_chunk, n_reads=N)
+    store = _spill_store(config, stream_chunk, resume_from, log)
+    spilled = store is not None
+    prior = (load_reference_artifacts(outdir, config.spill_dir if spilled
+                                      else None) if start else {})
 
     def stage_input(name):
         if name not in prior:
@@ -188,28 +273,89 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
 
     # --- stage 1+2: count + correct ------------------------------------
     if start <= STAGES.index("correct"):
-        r = torch.from_numpy(reads.astype(np.int32)).to(dev)
-        with log.timed("count", n_reads=N, read_len=L, k=config.k):
-            table = count_kmers(r, config.k, lens)
-            _sync(dev)
-        log.log("count_result", n_unique=int(table.n_unique))
-        with log.timed("correct", rounds=config.correction_rounds):
-            corrected = correct_reads(
-                r, config.k, config.solid_threshold,
-                config.correction_rounds, table=table, lengths=lens,
-                rule=config.correction_rule,
-            )
-            _sync(dev)
-        del r, table
-        corrected_np = corrected.to(torch.int8).cpu().numpy()
-        del corrected
-        _save(outdir, log, "corrected", reads=corrected_np)
-        _manifest(outdir, config, "correct")
+        if stream_chunk is not None:
+            with log.timed("correct", rounds=config.correction_rounds,
+                           streamed=True, chunk_reads=stream_chunk):
+                corrected_np = correct_reads_chunked(
+                    reads, config.k, config.solid_threshold,
+                    config.correction_rounds, stream_chunk,
+                    rule=config.correction_rule,
+                    out=(store.empty("corrected", np.int8, reads.shape)
+                         if spilled else None),
+                    device=dev,
+                )
+        else:
+            r = torch.from_numpy(reads.astype(np.int32)).to(dev)
+            with log.timed("count", n_reads=N, read_len=L, k=config.k):
+                table = count_kmers(r, config.k, lens)
+                _sync(dev)
+            log.log("count_result", n_unique=int(table.n_unique))
+            with log.timed("correct", rounds=config.correction_rounds):
+                corrected = correct_reads(
+                    r, config.k, config.solid_threshold,
+                    config.correction_rounds, table=table, lengths=lens,
+                    rule=config.correction_rule,
+                )
+                _sync(dev)
+            del r, table
+            corrected_np = corrected.to(torch.int8).cpu().numpy()
+            del corrected
+        if not spilled:
+            _save(outdir, log, "corrected", reads=corrected_np)
+        _manifest(outdir, config, "correct", spilled=spilled)
     else:
         corrected_np = stage_input("corrected")["reads"]
 
     # --- stage 3: dedup + overlaps -------------------------------------
-    if start <= STAGES.index("overlap"):
+    if start <= STAGES.index("overlap") and stream_chunk is not None:
+        with log.timed("dedup", streamed=True):
+            reads2_np, valid2_np, mult_np, n_uniq, _, _ = (
+                prepare_reads_chunked(corrected_np, stream_chunk,
+                                      store=store, device=dev))
+        # ~19 edges a vertex at 50x coverage: up to ~32 candidates a read
+        # of a chunk; starting at 64x avoids doubling retries (each a
+        # full streamed pass) on dense graphs
+        cap_chunk = max(1 << 16, 64 * stream_chunk)
+        while True:
+            with log.timed("overlap", streamed=True,
+                           chunk_reads=stream_chunk):
+                e_src, e_dst, e_ovl, n_edges, overflow = (
+                    find_overlaps_chunked(
+                        reads2_np, valid2_np, config.min_overlap,
+                        chunk_reads=2 * stream_chunk,
+                        seed_len=config.effective_seed_len,
+                        capacity_per_chunk=cap_chunk, store=store,
+                        entry_block_reads=config.entry_block_reads,
+                        device=dev,
+                    ))
+            if not overflow:
+                break
+            cap_chunk *= 2
+            log.log("overlap_retry", capacity_per_chunk=cap_chunk)
+        if spilled:
+            # find_overlaps_chunked wrote the padded edges_* memmaps
+            edges = (e_src, e_dst, e_ovl)
+        else:
+            # pad to the reference's grain of the sorted edge list
+            pad_to = max(1, -(-n_edges // (1 << 14)) * (1 << 14))
+            edges = tuple(
+                np.concatenate([a[:n_edges], np.full(
+                    pad_to - n_edges, I32_MAX if j < 2 else 0, np.int32)])
+                for j, a in enumerate((e_src, e_dst, e_ovl)))
+        log.log("overlap_result", n_edges=n_edges, n_candidates=n_edges,
+                n_unique_reads=n_uniq)
+        lengths2_np = None
+        if spilled:
+            # the big arrays live in the spill store; the npz carries
+            # only the small per-vertex ones
+            _save(outdir, log, "edges", n_edges=n_edges, valid2=valid2_np,
+                  multiplicity=mult_np)
+        else:
+            _save(outdir, log, "edges", src=edges[0], dst=edges[1],
+                  ovl=edges[2], n_edges=n_edges, reads2=reads2_np,
+                  valid2=valid2_np, multiplicity=mult_np)
+        _manifest(outdir, config, "overlap", spilled=spilled)
+    elif start <= STAGES.index("overlap"):
         with log.timed("dedup"):
             rs = prepare_reads(
                 torch.from_numpy(corrected_np.astype(np.int32)).to(dev),
@@ -259,6 +405,12 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
             raise NotImplementedError(
                 "not ported yet: resuming a paired run "
                 "(ROADMAP Queue 1 item 14)")
+        if "src" not in z:
+            # the original run wrote its edges to a spill store
+            raise ValueError(
+                f"edges.npz in {outdir} has no edge arrays: the original "
+                f"run wrote them to a spill store; resume with the same "
+                f"--spill-dir")
         edges = (z["src"], z["dst"], z["ovl"])
         reads2_np, valid2_np, mult_np = (z["reads2"], z["valid2"],
                                          z["multiplicity"])
@@ -268,22 +420,30 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     vlen_arg = L if lengths2_np is None else lengths2_np
 
     # --- stage 4: transitive reduction --------------------------------
-    # host arrays: "auto" and "native" reduce them on the host, "device"
-    # uploads them once and reduces on ``dev``
+    # host arrays: "auto" and "native" reduce them on the host (through
+    # the spill store when there is one), "device" uploads them once and
+    # reduces on ``dev``
     if start <= STAGES.index("reduce"):
         with log.timed("reduce", backend=config.reduce_backend):
-            red = transitive_reduction_auto(
-                edges[0], edges[1], edges[2], V, vlen_arg,
-                backend=config.reduce_backend, device=dev,
-            )
+            if spilled and config.reduce_backend in ("auto", "native"):
+                red = transitive_reduction_spill(
+                    store, edges[0], edges[1], edges[2], V, vlen_arg)
+            else:
+                red = transitive_reduction_auto(
+                    edges[0], edges[1], edges[2], V, vlen_arg,
+                    backend=config.reduce_backend, device=dev,
+                )
             redges = tuple(a.cpu().numpy() if isinstance(a, torch.Tensor)
                            else a for a in (red.src, red.dst, red.ovl))
         log.log("reduce_result", n_edges=red.n_edges,
                 n_expansions=red.n_expansions)
         del red
-        _save(outdir, log, "reduced", src=redges[0], dst=redges[1],
-              ovl=redges[2])
-        _manifest(outdir, config, "reduce")
+        # the reduced_* spill files come from transitive_reduction_spill
+        # alone; any other reduction persists its result here
+        if not (spilled and store.exists("reduced_src")):
+            _save(outdir, log, "reduced", src=redges[0], dst=redges[1],
+                  ovl=redges[2])
+        _manifest(outdir, config, "reduce", spilled=spilled)
     else:
         z = stage_input("reduced")
         redges = (z["src"], z["dst"], z["ovl"])
@@ -292,8 +452,8 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     if start <= STAGES.index("traverse"):
         with log.timed("traverse"):
             labels = contract_unitigs(
-                *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                  for a in redges), V,
+                *(torch.from_numpy(_writable(np.ascontiguousarray(a)))
+                  .to(dev) for a in redges), V,
             )
             _sync(dev)
         lab = {k: v.cpu().numpy() for k, v in labels._asdict().items()}

@@ -22,6 +22,9 @@ class MetricsLog:
         self.records: List[Dict[str, Any]] = []
 
     def log(self, stage: str, **fields: Any) -> None:
+        from sage2_tpu_torch.utils import watchdog
+
+        watchdog.touch(f"metrics:{stage}")
         rec = {"ts": time.time(), "stage": stage, **fields}
         self.records.append(rec)
         line = json.dumps(rec, default=float)

@@ -25,6 +25,7 @@ from sage2_tpu_torch.graph import reduce as reduce_mod
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.kmer.correct import prune_table_for_correction
 from sage2_tpu_torch.kmer.count import count_kmers
+from sage2_tpu_torch.ops.bitpack import pack_read_words
 from sage2_tpu_torch.ops.sort import sort_by_pair
 from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
 from sage2_tpu_torch.overlap.detect import (
@@ -282,3 +283,73 @@ def test_reduce_kernels_ragged(cuda):
         lens.cpu().numpy())
     _equal(dev, tuple(torch.from_numpy(a) if isinstance(a, np.ndarray)
                       else a for a in nat))
+
+
+def _stream_reads(cuda):
+    """Deduplicated reads2 and valid2 of the 30 kbp reads, on the card."""
+    rs = prepare_reads(_reads(err=0.002).to(cuda))
+    return rs.reads2, rs.valid2
+
+
+@pytest.mark.parametrize("base,bits,skewed", [(0, 20, False),
+                                              (777, 26, False),
+                                              (5, 26, True)])
+def test_seed_table_kernel(cuda, base, bits, skewed):
+    reads2, valid2 = _stream_reads(cuda)
+    if skewed:  # one hot bucket: 4,000 copies of one read, 8 entries each
+        reads2 = torch.cat([reads2[:1].expand(4000, -1), reads2[1:301]])
+        valid2 = torch.ones(reads2.shape[0], dtype=torch.bool, device=cuda)
+    words0 = pack_read_words(reads2)
+    args = (words0, valid2, 100, 32, 8, bits, base)
+    before = kernels.LAUNCHES["seed_table"]
+    got = kernels.seed_table(*args)
+    assert kernels.LAUNCHES["seed_table"] == before + 2   # keys + table
+    _equal(got, plain.seed_table(*args))
+    table = got[0]
+    assert int(table[:, 1].sum()) == 8 * int(valid2.sum())
+    assert not skewed or int(table[:, 1].max()) >= 4000
+    # all-invalid reads: every bucket empty, starting at slot 0
+    none = kernels.seed_table(words0, torch.zeros_like(valid2), 100, 32, 8,
+                              bits, base)
+    _equal(none, plain.seed_table(words0, torch.zeros_like(valid2), 100, 32,
+                                  8, bits, base))
+
+
+@pytest.mark.parametrize("i,capacity", [(0, None), (3000, None),
+                                        (0, 1000)])
+def test_probe_join_kernel(cuda, i, capacity):
+    reads2, valid2 = _stream_reads(cuda)
+    words0 = pack_read_words(reads2)
+    table, slab = kernels.seed_table(words0, valid2, 100, 32, 8, 22, 0)
+    chunk = slice(i, i + 4000)
+    args = (words0[chunk], valid2[chunk], table, slab, 100, 32, 8, 60, i,
+            capacity)
+    before = kernels.LAUNCHES["probe_join"]
+    got = kernels.probe_join(*args)
+    _equal(got, plain.probe_join(*args))
+    if capacity is None:
+        assert kernels.LAUNCHES["probe_join"] == before + 2
+        assert got[0].any() and got[4] == got[0].shape[0] > 0
+    else:                                 # overflowed: the count pass only
+        assert kernels.LAUNCHES["probe_join"] == before + 1
+        assert got[4] > capacity and got[0].shape == (0,)
+
+
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_merge_runs_kernel(cuda, weighted, skewed):
+    r = _reads().to(cuda)
+    keys = kernels.kmer_keys(r, 25)[2].reshape(-1)
+    if skewed:  # a run of 2,000,000 equal keys (a k-mer of a repeat)
+        keys = torch.cat([keys, torch.full((2_000_000,), int(keys[0]),
+                                           dtype=torch.int64, device=cuda)])
+    keys = torch.sort(keys).values
+    w = (torch.randint(0, 1000, keys.shape, dtype=torch.int32, device=cuda)
+         if weighted else None)
+    before = kernels.LAUNCHES["merge_runs"]
+    got = kernels.merge_runs(keys, w)
+    assert kernels.LAUNCHES["merge_runs"] == before + 2
+    _equal(got, plain.merge_runs(keys, w))
+    if not weighted:
+        _equal(got, torch.unique_consecutive(keys, return_counts=True))
+        assert not skewed or int(got[1].max()) > 2_000_000

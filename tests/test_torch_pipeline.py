@@ -75,10 +75,12 @@ def test_resume_continues_a_reference_run(runs, stage, tmp_path):
 
 def test_unported_paths_raise(runs):
     """Off the ported path, assemble raises naming the ROADMAP item;
-    ragged reads (``lengths``) are on it now and assemble."""
+    ragged reads (``lengths``) and streaming fixed-length reads are on
+    it now and assemble."""
     reads = runs[0]
     for cfg, kw in [(AssemblyConfig(mesh_shape=(2,)), {}),
-                    (AssemblyConfig(max_device_reads=5), {}),
+                    (AssemblyConfig(max_device_reads=5),
+                     {"lengths": np.full(10, reads.shape[1])}),
                     (AssemblyConfig(), {"mate_of": np.arange(10)})]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             assemble(reads[:10], cfg, device="cpu", **kw)
@@ -86,3 +88,5 @@ def test_unported_paths_raise(runs):
     _, stats = assemble(reads[:n], AssemblyConfig(), device="cpu",
                         lengths=np.full(n, reads.shape[1]))
     assert stats == assemble(reads[:n], AssemblyConfig(), device="cpu")[1]
+    assert stats == assemble(reads[:n], AssemblyConfig(max_device_reads=100),
+                             device="cpu")[1]
