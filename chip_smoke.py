@@ -62,8 +62,14 @@ Phases (one flushed line each, with its seconds):
      median times (CUDA events), the bound from bytes and operations,
      and one PyTorch call computing the same function where there is
      one (torch.searchsorted beside K2 and beside K9's bucket table,
-     index_select beside K4 none, torch.gather beside P1,
-     torch.unique_consecutive beside K11).
+     torch.gather beside P1, torch.unique_consecutive beside K11; for K4
+     none the path's `steps` chained index_select(p, 0, p)). A K4 row
+     times one whole doubling loop (one launch) and prints its time a
+     step beside one index_select a step and the cost of one grid
+     barrier (the loop on 4 vertices, less one step, over steps - 1);
+     its bound is steps times a step's bytes. A K11 row whose table is
+     under half its input prints the time of the copy to exact size that
+     count_from_keys makes after the kernel.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after it: phase 4 for K1-K4, K8 and K11, phase 5 for K5-K7, phase
@@ -71,7 +77,9 @@ just after it: phase 4 for K1-K4, K8 and K11, phase 5 for K5-K7, phase
 streamed path (K9-K11 with K1, K2, K8, K4, and with K5-K7). Every kernel of a path
 (PATHS) must have launched on it, and on 8a/8b K3, K5, K6, K7 and K8
 with their lengths pointers (the ":ragged" keys). pointer_jump's
-counts are split by op. The kernels' captured inputs wait in device
+counts are split by op: one launch a doubling loop, so 2 none, 1 min
+and 1 add a unitig contraction (asserted); K11 one launch a call
+(asserted). The kernels' captured inputs wait in device
 memory outside PyTorch's allocator, so they do not count in the peaks;
 each path starts with PyTorch's cached memory released, to leave them
 room. The last two lines are the kernel table and
@@ -302,6 +310,7 @@ class Capture:
         self.phase = None
         self.entry_base = 0     # the first read of the last seed table
         self.launches = {base_key(row): 0 for row in KERNEL_INFO}
+        self.calls = dict.fromkeys(self.launches, 0)    # non-empty ones
         for name, fn in self.originals.items():
             setattr(kernels, name, self._wrap(name, fn))
 
@@ -354,6 +363,7 @@ class Capture:
             before = self.kernels.LAUNCHES[name]
             out = fn(*args)
             self.launches[key] += self.kernels.LAUNCHES[name] - before
+            self.calls[key] += args[0].numel() > 0
             if keep:
                 if name == "overlap_join" and len(args) > 8 and callable(
                         args[8]):
@@ -387,6 +397,7 @@ class Capture:
         torch.cuda.empty_cache()
         self.kernels.reset_launch_counts()
         self.launches = dict.fromkeys(self.launches, 0)
+        self.calls = dict.fromkeys(self.calls, 0)
         self.phase = phase
 
     def path_launches(self, path: str) -> dict:
@@ -400,6 +411,16 @@ class Capture:
             if self.launches[key] == 0:
                 raise AssertionError(f"kernel {key} not launched on the "
                                      f"path of phase {path}")
+        # K4 and K11: one launch a call; one contraction a path
+        for key in self.launches:
+            if key.startswith(("pointer_jump", "merge_runs")) and (
+                    self.launches[key] != self.calls[key]):
+                raise AssertionError(f"{key}: {self.launches[key]} launches "
+                                     f"in {self.calls[key]} calls")
+        jumps = [self.launches[k] for k in _JUMPS]
+        if _JUMPS[0] in PATHS[path] and jumps != [2, 1, 1]:
+            raise AssertionError(f"phase {path}: pointer_jump launches "
+                                 f"{jumps} (none, min, add), not [2, 1, 1]")
         return dict(self.launches)
 
     def close(self) -> None:
@@ -431,9 +452,9 @@ def work(key: str, args: tuple, total: int = 0):
         return (n * 12 + payload.numel() * 4 + total * 13 + marks,
                 n * 8 + total * (6 * (W - 2) + 22))
     if key.startswith("pointer_jump"):
-        p, val, op = args
+        p, val, op, steps = args
         per = 8 if op == "none" else 16
-        return p.numel() * per, p.numel() * 2
+        return p.numel() * per * steps, p.numel() * 2 * steps
     if name == "vote_windows":
         reads, table, _, k, _ = args[:5]
         lengths = args[5] if len(args) > 5 else None
@@ -915,10 +936,30 @@ def main() -> int:
             "library_ms": library_ms,
         })
         shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        per_step = ""
+        if name == "pointer_jump":          # a whole loop of args[3] steps
+            p, val, op, steps = args
+            step_ms = time_ms(lambda: torch.index_select(p, 0, p))
+            # a grid barrier: the same loop on 4 vertices, less one step
+            few = [None if t is None else t[:4].clone() for t in (p, val)]
+            few[0].zero_()
+            barrier_ms = (time_ms(lambda: wrapper(few[0], few[1], op, steps))
+                          - time_ms(lambda: wrapper(few[0], few[1], op, 1))
+                          ) / max(steps - 1, 1)
+            per_step = (f", {steps} steps: {ms / steps:.4f} ms a step "
+                        f"(index_select {step_ms:.4f} ms, bound "
+                        f"{max(t_bytes, t_ops) / steps:.4f} ms, grid "
+                        f"barrier {barrier_ms:.4f} ms)")
+        elif name == "merge_runs" and 2 * total < args[0].numel():
+            # what a count table's copy to storage of its own size costs
+            # (kmer/count.py count_from_keys, after the kernel)
+            copy_ms = time_ms(lambda: (got[0].clone(), got[1].clone()))
+            per_step = (f", count_from_keys' copy to exact size "
+                        f"{copy_ms:.3f} ms")
         say(f"  {row}: equal, {ms:.3f} ms (plain {plain_ms:.3f} ms"
             + (f", {library} {library_ms:.3f} ms" if library else "")
             + f"), bound {max(t_bytes, t_ops):.3f} ms, launches "
-            f"{n_launches} (phase {path}), inputs {shape}"
+            f"{n_launches} (phase {path}), inputs {shape}" + per_step
             + (f", {total} candidates" if name in ("overlap_join",
                                                    "probe_join") else "")
             + f", check {time.perf_counter() - t1:.1f} s")
@@ -969,9 +1010,15 @@ def library_time(key: str, args: tuple):
         table, _, queries = args
         return time_ms(lambda: torch.searchsorted(table, queries)), \
             "searchsorted"
-    if key == "pointer_jump:none":
-        p = args[0]
-        return time_ms(lambda: torch.index_select(p, 0, p)), "index_select"
+    if key == "pointer_jump:none":         # the whole loop, step by step
+        p, steps = args[0], args[3]
+
+        def chained():
+            q = p
+            for _ in range(steps):
+                q = torch.index_select(q, 0, q)
+
+        return time_ms(chained), f"{steps} x index_select"
     if key.startswith("gather_along"):
         tbl, idx, axis = args
         idx64 = idx.long()

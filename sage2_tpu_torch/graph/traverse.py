@@ -3,8 +3,9 @@ doubling (port of sage2_tpu/graph/traverse.py).
 
 A chain edge u->v satisfies outdeg(u) == 1 and indeg(v) == 1. Each vertex
 is labeled with its chain head and its distance from it in O(log V)
-doubling steps (kernel K4). Cycles are broken deterministically at their
-minimum vertex id, matching refmodel.oracle.oracle_unitigs.
+doubling steps (kernel K4, one launch a loop). Cycles are broken
+deterministically at their minimum vertex id, matching
+refmodel.oracle.oracle_unitigs.
 """
 
 from __future__ import annotations
@@ -71,9 +72,7 @@ def contract_unitigs(
     steps = max(1, math.ceil(math.log2(max(V, 2))) + 1)
 
     def double(p, val=None, op="none"):
-        for _ in range(steps):
-            p, val = kernels.pointer_jump(p, val, op)
-        return p, val
+        return kernels.pointer_jump(p, val, op, steps)
 
     pf, _ = double(p)
     in_cycle = p[pf.to(torch.int64)] != pf

@@ -6,7 +6,8 @@ Twelve kernels (sources in ``kernels/csrc``):
   K2 ``lookup_counts``  binary search of query keys in a count table
   K3 ``overlap_join``   run accounting, expansion and verify of the
                         sorted overlap seed rows (two launches)
-  K4 ``pointer_jump``   one pointer-doubling step of unitig labeling
+  K4 ``pointer_jump``   a whole pointer-doubling loop of unitig labeling
+                        (one cooperative launch)
   K5 ``vote_windows``   one round of the covering-window voting corrector
   K6 ``reduce_counts``  run bounds and expansion counts of the device
                         transitive reduction (two launches)
@@ -21,7 +22,7 @@ Twelve kernels (sources in ``kernels/csrc``):
                         query chunk of the streamed join (two launches)
   K11 ``merge_runs``    unique keys and summed weights of the runs of a
                         sorted key array (k-mer counting, table merges;
-                        two launches)
+                        one pass)
   P1 ``gather_along``   gather along one axis of an (N, W) table (the
                         Pallas probe's kernel; on no path of the package)
 
@@ -29,8 +30,8 @@ Each wrapper takes its plain version (``kernels.plain``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``overlap_join``,
-``reduce_counts``, ``seed_table``, ``probe_join`` and ``merge_runs``
-launch two per call).
+``reduce_counts``, ``seed_table`` and ``probe_join`` launch two per
+call).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
@@ -72,7 +73,7 @@ _ARGTYPES = {
                              _I, _I64, _P, _P, _P, _P, _P, _P],
     },
     "pointer_jump": {
-        "sage2_pointer_jump": [_P, _P, _P, _P, _I64, _I, _P],
+        "sage2_pointer_jump": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     },
     "vote_windows": {
         "sage2_vote_windows": [_P, _P, _I64, _I, _I, _P, _P, _I64, _I, _P,
@@ -101,8 +102,7 @@ _ARGTYPES = {
                               _P, _P, _I64, _P, _P, _P, _P, _P],
     },
     "merge_runs": {
-        "sage2_run_heads": [_P, _I64, _P, _P],
-        "sage2_run_write": [_P, _P, _I64, _P, _P, _P, _P, _P],
+        "sage2_merge_runs": [_P, _P, _I64, _P, _P, _P, _P],
     },
     "gather_along": {
         "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P],
@@ -111,6 +111,8 @@ _ARGTYPES = {
 
 # dynamic shared memory a block may use on the card (sm_90)
 _MAX_SMEM = 232_448
+# keys a tile of K11 (kTile in kernels/csrc/merge_runs.cu)
+MERGE_TILE = 3072
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -301,25 +303,39 @@ _JUMP_OPS = {"none": 0, "min": 1, "add": 2}
 
 
 def pointer_jump(
-    p: torch.Tensor, val: Optional[torch.Tensor] = None, op: str = "none"
+    p: torch.Tensor, val: Optional[torch.Tensor] = None, op: str = "none",
+    steps: int = 1,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One doubling step (p[p], op(val, val[p])) over int32 (V,) arrays,
-    op in "none" | "min" | "add"."""
+    """(p, val) after ``steps`` doubling steps, each (p[p], op(val,
+    val[p])) of the previous step's int32 (V,) arrays, op in "none" |
+    "min" | "add". Kernel K4, one cooperative launch (see
+    kernels/csrc/pointer_jump.cu)."""
     if op not in _JUMP_OPS:
         raise ValueError(f"unknown pointer_jump op {op!r}")
     if (op == "none") != (val is None):
         raise ValueError("val must be given exactly when op != 'none'")
+    if val is not None and val.shape != p.shape:
+        raise ValueError(f"val {tuple(val.shape)} and p {tuple(p.shape)} "
+                         f"differ in shape")
+    if steps < 1:
+        raise ValueError(f"steps must be at least 1, got {steps}")
     tensors = (p,) if val is None else (p, val)
     if _on_cpu(*tensors):
-        return plain.pointer_jump(p, val, op)
+        return plain.pointer_jump(p, val, op, steps)
     for t in tensors:
         _dtype(t, torch.int32, "pointer_jump input")
+    V = p.numel()
     p_out = torch.empty_like(p)
     v_out = None if val is None else torch.empty_like(val)
-    if p.numel():
-        _launch("pointer_jump", "sage2_pointer_jump", _ptr(p), _ptr(p_out),
-                _ptr(val), _ptr(v_out), p.numel(), _JUMP_OPS[op],
-                _stream())
+    # the ping-pong halves between the first and the last step: p, or
+    # (p, val) pairs
+    width = 1 if val is None else 2
+    halves = [torch.empty((V, width), dtype=torch.int32, device=p.device)
+              for _ in range(min(steps - 1, 2))] + [None, None]
+    if V:
+        _launch("pointer_jump", "sage2_pointer_jump", _ptr(p), _ptr(val),
+                _ptr(halves[0]), _ptr(halves[1]), _ptr(p_out), _ptr(v_out),
+                V, _JUMP_OPS[op], steps, _stream())
         LAUNCHES["pointer_jump"] += 1
     return p_out, v_out
 
@@ -603,32 +619,34 @@ def merge_runs(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(unique keys int64, summed weight int32 of each) of the sorted
     int64 ``keys``; ``weights`` (same length) int32, or None for 1
-    each. Kernel K11, two launches (see kernels/csrc/merge_runs.cu)."""
+    each. Kernel K11, one pass (see kernels/csrc/merge_runs.cu); the
+    outputs are the first n_unique entries of buffers of len(keys), as
+    torch.unique_consecutive's are."""
     tensors = (keys,) + (() if weights is None else (weights,))
     if _on_cpu(*tensors):
         return plain.merge_runs(keys, weights)
     _dtype(keys, torch.int64, "keys")
     if weights is not None:
         _dtype(weights, torch.int32, "weights")
+    if keys.dim() != 1 or (weights is not None
+                           and weights.shape != keys.shape):
+        raise ValueError("keys must be 1-D and weights of their shape")
     n = keys.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"{n} keys overflow the int32 slots")
     dev = keys.device
     if n == 0:
         return keys.clone(), torch.empty(0, dtype=torch.int32, device=dev)
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    _launch("merge_runs", "sage2_run_heads", _ptr(keys), n, _ptr(flags),
-            _stream())
+    tiles = -(-n // MERGE_TILE)
+    # a status word a tile, the tile counter and the unique count
+    scratch = torch.empty(tiles + 2, dtype=torch.int64, device=dev)
+    out_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    out_sums = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("merge_runs", "sage2_merge_runs", _ptr(keys), _ptr(weights), n,
+            _ptr(scratch), _ptr(out_keys), _ptr(out_sums), _stream())
     LAUNCHES["merge_runs"] += 1
-    pos = torch.cumsum(flags, 0, dtype=torch.int32)
-    n_unique = int(pos[-1])
-    out_keys = torch.empty(n_unique, dtype=torch.int64, device=dev)
-    out_sums = torch.zeros(n_unique, dtype=torch.int32, device=dev)
-    _launch("merge_runs", "sage2_run_write", _ptr(keys), _ptr(weights), n,
-            _ptr(flags), _ptr(pos), _ptr(out_keys), _ptr(out_sums),
-            _stream())
-    LAUNCHES["merge_runs"] += 1
-    return out_keys, out_sums
+    n_unique = int(scratch[tiles + 1])
+    return out_keys[:n_unique], out_sums[:n_unique]
 
 
 def gather_along(tbl: torch.Tensor, idx: torch.Tensor,

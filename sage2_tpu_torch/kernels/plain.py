@@ -178,19 +178,22 @@ def overlap_join(
 
 
 def pointer_jump(
-    p: torch.Tensor, val: Optional[torch.Tensor] = None, op: str = "none"
+    p: torch.Tensor, val: Optional[torch.Tensor] = None, op: str = "none",
+    steps: int = 1,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One doubling step: (p[p], op(val, val[p])) with op in
-    "none" | "min" | "add" (int32, wrapping)."""
-    pl = p.to(torch.int64)
-    p_new = p[pl]
-    if op == "none":
-        return p_new, None
-    if op == "min":
-        return p_new, torch.minimum(val, val[pl])
-    if op == "add":
-        return p_new, val + val[pl]
-    raise ValueError(f"unknown pointer_jump op {op!r}")
+    """``steps`` doubling steps, each (p[p], op(val, val[p])) of the
+    previous step's arrays, with op in "none" | "min" | "add" (int32,
+    wrapping)."""
+    if op not in ("none", "min", "add"):
+        raise ValueError(f"unknown pointer_jump op {op!r}")
+    for _ in range(steps):
+        pl = p.to(torch.int64)
+        if op == "min":
+            val = torch.minimum(val, val[pl])
+        elif op == "add":
+            val = val + val[pl]
+        p = p[pl]
+    return p, val
 
 
 def _count_of(table: torch.Tensor, counts: torch.Tensor,

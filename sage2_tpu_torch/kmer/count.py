@@ -60,6 +60,12 @@ def count_from_keys(keys: torch.Tensor, k: int,
     if valid is not None:
         keys = keys[valid]
     uniq, counts = kernels.merge_runs(torch.sort(keys).values)
+    # K11's outputs sit in buffers as long as its input; a count table
+    # lives through a correction round, so it gets storage of its own
+    # size once that holds over twice its bytes (24 bytes a unique key
+    # copied, 12 a key of the input freed)
+    if uniq.untyped_storage().nbytes() > 2 * uniq.nbytes:
+        uniq, counts = uniq.clone(), counts.clone()
     return KmerTable(uniq, counts, uniq.shape[0], k)
 
 

@@ -98,16 +98,52 @@ def test_overlap_join_kernel(cuda, seed):
     _equal(got, plain.overlap_join(*args))
 
 
+def _jump_pointers(layout, rng):
+    """(V,) int32 parent pointers: one vertex; a random functional graph
+    whose V is not a multiple of 4, or larger than one cooperative wave
+    (132 SMs x 8 blocks x 256 threads x 4 vertices); one chain of length
+    V, which needs every step; disjoint rings of a permutation."""
+    if layout == "one":
+        return np.zeros(1, np.int32)
+    if layout == "ragged":
+        return rng.integers(0, 100_003, 100_003).astype(np.int32)
+    if layout == "waves":
+        return rng.integers(0, 3_000_001, 3_000_001).astype(np.int32)
+    if layout == "chain":
+        return np.maximum(np.arange(1 << 20) - 1, 0).astype(np.int32)
+    perm = rng.permutation(100_000)
+    p = np.empty(perm.shape[0], np.int32)
+    for ring in np.array_split(perm, 13):
+        p[ring] = np.roll(ring, 1)
+    return p
+
+
+@pytest.mark.parametrize("layout", ["one", "ragged", "waves", "chain",
+                                    "rings"])
+@pytest.mark.parametrize("steps", [1, 2, 24])
 @pytest.mark.parametrize("op", ["none", "min", "add"])
-def test_pointer_jump_kernel(cuda, op):
-    rng = np.random.default_rng(3)
-    V = 100_003
-    p = torch.from_numpy(rng.integers(0, V, V).astype(np.int32)).to(cuda)
-    val = None if op == "none" else torch.from_numpy(
-        rng.integers(-1000, 1000, V).astype(np.int32)).to(cuda)
+def test_pointer_jump_kernel(cuda, op, steps, layout):
+    """A whole doubling loop in one launch, bit-equal to the plain steps;
+    the inputs stay as they were (every step writes the other half of a
+    ping-pong pair). Add values span int32, so the sums wrap."""
+    rng = np.random.default_rng(5)
+    p = torch.from_numpy(_jump_pointers(layout, rng)).to(cuda)
+    V = p.shape[0]
+    val = None
+    if op == "min":
+        val = torch.from_numpy(rng.integers(-1000, 1000, V).astype(
+            np.int32)).to(cuda)
+    elif op == "add":
+        val = torch.from_numpy(rng.integers(-2**31, 2**31, V, dtype=np.int64)
+                               .astype(np.int32)).to(cuda)
+    kept = [t.clone() for t in (p, val) if t is not None]
     before = kernels.LAUNCHES["pointer_jump"]
-    _equal(kernels.pointer_jump(p, val, op), plain.pointer_jump(p, val, op))
+    got = kernels.pointer_jump(p, val, op, steps)
     assert kernels.LAUNCHES["pointer_jump"] == before + 1
+    _equal(got, plain.pointer_jump(p, val, op, steps))
+    _equal([t for t in (p, val) if t is not None], kept)
+    if layout == "chain" and steps == 24:
+        assert not got[0].any()
 
 
 @pytest.mark.parametrize("k,threshold,pruned", [(25, 2, True), (25, 2, False),
@@ -348,8 +384,67 @@ def test_merge_runs_kernel(cuda, weighted, skewed):
          if weighted else None)
     before = kernels.LAUNCHES["merge_runs"]
     got = kernels.merge_runs(keys, w)
-    assert kernels.LAUNCHES["merge_runs"] == before + 2
+    assert kernels.LAUNCHES["merge_runs"] == before + 1
     _equal(got, plain.merge_runs(keys, w))
     if not weighted:
         _equal(got, torch.unique_consecutive(keys, return_counts=True))
         assert not skewed or int(got[1].max()) > 2_000_000
+
+
+def _merge_keys(layout, rng):
+    """Sorted int64 keys laid out against K11's tiles: n of 1, a tile
+    less one, a tile, a tile and one, three tiles and one (random runs);
+    all keys equal (one run through every tile); all distinct; runs of
+    length 1 and 2 across every tile edge."""
+    T = kernels.MERGE_TILE
+    sizes = {"one": 1, "tile-1": T - 1, "tile": T, "tile+1": T + 1,
+             "3tiles+1": 3 * T + 1}
+    if layout in sizes:
+        n = sizes[layout]
+        return np.sort(rng.integers(-2**62, 2**62, max(1, n // 3))[
+            rng.integers(0, max(1, n // 3), n)])
+    if layout == "equal":
+        return np.full(5 * T + 3, -7, np.int64)
+    if layout == "distinct":
+        return np.sort(rng.choice(2**40, 5 * T + 3, replace=False)) - 2**39
+    keys, v = [], 0          # "edges": around every edge e*T, a run of 2
+    for e in range(1, 6):    # over it, then runs of 1 on both sides
+        while len(keys) < e * T - 2:
+            keys.append(v)
+            v += 1
+        keys += [v, v + 1, v + 1, v + 2]
+        v += 3
+    return np.array(keys, np.int64)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("layout", ["one", "tile-1", "tile", "tile+1",
+                                    "3tiles+1", "equal", "distinct",
+                                    "edges"])
+def test_merge_runs_kernel_tiles(cuda, layout, weighted):
+    rng = np.random.default_rng(9)
+    keys = torch.from_numpy(_merge_keys(layout, rng)).to(cuda)
+    w = (torch.randint(-1000, 1000, keys.shape, dtype=torch.int32,
+                       device=cuda) if weighted else None)
+    before = kernels.LAUNCHES["merge_runs"]
+    got = kernels.merge_runs(keys, w)
+    assert kernels.LAUNCHES["merge_runs"] == before + 1
+    _equal(got, plain.merge_runs(keys, w))
+    if not weighted:
+        _equal(got, torch.unique_consecutive(keys, return_counts=True))
+
+
+def test_merge_runs_kernel_wraps(cuda):
+    """Weighted sums of runs across tiles past 2^31 wrap in int32, as the
+    reference's segment_sum."""
+    T = kernels.MERGE_TILE
+    keys = torch.cat([torch.zeros(3 * T + 1, dtype=torch.int64),
+                      torch.arange(1, 100, dtype=torch.int64).repeat_interleave(
+                          7)]).to(cuda)
+    w = torch.full(keys.shape, 2**30 + 12345, dtype=torch.int32, device=cuda)
+    got = kernels.merge_runs(keys, w)
+    _equal(got, plain.merge_runs(keys, w))
+    runs = torch.unique_consecutive(keys, return_counts=True)[1].cpu()
+    want = (runs.to(torch.int64) * (2**30 + 12345) + 2**31) % 2**32 - 2**31
+    assert torch.equal(got[1].cpu().to(torch.int64), want)
+    assert (want != runs.to(torch.int64) * (2**30 + 12345)).all()

@@ -1,6 +1,10 @@
-"""sage2_tpu_torch unitig labeling and host-native reduction against
-sage2_tpu (CPU; exact equality), on graphs with cycles."""
+"""sage2_tpu_torch unitig labeling, its doubling loops (kernel K4's CPU
+path) and the host-native reduction against sage2_tpu (CPU; exact
+equality), on graphs with cycles."""
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,8 +13,10 @@ import torch
 from sage2_tpu.graph.reduce import transitive_reduction_native as jreduce
 from sage2_tpu.graph.traverse import contract_unitigs as jcontract
 from sage2_tpu.refmodel.oracle import oracle_unitigs
+from sage2_tpu_torch import kernels
 from sage2_tpu_torch.graph.reduce import transitive_reduction_auto as treduce
 from sage2_tpu_torch.graph.traverse import contract_unitigs as tcontract
+from sage2_tpu_torch.kernels import plain
 
 I32_MAX = 2**31 - 1
 
@@ -96,3 +102,74 @@ def test_native_reduction_matches_reference():
         np.testing.assert_array_equal(np.asarray(getattr(j, f)),
                                       getattr(d, f).numpy())
     assert (d.n_edges, d.n_expansions) == (t.n_edges, t.n_expansions)
+
+
+def _reference_loop(p, val, op, steps):
+    """The reference's doubling loops on numpy inputs: the bodies of
+    ``double``, ``min_prop`` and ``dist_body``
+    (sage2_tpu/graph/traverse.py:81-118), run through lax.fori_loop."""
+    pj = jnp.asarray(p)
+    if op == "none":
+        def body(_, p):
+            return p[p]
+
+        return np.asarray(jax.lax.fori_loop(0, steps, body, pj)), None
+    if op == "min":
+        def body(_, carry):
+            m, pp = carry
+            return jnp.minimum(m, m[pp]), pp[pp]
+    else:
+        def body(_, carry):
+            d, pp = carry
+            return d + d[pp], pp[pp]
+    v, pp = jax.lax.fori_loop(0, steps, body, (jnp.asarray(val), pj))
+    return np.asarray(pp), np.asarray(v)
+
+
+def _pointers(graph, V, rng):
+    """Parent pointers: a random functional graph (trees hanging off
+    cycles), one chain of length V (every step moves it), or disjoint
+    rings of a random permutation."""
+    if graph == "random":
+        return rng.integers(0, V, V).astype(np.int32)
+    if graph == "chain":
+        return np.maximum(np.arange(V) - 1, 0).astype(np.int32)
+    perm = rng.permutation(V)
+    p = np.empty(V, np.int32)
+    for ring in np.array_split(perm, 7):
+        p[ring] = np.roll(ring, 1)
+    return p
+
+
+@pytest.mark.parametrize("steps", [1, 2, "reference"])
+@pytest.mark.parametrize("graph", ["random", "chain", "rings"])
+@pytest.mark.parametrize("op", ["none", "min", "add"])
+def test_pointer_jump_loop_matches_reference(op, graph, steps):
+    """kernels.pointer_jump(p, val, op, steps=n) on the CPU equals n
+    single plain steps and the reference's loop bodies; add values span
+    the int32 range, so the sums wrap."""
+    V = 157
+    if steps == "reference":
+        steps = max(1, math.ceil(math.log2(max(V, 2))) + 1)
+    rng = np.random.default_rng(11)
+    p = _pointers(graph, V, rng)
+    val = None
+    if op == "min":
+        val = rng.integers(-1000, 1000, V).astype(np.int32)
+    elif op == "add":
+        val = rng.integers(-2**31, 2**31, V, dtype=np.int64).astype(np.int32)
+    want_p, want_v = _reference_loop(p, val, op, steps)
+    tv = None if val is None else torch.from_numpy(val)
+    got_p, got_v = kernels.pointer_jump(torch.from_numpy(p), tv, op, steps)
+    one_p, one_v = torch.from_numpy(p), tv
+    for _ in range(steps):
+        one_p, one_v = plain.pointer_jump(one_p, one_v, op)
+    np.testing.assert_array_equal(got_p.numpy(), want_p)
+    np.testing.assert_array_equal(one_p.numpy(), want_p)
+    if op == "none":
+        assert got_v is None and one_v is None
+    else:
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+        np.testing.assert_array_equal(one_v.numpy(), want_v)
+    if graph == "chain" and steps > 2:      # every vertex reached the root
+        assert not want_p.any()
