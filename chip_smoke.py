@@ -47,7 +47,9 @@ Phases (one flushed line each, with its seconds):
      stats asserted equal to phase 4's, 10b's to phase 5's. Phases 4,
      5, 10a and 10b each print their peak device memory
      (torch.cuda.max_memory_allocated after a reset);
-  2  each kernel against its plain PyTorch version on the inputs that
+  2  (the card's clocks, power, temperature and throttle reasons
+     printed before and after it) each kernel against its plain
+     PyTorch version on the inputs that
      its path's run gave it (captured during that run, so phase 2 comes
      last): one row for each kernel of each path (PATHS), "name" on its
      first path and "name:<path>" on every other (phases 4, 5, 7, 8a,
@@ -60,6 +62,11 @@ Phases (one flushed line each, with its seconds):
      (base > 0) and a query chunk after the first where the path has
      them. Bit equality of outputs and in-place results asserted,
      median times (CUDA events), the bound from bytes and operations,
+     a K2 row the time of its first launch (the bucket directory,
+     "index_ms") beside the whole call, a P1 row the bare launch without
+     the flag read ("kernel_ms") beside the wrapper's "ms", and the
+     device times of that launch and of torch.gather, each enqueued
+     behind a spin of the card ("device_ms", "library_device_ms"),
      and one PyTorch call computing the same function where there is
      one (torch.searchsorted beside K2 and beside K9's bucket table,
      torch.gather beside P1, torch.unique_consecutive beside K11; for K4
@@ -224,6 +231,26 @@ def time_ms(fn, reps: int = 5) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 5) -> float:
+    """Median device milliseconds of fn()'s work, by CUDA events, each run
+    enqueued behind a ~2 ms spin of the card so that the host's launch
+    cost is hidden; after one warm-up run."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
         a.record()
         fn()
         b.record()
@@ -888,6 +915,7 @@ def main() -> int:
 
     # --- phase 2: each kernel against its plain version -----------------
     t0 = time.perf_counter()
+    say(f"card before phase 2: {card_state()}")
     rows = []
     for row, (source, replaces, path) in KERNEL_INFO.items():
         t1 = time.perf_counter()
@@ -937,7 +965,28 @@ def main() -> int:
         })
         shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         per_step = ""
-        if name == "pointer_jump":          # a whole loop of args[3] steps
+        if name == "lookup_counts":         # K2's first launch alone
+            rows[-1]["index_ms"] = time_ms(
+                lambda: kernels.lookup_directory(args[0], args[1]))
+            per_step = (f", of which the bucket directory "
+                        f"{rows[-1]['index_ms']:.3f} ms")
+        elif name == "gather_along":        # the launch without the flag read
+            out, flag = torch.empty_like(args[0]), torch.zeros(
+                1, dtype=torch.int32, device=dev)
+
+            def bare():
+                kernels.gather_along_launch(*args, out, flag)
+
+            idx64 = args[1].long()
+            rows[-1].update(
+                kernel_ms=time_ms(bare), device_ms=device_ms(bare),
+                library_device_ms=device_ms(
+                    lambda: torch.gather(args[0], args[2], idx64)))
+            per_step = (f", the bare launch {rows[-1]['kernel_ms']:.4f} ms "
+                        f"(no flag read); device times behind a spin: "
+                        f"kernel {rows[-1]['device_ms']:.4f} ms, gather "
+                        f"{rows[-1]['library_device_ms']:.4f} ms")
+        elif name == "pointer_jump":        # a whole loop of args[3] steps
             p, val, op, steps = args
             step_ms = time_ms(lambda: torch.index_select(p, 0, p))
             # a grid barrier: the same loop on 4 vertices, less one step
@@ -963,6 +1012,7 @@ def main() -> int:
             + (f", {total} candidates" if name in ("overlap_join",
                                                    "probe_join") else "")
             + f", check {time.perf_counter() - t1:.1f} s")
+    say(f"card after phase 2: {card_state()}")
     phase("2 kernels vs plain", t0)
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
@@ -971,6 +1021,18 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def card_state() -> str:
+    """The card's SM and memory clocks, power draw, temperature and
+    active clock-throttle reasons, as nvidia-smi reads them (its error
+    text where a field is not known to it)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return (res.stdout or res.stderr).strip()
 
 
 def peak_gib() -> float:

@@ -3,7 +3,8 @@
 Twelve kernels (sources in ``kernels/csrc``):
 
   K1 ``kmer_keys``      forward, RC and canonical k-mer keys
-  K2 ``lookup_counts``  binary search of query keys in a count table
+  K2 ``lookup_counts``  count of each query key in a count table: bucket
+                        directory and bucketed search (two launches)
   K3 ``overlap_join``   run accounting, expansion and verify of the
                         sorted overlap seed rows (two launches)
   K4 ``pointer_jump``   a whole pointer-doubling loop of unitig labeling
@@ -29,13 +30,15 @@ Twelve kernels (sources in ``kernels/csrc``):
 Each wrapper takes its plain version (``kernels.plain``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
-to ``LAUNCHES[name]`` for each kernel it launches (``overlap_join``,
-``reduce_counts``, ``seed_table`` and ``probe_join`` launch two per
-call).
+to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
+``overlap_join``, ``reduce_counts``, ``seed_table`` and ``probe_join``
+launch two per call).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
-ctypes through a plain C interface.
+ctypes through a plain C interface. A source's headers (``common.cuh``,
+and ``bucket_search.cuh`` for those that include it, ``HEADERS``) are
+hashed with it, so an edit to a header rebuilds its libraries.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ _ARGTYPES = {
         "sage2_kmer_keys": [_P, _I64, _I, _I, _P, _P, _P, _P],
     },
     "lookup_counts": {
-        "sage2_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _P],
+        "sage2_lookup_directory": [_P, _P, _I64, _I, _P, _P],
+        "sage2_lookup_counts": [_P, _P, _I64, _P, _P, _I64, _P, _P],
     },
     "overlap_join": {
         "sage2_join_count": [_P, _P, _I64, _I, _I, _P, _P, _P],
@@ -105,7 +109,7 @@ _ARGTYPES = {
         "sage2_merge_runs": [_P, _P, _I64, _P, _P, _P, _P],
     },
     "gather_along": {
-        "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P],
+        "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P, _P],
     },
 }
 
@@ -129,12 +133,17 @@ def nvcc_command() -> list:
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
+# the headers each source includes besides common.cuh
+HEADERS = {"lookup_counts": ("bucket_search.cuh",)}
+
+
 def _specs():
     cmd = nvcc_command()
-    common = os.path.join(_CSRC, "common.cuh")
     return [
-        native_build.LibSpec(name, cmd, [os.path.join(_CSRC, name + ".cu")],
-                             [common])
+        native_build.LibSpec(
+            name, cmd, [os.path.join(_CSRC, name + ".cu")],
+            [os.path.join(_CSRC, h)
+             for h in ("common.cuh",) + HEADERS.get(name, ())])
         for name in KERNELS
     ]
 
@@ -158,7 +167,7 @@ def load_all() -> Dict[str, ctypes.CDLL]:
 
 
 def _launch(name: str, fn: str, *args) -> None:
-    lib = load_all()[name]
+    lib = _libs.get(name) or load_all()[name]
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.sage2_error_string(rc).decode()
@@ -216,21 +225,52 @@ def kmer_keys(
     return tuple(out)
 
 
+def lookup_bits(T: int) -> int:
+    """log2 of K2's bucket count over a table of T keys:
+    clamp(ceil(log2 T) - 2, 0, 22), about 4 keys a bucket (see
+    kernels/csrc/bucket_search.cuh)."""
+    return max(0, min(22, (T - 1).bit_length() - 2)) if T > 1 else 0
+
+
+def lookup_directory(table: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """K2's first launch over the sorted unique int64 CUDA ``table`` and
+    its int32 ``counts``: int64 scratch holding a 4-word header (lowest
+    key, span, bucket shift, packed or not), the packed (offset below
+    the bucket, count) entries where the bucket width allows, and the
+    bucket directory. The table's span is read on the card, so nothing
+    waits for it."""
+    T = table.shape[0]
+    bits = lookup_bits(T)
+    scratch = torch.empty(4 + T + (1 << bits) // 2 + 1, dtype=torch.int64,
+                          device=table.device)
+    _launch("lookup_counts", "sage2_lookup_directory", _ptr(table),
+            _ptr(counts), T, bits, _ptr(scratch), _stream())
+    LAUNCHES["lookup_counts"] += 1
+    return scratch
+
+
 def lookup_counts(
     table: torch.Tensor, counts: torch.Tensor, queries: torch.Tensor
 ) -> torch.Tensor:
     """int32 count of each int64 query key in the sorted unique int64
-    ``table`` (``counts`` int32 beside it), 0 where absent."""
+    ``table`` (``counts`` int32 beside it), 0 where absent. Kernel K2,
+    two launches: the bucket directory, then the lookups (see
+    kernels/csrc/lookup_counts.cu)."""
     if _on_cpu(table, counts, queries):
         return plain.lookup_counts(table, counts, queries)
     _dtype(table, torch.int64, "table")
     _dtype(counts, torch.int32, "counts")
     _dtype(queries, torch.int64, "queries")
+    if table.shape[0] >= 1 << 31:
+        raise ValueError(f"a table of {table.shape[0]} keys overflows the "
+                         f"int32 bucket directory")
     out = torch.empty(queries.shape, dtype=torch.int32,
                       device=queries.device)
     if queries.numel():
+        scratch = lookup_directory(table, counts)
         _launch("lookup_counts", "sage2_lookup_counts", _ptr(table),
-                _ptr(counts), table.shape[0], _ptr(queries),
+                _ptr(counts), table.shape[0], _ptr(scratch), _ptr(queries),
                 queries.numel(), _ptr(out), _stream())
         LAUNCHES["lookup_counts"] += 1
     return out
@@ -653,7 +693,9 @@ def gather_along(tbl: torch.Tensor, idx: torch.Tensor,
                  axis: int) -> torch.Tensor:
     """take_along_axis of an (N, W) int32 table with an (N, W) int32
     index: out[i, j] = tbl[idx[i, j], j] (axis 0) or tbl[i, idx[i, j]]
-    (axis 1)."""
+    (axis 1). Raises IndexError for an index outside [0, extent of the
+    axis); on the card the kernel finds it, and the wrapper reads one
+    flag after the launch."""
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
     if tbl.dim() != 2 or idx.shape != tbl.shape:
@@ -663,14 +705,38 @@ def gather_along(tbl: torch.Tensor, idx: torch.Tensor,
         return plain.gather_along(tbl, idx, axis)
     _dtype(tbl, torch.int32, "tbl")
     _dtype(idx, torch.int32, "idx")
-    N, W = tbl.shape
     out = torch.empty_like(tbl)
     if idx.numel():
-        lo, hi = (int(v) for v in torch.aminmax(idx))
-        if lo < 0 or hi >= tbl.shape[axis]:
-            raise IndexError(f"gather_along: index out of range "
-                             f"[{lo}, {hi}] for axis {axis}")
-        _launch("gather_along", "sage2_gather_along", _ptr(tbl), _ptr(idx),
-                N, W, axis, _ptr(out), _stream())
-        LAUNCHES["gather_along"] += 1
+        flag = _range_flag()
+        gather_along_launch(tbl, idx, axis, out, flag)
+        if int(flag):
+            flag.zero_()
+            raise IndexError(f"gather_along: index out of range [0, "
+                             f"{tbl.shape[axis]}) for axis {axis}")
     return out
+
+
+# P1's out-of-range flag of each (device, stream): zero between calls,
+# so a call needs no fill before its launch
+_FLAGS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _range_flag() -> torch.Tensor:
+    stream = torch.cuda.current_stream()
+    key = (stream.device.index, stream.cuda_stream)
+    flag = _FLAGS.get(key)
+    if flag is None:
+        flag = _FLAGS[key] = torch.zeros(1, dtype=torch.int32,
+                                         device=stream.device)
+    return flag
+
+
+def gather_along_launch(tbl: torch.Tensor, idx: torch.Tensor, axis: int,
+                        out: torch.Tensor, flag: torch.Tensor) -> None:
+    """P1's bare launch on checked, non-empty CUDA tensors: ``out``
+    (N, W) int32 gets the gather, and the int32 ``flag`` (zero before)
+    turns nonzero where an index was out of range; nothing waits."""
+    N, W = tbl.shape
+    _launch("gather_along", "sage2_gather_along", _ptr(tbl), _ptr(idx), N, W,
+            axis, _ptr(out), _ptr(flag), _stream())
+    LAUNCHES["gather_along"] += 1

@@ -73,5 +73,6 @@ def lookup_counts(table: KmerTable, queries: torch.Tensor) -> torch.Tensor:
     """Counts of canonical query keys (0 where absent); any query shape.
 
     The reference joined table and queries in one combined sort; on the
-    card each query binary-searches the sorted table (kernel K2)."""
+    card kernel K2 builds a bucket directory over the sorted table, then
+    each query searches only its bucket."""
     return kernels.lookup_counts(table.keys, table.count, queries)

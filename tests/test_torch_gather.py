@@ -34,3 +34,14 @@ def test_gather_along_refuses_bad_arguments():
         kernels.gather_along(t, t, 2)
     with pytest.raises(ValueError, match="shape"):
         kernels.gather_along(t, t[:2], 0)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_gather_along_raises_out_of_range(axis):
+    """An index at the extent of its axis raises IndexError (the plain
+    version here; the kernel's flag on the card)."""
+    tbl = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    idx = torch.zeros((3, 4), dtype=torch.int32)
+    idx[1, 2] = tbl.shape[axis]
+    with pytest.raises(IndexError):
+        kernels.gather_along(tbl, idx, axis)

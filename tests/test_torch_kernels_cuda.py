@@ -33,6 +33,13 @@ from sage2_tpu_torch.overlap.detect import (
     join_geometry,
     sorted_seed_rows,
 )
+from torch_kernel_cases import (
+    SIGNED_CASES,
+    UNSIGNED_CASES,
+    bucket_geometry,
+    lookup_case,
+    oracle_lookup,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -75,11 +82,73 @@ def test_lookup_counts_kernel(cuda):
     _, _, canon = kernels.kmer_keys(r, 25)
     q = torch.cat([canon.reshape(-1),
                    torch.randint(0, 1 << 50, (10_000,), device=cuda)])
-    _equal([kernels.lookup_counts(t.keys, t.count, q)],
-           [plain.lookup_counts(t.keys, t.count, q)])
+    before = kernels.LAUNCHES["lookup_counts"]
+    got = kernels.lookup_counts(t.keys, t.count, q)
+    assert kernels.LAUNCHES["lookup_counts"] == before + 2  # index + lookup
+    _equal([got], [plain.lookup_counts(t.keys, t.count, q)])
+    # the (n, 4) variants of phase 2; an 8- but not 16-byte aligned slice
+    q4 = q[: q.numel() // 4 * 4].reshape(-1, 4)
+    _equal([kernels.lookup_counts(t.keys, t.count, q4)],
+           [plain.lookup_counts(t.keys, t.count, q4)])
+    odd = q[1:]
+    assert odd.data_ptr() % 16 == 8
+    _equal([kernels.lookup_counts(t.keys, t.count, odd)],
+           [plain.lookup_counts(t.keys, t.count, odd)])
     empty = t.keys[:0]
     _equal([kernels.lookup_counts(empty, t.count[:0], q)],
            [plain.lookup_counts(empty, t.count[:0], q)])
+    before = kernels.LAUNCHES["lookup_counts"]
+    none = kernels.lookup_counts(t.keys, t.count, q[:0])
+    assert none.shape == (0,) and none.dtype == torch.int32
+    assert kernels.LAUNCHES["lookup_counts"] == before
+
+
+@pytest.mark.parametrize("case", UNSIGNED_CASES + SIGNED_CASES)
+def test_lookup_counts_kernel_edges(cuda, case):
+    """Every key, each +- 1, the keys just outside the span and every
+    bucket edge +- 1 (tests/torch_kernel_cases.py): a one-bucket skew,
+    T = 1 and 2, keys over 50 bits, negative keys, the int64 extremes;
+    against the plain version and a dictionary, whole, as (n, 4) and as a
+    misaligned slice."""
+    keys, counts, q = (torch.from_numpy(a).to(cuda)
+                       for a in lookup_case(case))
+    want = torch.from_numpy(oracle_lookup(*(a.cpu().numpy()
+                                            for a in (keys, counts, q))))
+    _equal([kernels.lookup_counts(keys, counts, q)],
+           [plain.lookup_counts(keys, counts, q)])
+    _equal([kernels.lookup_counts(keys, counts, q)], [want])
+    q4 = q[: q.numel() // 4 * 4].reshape(-1, 4)
+    _equal([kernels.lookup_counts(keys, counts, q4)],
+           [want[: q4.numel()].reshape(-1, 4)])
+    _equal([kernels.lookup_counts(keys, counts, q[1:])], [want[1:]])
+    # the packed entries where the buckets are at most 2^32 apart
+    _, _, shift = bucket_geometry(keys.cpu().numpy())
+    assert int(kernels.lookup_directory(keys, counts)[3]) == (shift <= 32)
+
+
+@pytest.mark.parametrize("span_bits,packed", [(50, 1), (51, 1), (52, 0)])
+def test_lookup_counts_kernel_packed(cuda, span_bits, packed):
+    """A table of 2^20 + 1 keys (2^19 buckets) over span_bits bits: the
+    buckets are 2^31, 2^32 or 2^33 apart, so its entries are packed as
+    (uint32 offset, count) for the first two and not for the third;
+    every key, each +- 1, random keys and the span's ends."""
+    g = torch.Generator(device=cuda).manual_seed(span_bits)
+    T = (1 << 20) + 1
+    keys = torch.unique(torch.randint(0, 1 << span_bits, (T + T // 4,),
+                                      generator=g, device=cuda))[:T - 1]
+    keys = torch.cat([keys.new_tensor([0]), keys[1:],
+                      keys.new_tensor([(1 << span_bits) - 1])])
+    keys = torch.unique(keys)
+    counts = torch.randint(1, 1 << 30, keys.shape, generator=g, device=cuda,
+                           dtype=torch.int32)
+    q = torch.cat([keys, keys - 1, keys + 1,
+                   torch.randint(-5, 1 << span_bits, (1 << 20,), generator=g,
+                                 device=cuda)])
+    want = plain.lookup_counts(keys, counts, q)
+    scratch = kernels.lookup_directory(keys, counts)
+    assert (int(scratch[2]), int(scratch[3])) == (span_bits - 19, packed)
+    _equal([kernels.lookup_counts(keys, counts, q)], [want])
+    _equal([kernels.lookup_counts(keys, counts, q[1:])], [want[1:]])
 
 
 @pytest.mark.parametrize("seed", [7, 8])
@@ -211,9 +280,14 @@ def test_device_reduction_matches_native(cuda, capacity):
                           else a for a in nat))
 
 
-@pytest.mark.parametrize("N,W,axis", [(65536, 128, 0), (1 << 20, 128, 0),
-                                      (2048, 2048, 1), (1000, 3, 1)])
+@pytest.mark.parametrize("N,W,axis", [
+    (65536, 128, 0), (1 << 20, 128, 0), (2048, 2048, 1), (1000, 3, 1),
+    (777, 3, 0), (513, 5, 0), (513, 5, 1), (300, 4095, 0), (300, 4095, 1),
+    (1, 4095, 0), (1, 4095, 1), (1, 1, 0), (3, 49153, 1), (2, 60000, 0),
+    (5000, 2047, 1)])
 def test_gather_along_kernel(cuda, N, W, axis):
+    """The probe's shapes; W = 3, 5 and 4095 (not a multiple of 4); N = 1;
+    rows wider than the 49,152 staged on axis 1; several rows a block."""
     g = torch.Generator(device=cuda).manual_seed(0)
     tbl = torch.arange(N * W, dtype=torch.int32, device=cuda).reshape(N, W)
     idx = torch.randint(0, N if axis == 0 else W, (N, W), generator=g,
@@ -223,6 +297,46 @@ def test_gather_along_kernel(cuda, N, W, axis):
     assert kernels.LAUNCHES["gather_along"] == before + 1
     _equal([got], [plain.gather_along(tbl, idx, axis)])
     _equal([got], [torch.gather(tbl, axis, idx.long())])
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_gather_along_kernel_misaligned(cuda, axis, shift):
+    """Contiguous table and index that start 4, 8 or 12 bytes past a
+    16-byte boundary ([shift:] slices of flat tensors, reshaped), with
+    the output aligned; an index constant on axis 0."""
+    N, W = 300, 256
+    g = torch.Generator(device=cuda).manual_seed(shift)
+    flat = torch.randint(0, 1 << 30, (N * W + shift,), generator=g,
+                         dtype=torch.int32, device=cuda)
+    tbl = flat[shift:].reshape(N, W)
+    ext = N if axis == 0 else W
+    iflat = torch.randint(0, ext, (N * W + 4 - shift,), generator=g,
+                          dtype=torch.int32, device=cuda)
+    idx = iflat[4 - shift:].reshape(N, W)
+    assert tbl.data_ptr() % 16 and idx.data_ptr() % 16
+    _equal([kernels.gather_along(tbl, idx, axis)],
+           [plain.gather_along(tbl, idx, axis)])
+    const = torch.full((N, W), N // 2, dtype=torch.int32, device=cuda)
+    _equal([kernels.gather_along(tbl, const, 0)],
+           [plain.gather_along(tbl, const, 0)])
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("bad", [-1, "extent"])
+def test_gather_along_kernel_out_of_range(cuda, axis, bad):
+    """An index outside [0, extent) raises IndexError, once, and the next
+    call on the same process succeeds."""
+    for N, W in ((64, 128), (4, 60000), (300, 5)):
+        tbl = torch.arange(N * W, dtype=torch.int32,
+                           device=cuda).reshape(N, W)
+        idx = torch.zeros((N, W), dtype=torch.int32, device=cuda)
+        idx[N - 1, W - 1] = tbl.shape[axis] if bad == "extent" else bad
+        with pytest.raises(IndexError):
+            kernels.gather_along(tbl, idx, axis)
+        idx[N - 1, W - 1] = tbl.shape[axis] - 1
+        _equal([kernels.gather_along(tbl, idx, axis)],
+               [plain.gather_along(tbl, idx, axis)])
 
 
 def _ragged(seed=7, n_genome=30_000):
