@@ -62,9 +62,12 @@ Phases (one flushed line each, with its seconds):
      (base > 0) and a query chunk after the first where the path has
      them. Bit equality of outputs and in-place results asserted,
      median times (CUDA events), the bound from bytes and operations,
-     a K2 row the time of its first launch (the bucket directory,
-     "index_ms") beside the whole call, a P1 row the bare launch without
-     the flag read ("kernel_ms") beside the wrapper's "ms", and the
+     a K2 or K5 row the time of its first launch (the bucket directory,
+     "index_ms") beside the whole call, a K5 row the share of its
+     (window, position) pairs that the skip leaves to look up
+     ("pair_share", on the path's first voting round's input), a P1 row
+     the bare launch without the flag read ("kernel_ms") beside the
+     wrapper's "ms", and the
      device times of that launch and of torch.gather, each enqueued
      behind a spin of the card ("device_ms", "library_device_ms"),
      and one PyTorch call computing the same function where there is
@@ -455,10 +458,12 @@ class Capture:
             setattr(self.kernels, name, fn)
 
 
-def work(key: str, args: tuple, total: int = 0):
+def work(key: str, args: tuple, total=0):
     """(bytes moved, integer operations) of one call: each input read
     once and each output written once; operations counted from this
-    call's shapes and, for ragged reads, from their lengths."""
+    call's shapes and, for ragged reads, from their lengths. ``total``:
+    the candidates (K3, K10), marks set (K7) or unique keys (K11) of
+    the call, or for K5 its vote_pairs."""
     name = key.split(":")[0]
     if key == "kmer_keys":
         reads, k = args
@@ -483,17 +488,15 @@ def work(key: str, args: tuple, total: int = 0):
         per = 8 if op == "none" else 16
         return p.numel() * per * steps, p.numel() * 2 * steps
     if name == "vote_windows":
-        reads, table, _, k, _ = args[:5]
+        reads, table = args[:2]
         lengths = args[5] if len(args) > 5 else None
-        N, L = reads.shape
-        if lengths is None:
-            NP = N * (L - k + 1)
-        else:                       # the windows inside their reads
-            NP = int((lengths.long() - k + 1).clamp(min=0).sum())
-        steps = max(1, math.ceil(math.log2(table.numel() + 1)))
-        # (3k + 1) searches a window, 4 ops a step; key edits and votes
-        return (reads.numel() * 8 + table.numel() * 12 + N * 4,
-                NP * (3 * k + 1) * (steps * 4 + 8) + NP * k * 6)
+        n_windows, pairs, _ = total         # vote_pairs(args)
+        # reads in and out, lengths, the table's keys and counts once;
+        # a lookup of each valid window's own key and of the three
+        # variant keys of each pair the skip leaves, LOOKUP_OPS each
+        return (reads.numel() * 8 + table.numel() * 12
+                + (0 if lengths is None else lengths.numel() * 4),
+                (n_windows + 3 * pairs) * LOOKUP_OPS)
     if name == "reduce_counts":
         keys, src, dst, ovl, V, read_len = args
         E = keys.numel()
@@ -540,6 +543,54 @@ def work(key: str, args: tuple, total: int = 0):
     return tbl.numel() * 12, tbl.numel() * 2
 
 
+# operations a count-table lookup is counted at in K5's bound, whatever
+# the search: a key's bucket (subtract, shift, compare), its two
+# directory entries, two compare-and-step rounds of a search in the
+# bucket, and the verdict
+LOOKUP_OPS = 16
+
+
+def vote_pairs(args: tuple, rows_per_chunk: int = 1 << 18):
+    """(valid windows, pairs the skip leaves, all pairs) of a K5 call's
+    inputs, by torch ops: a (window w, position j) pair of a valid window
+    is looked up (three variant keys) only where its base w + j has a
+    weak valid covering window (its own key counted below the
+    threshold); all pairs are the valid windows times k."""
+    import torch
+
+    from sage2_tpu_torch.kernels import plain
+
+    reads, table, counts, k, threshold = args[:5]
+    lengths = args[5] if len(args) > 5 else None
+    N, L = reads.shape
+    P = L - k + 1
+    dev = reads.device
+    p = torch.arange(L, device=dev)
+    lo = (p - k + 1).clamp(min=0)
+    n_windows = pairs = total = 0
+    for r0 in range(0, N, rows_per_chunk):
+        r = reads[r0 : r0 + rows_per_chunk]
+        n = r.shape[0]
+        ln = (torch.full((n,), L, device=dev) if lengths is None
+              else lengths[r0 : r0 + rows_per_chunk].long())
+        pv = (ln - k + 1).clamp(min=0, max=P)[:, None]
+        valid = torch.arange(P, device=dev)[None, :] < pv
+        canon = plain.kmer_keys(r, k)[2]
+        weak = (plain._count_of(table, counts, canon) < threshold) & valid
+        zero = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+        wsum = torch.cat([zero, torch.cumsum(weak.long(), 1)], 1)
+        hi = torch.minimum(p[None, :], pv - 1)           # (n, L)
+        lo2 = lo[None, :].expand(n, L)
+        cover = (hi - lo2 + 1).clamp(min=0)
+        hi1 = (hi + 1).clamp(min=0)
+        n_weak = wsum.gather(1, hi1) - wsum.gather(1, lo2.clamp(max=P))
+        n_weak = torch.where(cover > 0, n_weak, 0)
+        n_windows += int(valid.sum())
+        pairs += int(torch.where(n_weak > 0, cover, 0).sum())
+        total += int(cover.sum())
+    return n_windows, pairs, total
+
+
 def marks_work(args: tuple, n_marked: int):
     """(bytes, operations) that K7's slot range [j0, j1) needs on these
     inputs: the edges whose expansions hold the slots (offsets, src,
@@ -547,11 +598,11 @@ def marks_work(args: tuple, n_marked: int):
     rows they expand into (ss_sl, ss_dst: 8 bytes each), the
     (src, dst)-order runs of their sources searched for membership (dst,
     ovl: 8 bytes a row, startd) and one byte per mark set; two binary
-    searches a slot."""
+    searches a slot. The lengths of ragged reads cancel in the marks'
+    test, so they are not counted."""
     import torch
 
-    (_, offsets, src, dst, _, _, _, start, startd, read_len, j0,
-     j1) = args
+    (_, offsets, src, dst, _, _, _, start, startd, _, j0, j1) = args
     E = src.numel()
     bounds = torch.searchsorted(
         offsets, torch.tensor([j0, j1 - 1], device=offsets.device),
@@ -572,9 +623,8 @@ def marks_work(args: tuple, n_marked: int):
     max_deg = int((startd[1:] - startd[:-1]).max())
     steps = (max(1, math.ceil(math.log2(E + 1)))
              + max(1, math.ceil(math.log2(max_deg + 1))))
-    n_v = v_hi - v_lo + 2       # startd, and lens of ragged reads
-    nbytes = (n_e * 24 + n_rows * 8 + run_rows * 8
-              + n_v * (8 if hasattr(read_len, "numel") else 4) + n_marked)
+    n_v = v_hi - v_lo + 2       # startd
+    nbytes = n_e * 24 + n_rows * 8 + run_rows * 8 + n_v * 4 + n_marked
     return nbytes, (j1 - j0) * (steps * 4 + 20)
 
 
@@ -945,6 +995,8 @@ def main() -> int:
             total = int((got != args[0]).sum())
         elif name == "merge_runs":              # unique keys
             total = got[0].numel()
+        elif name == "vote_windows":            # the lookups it needs
+            total = vote_pairs(args)
         else:
             total = 0
         heavy = name == "vote_windows"
@@ -970,6 +1022,16 @@ def main() -> int:
                 lambda: kernels.lookup_directory(args[0], args[1]))
             per_step = (f", of which the bucket directory "
                         f"{rows[-1]['index_ms']:.3f} ms")
+        elif name == "vote_windows":        # K5's first launch; the skip
+            rows[-1]["index_ms"] = time_ms(lambda: kernels.lookup_directory(
+                args[1], args[2], "vote_windows"))
+            n_windows, pairs, all_pairs = total
+            rows[-1]["pair_share"] = pairs / max(all_pairs, 1)
+            per_step = (f", of which the bucket directory "
+                        f"{rows[-1]['index_ms']:.3f} ms; the path's first "
+                        f"voting round's input (round 1): {n_windows} valid "
+                        f"windows, {pairs} of {all_pairs} (w, j) pairs "
+                        f"left by the skip ({rows[-1]['pair_share']:.4f})")
         elif name == "gather_along":        # the launch without the flag read
             out, flag = torch.empty_like(args[0]), torch.zeros(
                 1, dtype=torch.int32, device=dev)

@@ -9,7 +9,8 @@ Twelve kernels (sources in ``kernels/csrc``):
                         sorted overlap seed rows (two launches)
   K4 ``pointer_jump``   a whole pointer-doubling loop of unitig labeling
                         (one cooperative launch)
-  K5 ``vote_windows``   one round of the covering-window voting corrector
+  K5 ``vote_windows``   one round of the covering-window voting corrector:
+                        bucket directory and vote (two launches)
   K6 ``reduce_counts``  run bounds and expansion counts of the device
                         transitive reduction (two launches)
   K7 ``reduce_marks``   expansion, membership probe and removal marks of
@@ -31,8 +32,8 @@ Each wrapper takes its plain version (``kernels.plain``) only for a
 tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
-``overlap_join``, ``reduce_counts``, ``seed_table`` and ``probe_join``
-launch two per call).
+``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
+``probe_join`` launch two per call).
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
@@ -50,6 +51,7 @@ import threading
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.utils import native_build
@@ -80,8 +82,9 @@ _ARGTYPES = {
         "sage2_pointer_jump": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
     },
     "vote_windows": {
-        "sage2_vote_windows": [_P, _P, _I64, _I, _I, _P, _P, _I64, _I, _P,
-                               _P],
+        "sage2_vote_directory": [_P, _P, _I64, _I, _P, _P],
+        "sage2_vote_windows": [_P, _P, _I64, _I, _I, _P, _P, _I64, _P, _I,
+                               _P, _P],
     },
     "reduce_counts": {
         "sage2_reduce_vertices": [_P, _P, _I64, _I64, _P, _P, _P, _P],
@@ -90,7 +93,7 @@ _ARGTYPES = {
     },
     "reduce_marks": {
         "sage2_reduce_marks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                               _I, _P, _I64, _I64, _P],
+                               _I64, _I64, _P],
     },
     "canonical_reads": {
         "sage2_canonical_reads": [_P, _P, _I64, _I, _P, _P, _P, _P, _P],
@@ -134,7 +137,8 @@ def nvcc_command() -> list:
 
 
 # the headers each source includes besides common.cuh
-HEADERS = {"lookup_counts": ("bucket_search.cuh",)}
+HEADERS = {"lookup_counts": ("bucket_search.cuh",),
+           "vote_windows": ("bucket_search.cuh",)}
 
 
 def _specs():
@@ -232,21 +236,30 @@ def lookup_bits(T: int) -> int:
     return max(0, min(22, (T - 1).bit_length() - 2)) if T > 1 else 0
 
 
-def lookup_directory(table: torch.Tensor,
-                     counts: torch.Tensor) -> torch.Tensor:
-    """K2's first launch over the sorted unique int64 CUDA ``table`` and
-    its int32 ``counts``: int64 scratch holding a 4-word header (lowest
-    key, span, bucket shift, packed or not), the packed (offset below
-    the bucket, count) entries where the bucket width allows, and the
-    bucket directory. The table's span is read on the card, so nothing
-    waits for it."""
+# the launch function of the bucket directory in each kernel that builds one
+_DIRECTORY = {"lookup_counts": "sage2_lookup_directory",
+              "vote_windows": "sage2_vote_directory"}
+
+
+def lookup_directory(table: torch.Tensor, counts: torch.Tensor,
+                     kernel: str = "lookup_counts") -> torch.Tensor:
+    """The first launch of K2 (or of K5, ``kernel="vote_windows"``, whose
+    launch count it adds to) over the sorted unique int64 CUDA ``table``
+    and its int32 ``counts``: int64 scratch holding a 4-word header
+    (lowest key, span, bucket shift, packed or not), the packed (offset
+    below the bucket, count) entries where the bucket width allows, and
+    the bucket directory. The table's span is read on the card, so
+    nothing waits for it."""
     T = table.shape[0]
+    if T >= 1 << 31:
+        raise ValueError(f"a table of {T} keys overflows the int32 bucket "
+                         f"directory")
     bits = lookup_bits(T)
     scratch = torch.empty(4 + T + (1 << bits) // 2 + 1, dtype=torch.int64,
                           device=table.device)
-    _launch("lookup_counts", "sage2_lookup_directory", _ptr(table),
-            _ptr(counts), T, bits, _ptr(scratch), _stream())
-    LAUNCHES["lookup_counts"] += 1
+    _launch(kernel, _DIRECTORY[kernel], _ptr(table), _ptr(counts), T, bits,
+            _ptr(scratch), _stream())
+    LAUNCHES[kernel] += 1
     return scratch
 
 
@@ -262,9 +275,6 @@ def lookup_counts(
     _dtype(table, torch.int64, "table")
     _dtype(counts, torch.int32, "counts")
     _dtype(queries, torch.int64, "queries")
-    if table.shape[0] >= 1 << 31:
-        raise ValueError(f"a table of {table.shape[0]} keys overflows the "
-                         f"int32 bucket directory")
     out = torch.empty(queries.shape, dtype=torch.int32,
                       device=queries.device)
     if queries.numel():
@@ -381,9 +391,10 @@ def pointer_jump(
 
 
 def _vote_smem(L: int, k: int) -> int:
-    """Shared memory of one K5 block (see vote_windows.cu)."""
+    """Shared memory of one read (one warp) of K5, bytes (see
+    vote_windows.cu)."""
     P = L - k + 1
-    return 20 * P + 20 * L
+    return -(-(16 * P + 4 * (P + 1) + 4 * (L + 1) + 4 * L + L) // 8) * 8
 
 
 def vote_windows(
@@ -396,7 +407,8 @@ def vote_windows(
     unique int64 canonical keys with int32 ``counts``; 1 < k <= 31.
     ``lengths``: (N,) int32 per-read lengths of ragged reads (windows
     past a read's end do not vote, bases past it are not replaced), or
-    None."""
+    None. Kernel K5, two launches: the bucket directory over the table,
+    then the vote (see kernels/csrc/vote_windows.cu)."""
     if not 1 < k <= 31:
         raise ValueError(f"k must be in (1, 31], got {k}")
     N, L = reads.shape
@@ -417,9 +429,11 @@ def vote_windows(
                          f"than a block has")
     out = torch.empty_like(reads)
     if N:
+        scratch = lookup_directory(table, counts, "vote_windows")
         _launch("vote_windows", "sage2_vote_windows", _ptr(reads),
                 _ptr(lengths), N, L, k, _ptr(table), _ptr(counts),
-                table.shape[0], threshold, _ptr(out), _stream())
+                table.shape[0], _ptr(scratch), threshold, _ptr(out),
+                _stream())
         LAUNCHES["vote_windows"] += 1
     return out
 
@@ -472,6 +486,19 @@ def reduce_counts(
     return start, maxsl, startd, counts
 
 
+# the slot total (last entry) of each offsets tensor K7 was given, with the
+# tensor's version counter: read from the card once, not at every launch
+_SLOT_TOTALS = WeakIdKeyDictionary()
+
+
+def _slot_total(offsets: torch.Tensor) -> int:
+    seen = _SLOT_TOTALS.get(offsets)
+    if seen is None or seen[0] != offsets._version:
+        seen = _SLOT_TOTALS[offsets] = (
+            offsets._version, int(offsets[-1]) if offsets.numel() else 0)
+    return seen[1]
+
+
 def reduce_marks(
     removed: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
     dst: torch.Tensor, ovl: torch.Tensor, ss_sl: torch.Tensor,
@@ -482,15 +509,18 @@ def reduce_marks(
     (uint8, in place) for each edge a length-2 path implies; returns
     ``removed``. ``offsets``: (E,) int64 inclusive prefix sum of K6's
     counts; ``ss_sl``, ``ss_dst``: sl and dst in the (src, sl) order;
-    ``read_len``: an int, or a (V,) int32 tensor of per-vertex lengths;
-    see kernels/csrc/reduce_marks.cu."""
+    ``read_len``: an int, or a (V,) int32 tensor of per-vertex lengths
+    (the kernel needs neither: the length cancels in its test; see
+    kernels/csrc/reduce_marks.cu). The range is checked against
+    ``offsets[-1]``, which is read once for an ``offsets`` tensor (until
+    it changes in place), not at every launch."""
     E = src.shape[0]
-    total = int(offsets[-1]) if E else 0
+    total = _slot_total(offsets) if E else 0
     if not 0 <= j0 <= j1 <= total:
         raise ValueError(f"slot range [{j0}, {j1}) outside [0, {total})")
     tensors = (removed, offsets, src, dst, ovl, ss_sl, ss_dst, start,
                startd)
-    L, lens = _lens(read_len)
+    _, lens = _lens(read_len)
     if _on_cpu(*tensors, *(() if lens is None else (lens,))):
         return plain.reduce_marks(*tensors, read_len, j0, j1)
     _dtype(removed, torch.uint8, "removed")
@@ -499,7 +529,7 @@ def reduce_marks(
         _dtype(t, torch.int32, "edge, run and length arrays")
     if j1 > j0:
         _launch("reduce_marks", "sage2_reduce_marks",
-                *map(_ptr, tensors), E, L, _ptr(lens), j0, j1, _stream())
+                *map(_ptr, tensors), E, j0, j1, _stream())
         LAUNCHES["reduce_marks"] += 1
     return removed
 

@@ -1,5 +1,5 @@
 // A bucket directory over a sorted int64 key table, and the short search
-// inside one bucket that it leaves (kernel K2; meant for every kernel that
+// inside one bucket that it leaves (kernels K2 and K5: every kernel that
 // looks keys up in a count table).
 //
 // The keys of a table of T sorted keys span [lo, hi]. A key q of that span
@@ -28,11 +28,14 @@
 // Memory (int64 words): a header {lo, hi - lo, shift, packed}, T packed
 // entries (unused where not packed), then the int32 directory, 2^bits + 1
 // entries; T must stay below 2^31. The caller chooses bits (the Python
-// wrapper, kernels.lookup_directory).
+// wrapper, kernels.lookup_directory) and launches the directory with
+// bucket_directory_launch.
 
 #pragma once
 
 #include <cstdint>
+
+#include "common.cuh"
 
 constexpr int kBucketHeader = 4;    // int64 words before the entries
 
@@ -206,4 +209,37 @@ __device__ __forceinline__ void bucket_find(
       }
     }
   }
+}
+
+// The scratch of a table of T keys (int64 words): the header, T packed
+// entries, the directory.
+__device__ __forceinline__ const uint2* packed_of(const int64_t* scratch) {
+  return reinterpret_cast<const uint2*>(scratch + kBucketHeader);
+}
+__device__ __forceinline__ const int32_t* dir_of(const int64_t* scratch,
+                                                 int64_t T) {
+  return reinterpret_cast<const int32_t*>(scratch + kBucketHeader + T);
+}
+
+__global__ void bucket_directory_kernel(const int64_t* __restrict__ table,
+                                        const int32_t* __restrict__ counts,
+                                        int64_t T, int bits,
+                                        int64_t* __restrict__ scratch) {
+  uint2* packed = reinterpret_cast<uint2*>(scratch + kBucketHeader);
+  int32_t* dir = reinterpret_cast<int32_t*>(scratch + kBucketHeader + T);
+  SAGE2_GRID_STRIDE(i, (int64_t{1} << bits) + 1 + T) {
+    bucket_directory(table, counts, T, bits, scratch, packed, dir, i);
+  }
+}
+
+// table: (T,) sorted unique int64 keys, T < 2^31; counts: (T,) int32;
+// scratch: 4 + T + 2^(bits - 1) + 1 int64 words.
+static int bucket_directory_launch(const void* table, const void* counts,
+                                   int64_t T, int bits, void* scratch,
+                                   void* stream) {
+  bucket_directory_kernel<<<sage2_blocks((int64_t{1} << bits) + 1 + T),
+                            kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(table), static_cast<const int32_t*>(counts),
+      T, bits, static_cast<int64_t*>(scratch));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -32,30 +32,12 @@
 // That is 2-3 random sectors a query in place of 23 dependent loads.
 //
 // Registers (nvcc -Xptxas -v, sm_90a): lookup_counts_kernel 48,
-// lookup_directory_kernel 24; no spills.
+// bucket_directory_kernel 24; no spills.
 
 #include "bucket_search.cuh"
 #include "common.cuh"
 
 constexpr int kQueriesPerThread = 4;
-
-// scratch (int64 words): the header, T packed entries, the directory
-__device__ __forceinline__ uint2* packed_of(int64_t* scratch) {
-  return reinterpret_cast<uint2*>(scratch + kBucketHeader);
-}
-__device__ __forceinline__ int32_t* dir_of(int64_t* scratch, int64_t T) {
-  return reinterpret_cast<int32_t*>(scratch + kBucketHeader + T);
-}
-
-__global__ void lookup_directory_kernel(const int64_t* __restrict__ table,
-                                        const int32_t* __restrict__ counts,
-                                        int64_t T, int bits,
-                                        int64_t* __restrict__ scratch) {
-  SAGE2_GRID_STRIDE(i, (int64_t{1} << bits) + 1 + T) {
-    bucket_directory(table, counts, T, bits, scratch,
-                     packed_of(scratch), dir_of(scratch, T), i);
-  }
-}
 
 // Groups of four queries, grid-stride: load (two 16-byte loads where
 // aligned), search, answer.
@@ -118,16 +100,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// table: (T,) sorted unique int64 keys, T < 2^31; counts: (T,) int32;
-// scratch: 4 + T + 2^(bits - 1) + 1 int64 words.
+// The bucket directory over table and counts (bucket_search.cuh).
 SAGE2_EXPORT int sage2_lookup_directory(const void* table, const void* counts,
                                         int64_t T, int bits, void* scratch,
                                         void* stream) {
-  lookup_directory_kernel<<<sage2_blocks((int64_t{1} << bits) + 1 + T),
-                            kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(table), static_cast<const int32_t*>(counts),
-      T, bits, static_cast<int64_t*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return bucket_directory_launch(table, counts, T, bits, scratch, stream);
 }
 
 // queries, out: (Q,); scratch as sage2_lookup_directory left it.

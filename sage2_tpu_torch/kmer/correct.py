@@ -141,9 +141,9 @@ def voting_round(reads: torch.Tensor, table: KmerTable, k: int,
     oracle_correct_voting): for each base and each candidate base b, the
     number of covering windows whose k-mer with b there is solid; the
     base becomes the unique best-voted base when that beats its own
-    vote. One launch of K5 against the table pruned to its solid
-    entries (which changes no verdict). ``lengths``: (N,) per-read
-    lengths of ragged reads, or None."""
+    vote. Kernel K5 (its bucket directory, then the vote) against the
+    table pruned to its solid entries (which changes no verdict).
+    ``lengths``: (N,) per-read lengths of ragged reads, or None."""
     pruned = prune_table_for_correction(table, threshold)
     if lengths is not None:
         lengths = lengths.to(torch.int32).contiguous()

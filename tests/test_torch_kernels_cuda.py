@@ -34,11 +34,16 @@ from sage2_tpu_torch.overlap.detect import (
     sorted_seed_rows,
 )
 from torch_kernel_cases import (
+    MARKS_READ_LEN,
     SIGNED_CASES,
     UNSIGNED_CASES,
+    VOTE_CASES,
     bucket_geometry,
     lookup_case,
+    marks_graph,
     oracle_lookup,
+    slot_splits,
+    vote_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -225,7 +230,37 @@ def test_vote_windows_kernel(cuda, k, threshold, pruned):
     args = (r, t.keys, t.count, k, threshold)
     before = kernels.LAUNCHES["vote_windows"]
     got = kernels.vote_windows(*args)
-    assert kernels.LAUNCHES["vote_windows"] == before + 1
+    assert kernels.LAUNCHES["vote_windows"] == before + 2  # index + vote
+    assert (got != r).any()
+    _equal([got], [plain.vote_windows(*args)])
+
+
+@pytest.mark.parametrize("case", VOTE_CASES)
+def test_vote_windows_kernel_cases(cuda, case):
+    """tests/torch_kernel_cases.py's K5 cases (hundreds of reads, eight a
+    block): no error (every base skipped), errors at the first, middle
+    and last base, two errors closer than k, a tie, ragged reads of k -
+    1 and k bases, a table that is not pruned, an empty pruned table,
+    k = 31."""
+    reads, lengths, keys, counts, k, threshold, truth = vote_case(case)
+    args = tuple(torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray)
+                 else a for a in (reads, keys, counts, k, threshold,
+                                  lengths))
+    got = kernels.vote_windows(*args)
+    _equal([got], [plain.vote_windows(*args)])
+    _equal([got], [torch.from_numpy(reads if case == "empty" else truth)])
+
+
+def test_vote_windows_kernel_long_reads(cuda):
+    """Reads of 3,000 bases: a read's shared memory (~100 KB) leaves room
+    for two warps a block, not eight."""
+    g = simulate_genome(20_000, seed=3)
+    r, _ = simulate_reads(g, read_len=3000, coverage=10, error_rate=0.01,
+                          seed=4)
+    r = torch.from_numpy(r.astype(np.int32)).to(cuda)
+    t = prune_table_for_correction(count_kmers(r, 25), 2)
+    args = (r, t.keys, t.count, 25, 2)
+    got = kernels.vote_windows(*args)
     assert (got != r).any()
     _equal([got], [plain.vote_windows(*args)])
 
@@ -258,6 +293,42 @@ def test_reduce_kernels(cuda):
         a = kernels.reduce_marks(removed.clone(), *rest, j0, j1)
         assert kernels.LAUNCHES["reduce_marks"] == before + (j1 > j0)
         _equal([a], [plain.reduce_marks(removed.clone(), *rest, j0, j1)])
+
+
+@pytest.mark.parametrize("split", ["one", "mid-hub", "edge-first",
+                                   "zero-run", "every-1000"])
+def test_reduce_marks_kernel_splits(cuda, split):
+    """tests/torch_kernel_cases.py's K7 graph (a hub whose expansion of
+    5,000 slots spans three tiles of 2,048 merge-path items, a run of 600
+    zero-count edges; 12 tiles in all) in consecutive slot ranges cut
+    mid-hub, at an edge's first slot, around the zero-count run or every
+    1,000 slots: each range's marks equal the plain version's, and
+    together they equal one range's."""
+    src, dst, ovl, V = (torch.from_numpy(a).to(cuda)
+                        if isinstance(a, np.ndarray) else a
+                        for a in marks_graph())
+    L = MARKS_READ_LEN
+    keys, order = sort_by_pair(src, L - ovl)
+    start, _, startd, counts = kernels.reduce_counts(keys, src, dst, ovl, V,
+                                                     L)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
+    rest = (offsets, src, dst, ovl, (keys & 0xFFFFFFFF).to(torch.int32),
+            dst[order], start, startd, L)
+    total = int(offsets[-1])
+    one = kernels.reduce_marks(torch.zeros_like(src, dtype=torch.uint8),
+                               *rest, 0, total)
+    _equal([one], [plain.reduce_marks(
+        torch.zeros_like(src, dtype=torch.uint8), *rest, 0, total)])
+    removed = torch.zeros_like(src, dtype=torch.uint8)
+    j0 = 0
+    for j1 in slot_splits(offsets.cpu().numpy(), src.cpu().numpy())[split]:
+        fresh = torch.zeros_like(removed)
+        _equal([kernels.reduce_marks(fresh, *rest, j0, j1)],
+               [plain.reduce_marks(torch.zeros_like(removed), *rest, j0,
+                                   j1)])
+        removed |= fresh
+        j0 = j1
+    _equal([removed], [one])
 
 
 @pytest.mark.parametrize("capacity", [None, 5000])
@@ -396,7 +467,7 @@ def test_vote_windows_kernel_ragged(cuda):
     args = (r, t.keys, t.count, 25, 2, lens)
     before = kernels.LAUNCHES["vote_windows"]
     got = kernels.vote_windows(*args)
-    assert kernels.LAUNCHES["vote_windows"] == before + 1
+    assert kernels.LAUNCHES["vote_windows"] == before + 2
     assert (got != r).any()
     _equal([got], [plain.vote_windows(*args)])
 

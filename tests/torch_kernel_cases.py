@@ -73,3 +73,191 @@ def oracle_lookup(keys: np.ndarray, counts: np.ndarray,
     d = dict(zip(keys.tolist(), counts.tolist()))
     return np.array([d.get(v, 0) for v in queries.reshape(-1).tolist()],
                     np.int32).reshape(queries.shape)
+
+
+# --- kernel K5 (kernels.vote_windows) --------------------------------------
+
+VOTE_CASES = ("clean", "errors", "close", "tie", "short", "unpruned",
+              "empty", "k31")
+
+
+def canonical_keys(reads: np.ndarray, k: int,
+                   lengths: np.ndarray = None) -> np.ndarray:
+    """(N, L - k + 1) int64 canonical keys of every window (the smaller
+    of the forward key, first base in the top bits, and the reverse
+    complement's), -1 for a window past its read's length."""
+    N, L = reads.shape
+    P = L - k + 1
+    r = reads.astype(np.int64)
+    fwd = np.zeros((N, P), np.int64)
+    rc = np.zeros((N, P), np.int64)
+    for j in range(k):
+        fwd = fwd * 4 + r[:, j : j + P]
+        rc += (3 - r[:, j : j + P]) << (2 * j)
+    canon = np.minimum(fwd, rc)
+    if lengths is not None:
+        canon[np.arange(P)[None, :] >= (lengths[:, None] - k + 1)] = -1
+    return canon
+
+
+def count_table(reads: np.ndarray, k: int, lengths: np.ndarray = None,
+                threshold: int = None):
+    """(keys int64 sorted unique, counts int32) of the reads' valid
+    windows; only the keys counted ``threshold`` times or more where it
+    is given (the pruned table)."""
+    canon = canonical_keys(reads, k, lengths)
+    keys, counts = np.unique(canon[canon >= 0], return_counts=True)
+    if threshold is not None:
+        keys, counts = keys[counts >= threshold], counts[counts >= threshold]
+    return keys.astype(np.int64), counts.astype(np.int32)
+
+
+def _tiled(genome: np.ndarray, L: int, copies: int) -> np.ndarray:
+    """Every read of length L of the genome, ``copies`` times each."""
+    starts = np.repeat(np.arange(len(genome) - L + 1), copies)
+    return genome[starts[:, None] + np.arange(L)[None, :]]
+
+
+def vote_case(case: str, seed: int = 0):
+    """(reads (N, L) int32, lengths (N,) int32 or None, keys, counts, k,
+    threshold, truth (N, L) int32) for kernel K5: error-free reads
+    tiling a random genome twice over, so that every window is solid,
+    and after them the reads that the case is about (``truth`` holds
+    them without their errors):
+
+      clean     no errors: every base is skipped;
+      errors    one read with an error at its first base, one at its
+                middle base, one at its last;
+      close     one read with two errors 5 bases apart (closer than k);
+      tie       the genome twice, with A or C at one site, and a read
+                with G there: A and C tie, so G stays;
+      short     ragged reads (zero-padded): lengths k - 1, k (with an
+                error at its middle base) and L - 3 (with an error);
+      unpruned  the table of reads tiling the genome once, not pruned:
+                counts from 1 up, many below the threshold of 3;
+      empty     a pruned table with no key (threshold above every count);
+      k31       the errors case at k = 31."""
+    rng = np.random.default_rng(seed)
+    k, threshold, L = (31 if case == "k31" else 25), 2, 60
+    genome = rng.integers(0, 4, 400).astype(np.int32)
+    reads = _tiled(genome, L, 1 if case == "unpruned" else 2)
+    extra, lengths = [], None
+
+    def with_errors(start, at):
+        read = genome[start : start + L].copy()
+        for p in at:
+            read[p] = (read[p] + 1 + rng.integers(0, 3)) % 4
+        return read, genome[start : start + L].copy()
+
+    if case in ("errors", "k31", "unpruned", "empty"):
+        extra = [with_errors(40, [0]), with_errors(120, [L // 2]),
+                 with_errors(200, [L - 1])]
+    elif case == "close":
+        extra = [with_errors(150, [L // 2 - 2, L // 2 + 3])]
+    elif case == "tie":
+        site = 230
+        other = genome.copy()
+        genome[site], other[site] = 0, 1
+        reads = np.concatenate([_tiled(genome, L, 2), _tiled(other, L, 2)])
+        read = genome[site - 30 : site - 30 + L].copy()
+        read[30] = 2
+        extra = [(read, read.copy())]
+    elif case == "short":
+        lens = [k - 1, k, L - 3]
+        for n, start in zip(lens, (10, 90, 170)):
+            read, good = with_errors(start, [n // 2] if n >= k else [])
+            read[n:] = good[n:] = 0
+            extra.append((read, good))
+        lengths = np.concatenate([np.full(len(reads), L, np.int32),
+                                  np.array(lens, np.int32)])
+    truth = np.concatenate([reads] + [t[None] for _, t in extra])
+    reads = np.concatenate([reads] + [r[None] for r, _ in extra])
+    if case == "empty":
+        threshold = 10**6
+    keys, counts = count_table(reads, k, lengths,
+                               None if case == "unpruned" else threshold)
+    if case == "unpruned":
+        threshold = 3
+    return (reads.astype(np.int32), lengths, keys, counts, k, threshold,
+            truth.astype(np.int32))
+
+
+def weak_covered(reads: np.ndarray, keys: np.ndarray, counts: np.ndarray,
+                 k: int, threshold: int, lengths: np.ndarray = None):
+    """(N, L) bool: the bases with a weak valid covering window (count
+    below ``threshold``, 0 for an absent key), the only bases a voting
+    round can change."""
+    canon = canonical_keys(reads, k, lengths)
+    N, P = canon.shape
+    at = np.searchsorted(keys, canon).clip(max=max(len(keys) - 1, 0))
+    found = (len(keys) > 0) & (keys[at] == canon) if len(keys) else \
+        np.zeros(canon.shape, bool)
+    weak = (np.where(found, counts[at] if len(keys) else 0, 0) < threshold)
+    weak &= canon >= 0
+    out = np.zeros(reads.shape, bool)
+    for j in range(k):
+        out[:, j : j + P] |= weak
+    return out
+
+
+# --- kernel K7 (kernels.reduce_marks) --------------------------------------
+
+MARKS_READ_LEN = 100
+
+
+def marks_graph(seed: int = 0, hub: int = 5000, sinks: int = 600):
+    """(src, dst, ovl) int32 sorted by (src, dst), and n_vertices, for
+    kernel K7 (read length MARKS_READ_LEN, sl = 100 - ovl):
+
+      * an overlap graph of 1,500 reads at distinct random positions of a
+        30 kbp genome, an edge i -> j where 0 < pos[j] - pos[i] <= 60;
+      * a hub: vertex h0 -> h1 (sl 1), h1 -> each of ``hub`` leaves (sl
+        1), and h0 -> every third leaf (sl 2), so that the expansion of
+        h0 -> h1 alone is ``hub`` slots, more than one tile of K7, and
+        marks h0's edges to the leaves;
+      * a vertex with edges to ``sinks`` vertices that have no out-edges:
+        a run of zero-count edges in the middle of the edge order."""
+    rng = np.random.default_rng(seed)
+    n_reads = 1500
+    pos = np.sort(rng.choice(30_000, n_reads, replace=False))
+    edges = []
+    for i in range(n_reads):
+        for j in range(i + 1, n_reads):
+            d = pos[j] - pos[i]
+            if d > 60:
+                break
+            edges.append((i, j, 100 - d))
+    # the zero-count run, from a read in the middle of the genome's order
+    sink0 = n_reads
+    mid = n_reads // 2
+    edges += [(mid, sink0 + s, 95) for s in range(sinks)]
+    h0 = sink0 + sinks
+    h1, leaf0 = h0 + 1, h0 + 2
+    edges.append((h0, h1, 99))
+    edges += [(h1, leaf0 + x, 99) for x in range(hub)]
+    edges += [(h0, leaf0 + x, 98) for x in range(0, hub, 3)]
+    e = np.array(sorted(edges), np.int64)
+    return (e[:, 0].astype(np.int32), e[:, 1].astype(np.int32),
+            e[:, 2].astype(np.int32), leaf0 + hub)
+
+
+def slot_splits(offsets: np.ndarray, src: np.ndarray, n_reads: int = 1500):
+    """Cut points of K7's slot space [0, total), each list ending at
+    total: mid-edge in the hub's expansion, at an edge's first slot, on
+    both sides of the zero-count run (an edge of read n_reads // 2 to a
+    sink vertex), at every 1,000th slot, and one range."""
+    total = int(offsets[-1])
+    counts = np.diff(offsets, prepend=0)
+    first = offsets - counts                 # each edge's first slot
+    hub = int(np.argmax(counts))
+    zero = np.flatnonzero((counts == 0) & (src == n_reads // 2))
+    before, after = int(first[zero[0]]), int(offsets[zero[-1]])
+    busy = np.flatnonzero(counts > 3)
+    at_edge = int(first[busy[len(busy) // 2]])
+    return {
+        "one": [total],
+        "mid-hub": [int(first[hub]) + 1234, int(first[hub]) + 2 * 1234, total],
+        "edge-first": [at_edge, at_edge + 1, total],
+        "zero-run": [max(before - 3, 0), after + 3, total],
+        "every-1000": list(range(1000, total, 1000)) + [total],
+    }
