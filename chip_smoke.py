@@ -6,7 +6,7 @@
 Phases (one flushed line each, with its seconds):
 
   0  the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1  build the twelve CUDA kernels (nvcc, sm_90a, one process per
+  1  build the fifteen CUDA kernels (nvcc, sm_90a, one process per
      source, all at once) and the host libraries;
   3  the overlap join at the bench's shard 0 (100,000 reads x 100 bp,
      genome 222,222 bp, seeds 7/8, min_overlap 40, seed 32): asserts the
@@ -16,12 +16,14 @@ Phases (one flushed line each, with its seconds):
   4  reads to contigs at E. coli scale (4.6 Mbp genome, 50x, 100 bp,
      error 0.005, seeds 7/8, default AssemblyConfig: single_window
      corrector, host-native reduction) through
-     pipeline.assemble(device="cuda"): per-stage seconds, contig stats,
-     genome_fraction >= 0.99 asserted;
+     pipeline.assemble(device="cuda"): per-stage seconds, the device
+     split of the dedup and overlap stages (CUDA events: K8, the sort
+     chain, the grouping, the RC rows; the seed rows, the row sort, K3,
+     K14), contig stats, genome_fraction >= 0.99 asserted;
   5  the same reads through the voting corrector and the device
      reduction (correction_rule="vote_all_windows",
-     reduce_backend="device", no artifacts written): the same report,
-     genome_fraction >= 0.99 asserted;
+     reduce_backend="device", no artifacts written): the same report
+     and split, genome_fraction >= 0.99 asserted;
   6  phase 4's edge list reduced by the device backend and by the host
      native backend: equal arrays, n_edges and n_expansions asserted;
   7  the Pallas probe's path (scripts/probe_pallas_gather.py): its
@@ -32,8 +34,8 @@ Phases (one flushed line each, with its seconds):
      bases, plus 10% contained reads of 47-72 bp; zero-padded to 150)
      through pipeline.assemble(lengths=..., outdir=None): 8a the
      default config (native reduction with per-vertex lengths), 8b
-     vote_all_windows + the device reduction; each asserts
-     genome_fraction >= 0.99 and containments removed;
+     vote_all_windows + the device reduction; each prints the split and
+     asserts genome_fraction >= 0.99 and containments removed;
   9  8a's ragged edge list reduced by the device backend and by the
      native one, both with per-vertex lengths: equal arrays, n_edges
      and n_expansions asserted;
@@ -72,7 +74,9 @@ Phases (one flushed line each, with its seconds):
      behind a spin of the card ("device_ms", "library_device_ms"),
      and one PyTorch call computing the same function where there is
      one (torch.searchsorted beside K2 and beside K9's bucket table,
-     torch.gather beside P1, torch.unique_consecutive beside K11; for K4
+     torch.gather beside P1, torch.unique_consecutive beside K11,
+     torch.unique(dim=0) of the canonical words (the length first for
+     ragged reads) beside K12; for K4
      none the path's `steps` chained index_select(p, 0, p)). A K4 row
      times one whole doubling loop (one launch) and prints its time a
      step beside one index_select a step and the cost of one grid
@@ -82,11 +86,12 @@ Phases (one flushed line each, with its seconds):
      count_from_keys makes after the kernel.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after it: phase 4 for K1-K4, K8 and K11, phase 5 for K5-K7, phase
-7 for P1, phases 8a and 8b for the ragged path, 10a and 10b for the
-streamed path (K9-K11 with K1, K2, K8, K4, and with K5-K7). Every kernel of a path
-(PATHS) must have launched on it, and on 8a/8b K3, K5, K6, K7 and K8
-with their lengths pointers (the ":ragged" keys). pointer_jump's
+just after it: phase 4 for K1-K4, K8 and K11-K14, phase 5 for K5-K7
+and K12-K14, phase 7 for P1, phases 8a and 8b for the ragged path (K12
+to K14 too), 10a and 10b for the streamed path (K9-K11 with K1, K2, K8,
+K4 and K14, and with K5-K7). Every kernel of a path (PATHS) must have
+launched on it, and on 8a/8b K3, K5, K6, K7, K8, K12 and K13 with their
+lengths pointers (the ":ragged" keys). pointer_jump's
 counts are split by op: one launch a doubling loop, so 2 none, 1 min
 and 1 add a unitig contraction (asserted); K11 one launch a call
 (asserted). The kernels' captured inputs wait in device
@@ -181,6 +186,16 @@ KERNEL_INFO = {
                    "10a"),
     "merge_runs:weighted": (_CSRC + "merge_runs.cu",
                             "sage2_tpu/stream.py:30", "10a"),
+    "dedup_reads": (_CSRC + "dedup_reads.cu",
+                    "sage2_tpu/overlap/prepare.py:67", "4"),
+    "dedup_reads:ragged": (_CSRC + "dedup_reads.cu",
+                           "sage2_tpu/overlap/prepare.py:67", "8a"),
+    "seed_rows": (_CSRC + "seed_rows.cu", "sage2_tpu/overlap/detect.py:642",
+                  "4"),
+    "seed_rows:ragged": (_CSRC + "seed_rows.cu",
+                         "sage2_tpu/overlap/detect.py:642", "8a"),
+    "longest_edges": (_CSRC + "longest_edges.cu",
+                      "sage2_tpu/overlap/detect.py:1015", "4"),
 }
 for _n, _w, _a in PROBE_SHAPES:
     KERNEL_INFO[f"gather_along:{_a}:{_n}x{_w}"] = (
@@ -189,17 +204,20 @@ for _n, _w, _a in PROBE_SHAPES:
 _JUMPS = ["pointer_jump:none", "pointer_jump:min", "pointer_jump:add"]
 # the keys that must launch on each path
 _STREAMED = ["seed_table", "probe_join", "merge_runs", "merge_runs:weighted",
-             "canonical_reads", "kmer_keys", *_JUMPS]
+             "canonical_reads", "kmer_keys", "longest_edges", *_JUMPS]
+_DEDUP_JOIN = ["dedup_reads", "seed_rows", "longest_edges"]
+_RAGGED_DEDUP_JOIN = ["dedup_reads:ragged", "seed_rows:ragged",
+                      "longest_edges"]
 PATHS = {
     "4": ["kmer_keys", "lookup_counts", "canonical_reads", "overlap_join",
-          "merge_runs", *_JUMPS],
-    "5": ["vote_windows", "reduce_counts", "reduce_marks"],
+          "merge_runs", *_JUMPS, *_DEDUP_JOIN],
+    "5": ["vote_windows", "reduce_counts", "reduce_marks", *_DEDUP_JOIN],
     "7": [k for k in KERNEL_INFO if k.startswith("gather_along")],
     "8a": ["kmer_keys", "lookup_counts", "canonical_reads:ragged",
-           "overlap_join:ragged", *_JUMPS],
+           "overlap_join:ragged", *_JUMPS, *_RAGGED_DEDUP_JOIN],
     "8b": ["kmer_keys", "vote_windows:ragged", "canonical_reads:ragged",
            "overlap_join:ragged", "reduce_counts:ragged",
-           "reduce_marks:ragged", *_JUMPS],
+           "reduce_marks:ragged", *_JUMPS, *_RAGGED_DEDUP_JOIN],
     "10a": [*_STREAMED, "lookup_counts"],
     "10b": [*_STREAMED, "vote_windows", "reduce_counts", "reduce_marks"],
 }
@@ -274,7 +292,9 @@ class RawDeviceCopies:
     PyTorch's caching allocator, so that torch.cuda.max_memory_allocated
     does not count them. The copy is a device-to-device copy_ on the
     current stream; ``free`` releases the memory (cudaFree waits for the
-    device)."""
+    device). A large int32 tensor whose values all lie in [0, 255] (read
+    codes, overlap lengths) is kept as uint8: ``copy`` converts it on the
+    copy, ``Capture.inputs`` widens it back."""
 
     _TYPESTR = {"int8": "|i1", "uint8": "|u1", "bool": "|b1",
                 "int32": "<i4", "int64": "<i8"}
@@ -298,8 +318,13 @@ class RawDeviceCopies:
         """(a tensor viewing the raw copy of ``t``, its handle)."""
         import torch
 
+        dtype = t.dtype
+        if dtype == torch.int32 and t.numel() >= 1 << 20:
+            lo, hi = (int(x) for x in torch.aminmax(t))
+            if 0 <= lo and hi <= 255:
+                dtype = torch.uint8
         ptr = self.ctypes.c_void_p()
-        size = max(1, t.numel() * t.element_size())
+        size = max(1, t.numel() * dtype.itemsize)
         rc = self.rt.cudaMalloc(self.ctypes.byref(ptr), size)
         if rc != 0:     # PyTorch's cache may hold the memory: release it
             self.rt.cudaGetLastError()
@@ -309,7 +334,7 @@ class RawDeviceCopies:
             raise RuntimeError(f"cudaMalloc failed: error {rc}")
         view = types.SimpleNamespace(__cuda_array_interface__={
             "shape": tuple(t.shape), "data": (ptr.value, False),
-            "typestr": self._TYPESTR[str(t.dtype).split(".")[1]],
+            "typestr": self._TYPESTR[str(dtype).split(".")[1]],
             "strides": None, "version": 2})
         out = torch.as_tensor(view, device="cuda")
         if out.numel() and out.data_ptr() != ptr.value:
@@ -350,13 +375,16 @@ class Capture:
         # where each kernel with a ragged branch takes its lengths, and
         # K11 its weights: a call given one gets the key suffix
         branch_at = {"canonical_reads": (1, "ragged"),
+                     "dedup_reads": (1, "ragged"),
+                     "seed_rows": (2, "ragged"),
                      "overlap_join": (7, "ragged"),
                      "vote_windows": (5, "ragged"),
                      "reduce_counts": (5, "ragged"),
                      "reduce_marks": (9, "ragged"),
                      "merge_runs": (1, "weighted")}
 
-        def call(*args):
+        def call(*args, **kw):
+            # keyword arguments (a stage's DeviceSplit) are not kept
             key = name
             size = sum(a.numel() for a in args
                        if isinstance(a, torch.Tensor))
@@ -390,15 +418,16 @@ class Capture:
                     a, torch.Tensor) else (a, None) for a in args]
                 kept = [c[0] for c in copies]
                 handles = [c[1] for c in copies if c[1] is not None]
+                dtypes = [getattr(a, "dtype", None) for a in args]
             before = self.kernels.LAUNCHES[name]
-            out = fn(*args)
+            out = fn(*args, **kw)
             self.launches[key] += self.kernels.LAUNCHES[name] - before
             self.calls[key] += args[0].numel() > 0
             if keep:
                 if name == "overlap_join" and len(args) > 8 and callable(
                         args[8]):
                     kept[8] = out[0].shape[0]   # the slots a rule let in
-                self.args[row] = (rank, tuple(kept), handles)
+                self.args[row] = (rank, tuple(kept), handles, dtypes)
             return out
 
         return call
@@ -413,8 +442,9 @@ class Capture:
         raw copies are freed)."""
         import torch
 
-        args = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                     for a in self.args[row][1])
+        _, kept, _, dtypes = self.args[row]
+        args = tuple(a.to(dtype, copy=True) if isinstance(a, torch.Tensor)
+                     else a for a, dtype in zip(kept, dtypes))
         self._drop(row)
         return args
 
@@ -539,6 +569,37 @@ def work(key: str, args: tuple, total=0):
         # keys (and weights) in; each unique key and its sum out
         return (n * 8 + (0 if weights is None else n * 4) + total * 12,
                 n * 4)
+    if name == "dedup_reads":
+        reads, lengths, _, fwd_w = args[:4]
+        N, L = reads.shape
+        lens = 0 if lengths is None else N * 4
+        n_keys = -(-(2 * L + (0 if lengths is None else L.bit_length()))
+                   // 64)
+        # the canonical words (one of the two), the flags and lengths
+        # in; the representatives' codes in and the unique rows,
+        # multiplicities, vertices and lengths out; a comparison of each
+        # key at each of log2 N levels of the sort
+        return (fwd_w.numel() * 8 + N + lens + total * L * 4
+                + N * (L * 4 + 8) + lens,
+                N * n_keys * max(1, math.ceil(math.log2(N))) * 2)
+    if name == "seed_rows":
+        reads2, valid2, lengths, s, g, n_pos, trim = args
+        M, L = reads2.shape
+        n = M * (g + n_pos)
+        Wt = -(-(L - g) // 16) - trim
+        # codes, flags and lengths in; every row's payload and the live
+        # rows' keys and ids out; two shifts and an or a payload word,
+        # and the sort's comparisons of the live keys
+        return (reads2.numel() * 4 + M + (0 if lengths is None else M * 4)
+                + n * (Wt + 2) * 4 + total * 12,
+                n * (Wt + 4) * 3
+                + total * max(1, math.ceil(math.log2(total + 1))) * 2)
+    if name == "longest_edges":
+        ok, capacity = args[0], args[6]
+        n = ok.numel()
+        # the candidates in, the padded edges out; the sort's comparisons
+        return (n * 13 + capacity * 12,
+                n * max(1, math.ceil(math.log2(n + 1))) * 2)
     tbl = args[0]                                   # gather_along
     return tbl.numel() * 12, tbl.numel() * 2
 
@@ -640,7 +701,9 @@ def max_abs_err(a, b) -> float:
         if isinstance(x, torch.Tensor):
             if x.shape != y.shape:
                 return float("inf")
-            if x.numel():
+            # the float64 difference only where they differ: it takes
+            # four times an int32 output's memory
+            if x.numel() and not torch.equal(x, y):
                 d = (x.to(torch.float64) - y.to(torch.float64)).abs().max()
                 worst = max(worst, float(d))
         elif x != y:
@@ -975,13 +1038,13 @@ def main() -> int:
         wrapper = getattr(kernels, name)
         ref = getattr(plain, name)
 
-        def fresh():
-            # reduce_marks and overlap_join (its containment marks)
-            # update an argument in place
-            return tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                         for a in args)
-
-        a_got, a_want = fresh(), fresh()
+        # reduce_marks and overlap_join (its containment marks) update an
+        # argument in place: the kernel takes a copy of the inputs, the
+        # plain version the inputs themselves, and the two must end equal
+        a_got = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                      for a in args)
+        a_want = args
+        unmarked = args[0].clone() if name == "reduce_marks" else None
         got = wrapper(*a_got)
         want = ref(*a_want)
         torch.cuda.synchronize()
@@ -992,11 +1055,17 @@ def main() -> int:
         if name in ("overlap_join", "probe_join"):
             total = got[4]
         elif name == "reduce_marks":            # marks this range sets
-            total = int((got != args[0]).sum())
+            total = int((got != unmarked).sum())
         elif name == "merge_runs":              # unique keys
             total = got[0].numel()
         elif name == "vote_windows":            # the lookups it needs
             total = vote_pairs(args)
+        elif name == "dedup_reads":             # unique reads
+            total = got[3]
+        elif name == "seed_rows":               # live seed rows
+            total = got[0].numel()
+        elif name == "longest_edges":           # edges kept
+            total = got[3]
         else:
             total = 0
         heavy = name == "vote_windows"
@@ -1073,6 +1142,9 @@ def main() -> int:
             f"{n_launches} (phase {path}), inputs {shape}" + per_step
             + (f", {total} candidates" if name in ("overlap_join",
                                                    "probe_join") else "")
+            + ({"dedup_reads": f", {total} unique reads",
+                "seed_rows": f", {total} live rows",
+                "longest_edges": f", {total} edges"}.get(name, ""))
             + f", check {time.perf_counter() - t1:.1f} s")
     say(f"card after phase 2: {card_state()}")
     phase("2 kernels vs plain", t0)
@@ -1117,6 +1189,12 @@ def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
     gf = genome_fraction(contigs, genome)
     phase(label, t0, assemble_s=f"{t_asm:.3f}", stages=json.dumps(stages),
           launches=json.dumps(launches))
+    # the device time of the parts of dedup and overlap (CUDA events)
+    splits = {r["stage"]: {k: round(v, 3) for k, v in r.items()
+                           if k.endswith("_ms")}
+              for r in log.records if r["stage"].endswith("_split")}
+    if splits:
+        say(f"  device split, ms: {json.dumps(splits)}")
     say(f"assembly: n_contigs={stats['n_contigs']} n50={stats['n50']} "
         f"total_bases={stats['total_bases']} genome_fraction={gf:.6f} "
         f"(sage2_tpu reference on this input, default config, for comparison: "
@@ -1163,6 +1241,15 @@ def library_time(key: str, args: tuple):
         keys = args[0]
         return time_ms(lambda: torch.unique_consecutive(
             keys, return_counts=True)), "unique_consecutive"
+    if key.startswith("dedup_reads"):
+        # the sort and the grouping of the canonical words in one call
+        _, lengths, _, fwd_w, rc_w, take_rc = args
+        rows = torch.where(take_rc[:, None], rc_w, fwd_w)
+        if lengths is not None:
+            rows = torch.cat([lengths[:, None].to(torch.int64), rows], 1)
+        return time_ms(lambda: torch.unique(
+            rows, dim=0, sorted=True, return_inverse=True,
+            return_counts=True), reps=3), "unique(dim=0)"
     return None, None
 
 

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
-Twelve kernels (sources in ``kernels/csrc``):
+Fifteen kernels (sources in ``kernels/csrc``):
 
   K1 ``kmer_keys``      forward, RC and canonical k-mer keys
   K2 ``lookup_counts``  count of each query key in a count table: bucket
@@ -25,6 +25,16 @@ Twelve kernels (sources in ``kernels/csrc``):
   K11 ``merge_runs``    unique keys and summed weights of the runs of a
                         sorted key array (k-mer counting, table merges;
                         one pass)
+  K12 ``dedup_reads``   sort keys, grouping, multiplicities, vertices and
+                        unique rows of the dedup (key launches around
+                        chained torch.sort calls, then four grouping
+                        launches)
+  K13 ``seed_rows``     seed keys, live flags and payload rows of the
+                        overlap join, and the live rows in the join's
+                        sort order (five launches around one torch.sort)
+  K14 ``longest_edges`` longest overlap per (src, dst) of the join's
+                        candidates, compacted and padded (launches around
+                        one torch.sort, two for wide vertex ids)
   P1 ``gather_along``   gather along one axis of an (N, W) table (the
                         Pallas probe's kernel; on no path of the package)
 
@@ -33,13 +43,16 @@ tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 ``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
-``probe_join`` launch two per call).
+``probe_join`` launch two per call, K12-K14 more). K12 and K13 take a
+``split`` (utils.metrics.DeviceSplit) that marks the end of their sort
+and of their grouping or row build.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
 ctypes through a plain C interface. A source's headers (``common.cuh``,
-and ``bucket_search.cuh`` for those that include it, ``HEADERS``) are
-hashed with it, so an edit to a header rebuilds its libraries.
+and ``bucket_search.cuh`` or ``scan.cuh`` for those that include them,
+``HEADERS``) are hashed with it, so an edit to a header rebuilds its
+libraries.
 """
 
 from __future__ import annotations
@@ -55,10 +68,12 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.utils import native_build
+from sage2_tpu_torch.utils.metrics import mark_part
 
 KERNELS = ("kmer_keys", "lookup_counts", "overlap_join", "pointer_jump",
            "vote_windows", "reduce_counts", "reduce_marks", "canonical_reads",
-           "seed_table", "probe_join", "merge_runs", "gather_along")
+           "seed_table", "probe_join", "merge_runs", "gather_along",
+           "dedup_reads", "seed_rows", "longest_edges")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -114,6 +129,32 @@ _ARGTYPES = {
     "gather_along": {
         "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P, _P],
     },
+    "dedup_reads": {
+        "sage2_dedup_keys": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P],
+        "sage2_dedup_heads": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P, _P,
+                              _P, _P],
+        "sage2_scan_tiles": [_P, _I64, _P, _P],
+        "sage2_dedup_assign": [_P, _P, _P, _P, _I64, _P, _P, _P],
+        "sage2_dedup_rows": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P,
+                             _P, _P],
+    },
+    "seed_rows": {
+        "sage2_seed_rows": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P],
+        "sage2_seed_count": [_P, _I64, _I, _I, _P, _P],
+        "sage2_scan_tiles": [_P, _I64, _P, _P],
+        "sage2_seed_compact": [_P, _P, _I64, _I, _I, _P, _P, _P, _P],
+        "sage2_seed_gather": [_P, _P, _I64, _P, _P],
+    },
+    "longest_edges": {
+        "sage2_edge_keys": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
+        "sage2_edge_pairs": [_P, _P, _P, _P, _I64, _P, _P],
+        "sage2_edge_count": [_P, _I64, _I, _P, _P],
+        "sage2_scan_tiles": [_P, _I64, _P, _P],
+        "sage2_edge_write": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _I64, _P, _P, _P, _P],
+    },
 }
 
 # dynamic shared memory a block may use on the card (sm_90)
@@ -138,7 +179,9 @@ def nvcc_command() -> list:
 
 # the headers each source includes besides common.cuh
 HEADERS = {"lookup_counts": ("bucket_search.cuh",),
-           "vote_windows": ("bucket_search.cuh",)}
+           "vote_windows": ("bucket_search.cuh",),
+           "dedup_reads": ("scan.cuh",), "seed_rows": ("scan.cuh",),
+           "longest_edges": ("scan.cuh",)}
 
 
 def _specs():
@@ -770,3 +813,239 @@ def gather_along_launch(tbl: torch.Tensor, idx: torch.Tensor, axis: int,
     _launch("gather_along", "sage2_gather_along", _ptr(tbl), _ptr(idx), N, W,
             axis, _ptr(out), _ptr(flag), _stream())
     LAUNCHES["gather_along"] += 1
+
+
+# items a tile of the two-pass scans of K12-K14 (kScanTile in
+# kernels/csrc/scan.cuh)
+SCAN_TILE = 1024
+
+
+def _tile_scan(n: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tile counts, total) scratch of a two-pass scan over n items: an
+    int64 a tile, then one int64 for the total."""
+    tiles = max(1, -(-n // SCAN_TILE))
+    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
+    return scratch[:tiles], scratch[tiles:]
+
+
+def _scan_tiles(name: str, counts: torch.Tensor, total: torch.Tensor):
+    _launch(name, "sage2_scan_tiles", _ptr(counts), counts.numel(),
+            _ptr(total), _stream())
+    LAUNCHES[name] += 1
+
+
+def dedup_reads(
+    reads: torch.Tensor, lengths: Optional[torch.Tensor], rc: torch.Tensor,
+    fwd_w: torch.Tensor, rc_w: torch.Tensor, take_rc: torch.Tensor, *,
+    split=None,
+):
+    """(uniq, mult, vertex_of_read, n_unique, lens_u) of the dedup over
+    K8's outputs for the (N, L) int32 ``reads`` (see plain.dedup_reads):
+    ``uniq`` (N, L) int32 the representative of each group of equal
+    canonical reads in canonical orientation, zero past its length and
+    on rows from n_unique on; ``mult`` (N,) int32 the group sizes;
+    ``vertex_of_read`` (N,) int32; ``lens_u`` (N,) int32 or None.
+    Kernel K12: for each of the ceil((2 L + lb) / 64) keys, from the
+    last, a launch gathers the key through the current order and a
+    stable torch.sort orders it; then four grouping launches (heads,
+    the scan of the group ids, their assignment, the unique rows; see
+    kernels/csrc/dedup_reads.cu). One host read a call (n_unique)."""
+    N, L = reads.shape
+    W = -(-L // 16)
+    if rc.shape != reads.shape or fwd_w.shape != (N, W) or (
+            rc_w.shape != (N, W) or take_rc.shape != (N,)):
+        raise ValueError("rc, fwd_w, rc_w and take_rc must be K8's outputs "
+                         "for these reads")
+    tensors = (reads, rc, fwd_w, rc_w, take_rc) + (
+        () if lengths is None else (lengths,))
+    if _on_cpu(*tensors):
+        return plain.dedup_reads(reads, lengths, rc, fwd_w, rc_w, take_rc,
+                                 split=split)
+    _dtype(reads, torch.int32, "reads")
+    _dtype(rc, torch.int32, "rc")
+    _dtype(fwd_w, torch.int64, "fwd_w")
+    _dtype(rc_w, torch.int64, "rc_w")
+    _dtype(take_rc, torch.bool, "take_rc")
+    if lengths is not None:
+        _dtype(lengths, torch.int32, "lengths")
+    dev = reads.device
+    lens_u = None if lengths is None else torch.empty_like(lengths)
+    uniq = torch.empty_like(reads)
+    mult = torch.empty(N, dtype=torch.int32, device=dev)
+    vertex_of_read = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        mark_part(split, "sort")
+        mark_part(split, "group")
+        return uniq, mult, vertex_of_read, 0, lens_u
+    lb = 0 if lengths is None else L.bit_length()
+    n_keys = -(-(2 * L + lb) // 64)
+    order = perm = None
+    col = torch.empty(N, dtype=torch.int64, device=dev)
+    for c in reversed(range(n_keys)):
+        nxt = torch.empty(N, dtype=torch.int64, device=dev)
+        _launch("dedup_reads", "sage2_dedup_keys", _ptr(fwd_w), _ptr(rc_w),
+                _ptr(take_rc), _ptr(lengths), N, W, L, lb, c, _ptr(order),
+                _ptr(perm), _ptr(nxt), _ptr(col), _stream())
+        LAUNCHES["dedup_reads"] += 1
+        order, perm = nxt, torch.sort(col, stable=True).indices
+    mark_part(split, "sort")
+    del col
+    s_order = torch.empty(N, dtype=torch.int64, device=dev)
+    heads = torch.empty(N, dtype=torch.uint8, device=dev)
+    counts, total = _tile_scan(N, dev)
+    _launch("dedup_reads", "sage2_dedup_heads", _ptr(order), _ptr(perm),
+            _ptr(fwd_w), _ptr(rc_w), _ptr(take_rc), _ptr(lengths), N, W, L,
+            _ptr(s_order), _ptr(heads), _ptr(counts), _stream())
+    LAUNCHES["dedup_reads"] += 1
+    del order, perm
+    _scan_tiles("dedup_reads", counts, total)
+    head_pos = torch.empty(N, dtype=torch.int64, device=dev)
+    _launch("dedup_reads", "sage2_dedup_assign", _ptr(s_order), _ptr(heads),
+            _ptr(counts), _ptr(take_rc), N, _ptr(head_pos),
+            _ptr(vertex_of_read), _stream())
+    LAUNCHES["dedup_reads"] += 1
+    _launch("dedup_reads", "sage2_dedup_rows", _ptr(s_order), _ptr(head_pos),
+            _ptr(total), _ptr(reads), _ptr(rc), _ptr(take_rc), _ptr(lengths),
+            N, L, _ptr(uniq), _ptr(mult), _ptr(lens_u), _stream())
+    LAUNCHES["dedup_reads"] += 1
+    mark_part(split, "group")
+    return uniq, mult, vertex_of_read, int(total), lens_u
+
+
+def seed_rows(
+    reads2: torch.Tensor, valid2: torch.Tensor,
+    lengths: Optional[torch.Tensor], s: int, g: int, n_pos: int, trim: int,
+    *, split=None,
+):
+    """(s_keys int64, s_rows int32, payload (M, R, Wt + 2) int32): the
+    overlap join's seed rows of the (M, L) int32 ``reads2`` in its sort
+    order, and every row's payload (see plain.seed_rows). Kernel K13:
+    the keys, live flags and payload rows in one launch (one warp a
+    read, its words packed in shared memory), the live row ids and
+    their keys compacted in the join's order (two passes around a scan
+    of the tile counts), a stable torch.sort of the keys, and the row
+    ids gathered through its permutation (see
+    kernels/csrc/seed_rows.cu). One host read a call (the live rows)."""
+    M, L = reads2.shape
+    R = g + n_pos
+    for pos in plain.seed_positions(g, n_pos):
+        if pos + s > L:
+            raise ValueError(f"seed position {pos} + seed length {s} "
+                             f"exceeds read length {L}")
+    if M * R >= (1 << 31) - 1:
+        raise ValueError(f"seed rows {M * R} overflow 31-bit row ids")
+    tensors = (reads2, valid2) + (() if lengths is None else (lengths,))
+    if _on_cpu(*tensors):
+        return plain.seed_rows(reads2, valid2, lengths, s, g, n_pos, trim,
+                               split=split)
+    _dtype(reads2, torch.int32, "reads2")
+    _dtype(valid2, torch.bool, "valid2")
+    if lengths is not None:
+        _dtype(lengths, torch.int32, "lengths")
+    if not 1 <= s <= 32:
+        raise ValueError(f"seed length {s} outside [1, 32]")
+    W = -(-L // 16)
+    if 8 * W * 4 > 48 * 1024:
+        raise ValueError(f"reads of length {L} need more shared memory "
+                         f"than K13 takes")
+    dev = reads2.device
+    Wt = -(-(L - g) // 16) - trim
+    n = M * R
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    live = torch.empty(n, dtype=torch.uint8, device=dev)
+    payload = torch.empty((M, R, Wt + 2), dtype=torch.int32, device=dev)
+    if n == 0:
+        mark_part(split, "seed_rows")
+        mark_part(split, "row_sort")
+        return keys, torch.empty(0, dtype=torch.int32, device=dev), payload
+    _launch("seed_rows", "sage2_seed_rows", _ptr(reads2), _ptr(valid2),
+            _ptr(lengths), M, L, s, g, n_pos, trim, _ptr(keys), _ptr(live),
+            _ptr(payload), _stream())
+    LAUNCHES["seed_rows"] += 1
+    mark_part(split, "seed_rows")
+    counts, total = _tile_scan(n, dev)
+    _launch("seed_rows", "sage2_seed_count", _ptr(live), M, g, n_pos,
+            _ptr(counts), _stream())
+    LAUNCHES["seed_rows"] += 1
+    _scan_tiles("seed_rows", counts, total)
+    base = torch.empty(n, dtype=torch.int32, device=dev)
+    ckeys = torch.empty(n, dtype=torch.int64, device=dev)
+    _launch("seed_rows", "sage2_seed_compact", _ptr(live), _ptr(keys), M, g,
+            n_pos, _ptr(counts), _ptr(base), _ptr(ckeys), _stream())
+    LAUNCHES["seed_rows"] += 1
+    del keys, live
+    n_live = int(total)
+    s_keys, perm = torch.sort(ckeys[:n_live], stable=True)
+    del ckeys
+    s_rows = torch.empty(n_live, dtype=torch.int32, device=dev)
+    if n_live:
+        _launch("seed_rows", "sage2_seed_gather", _ptr(base), _ptr(perm),
+                n_live, _ptr(s_rows), _stream())
+        LAUNCHES["seed_rows"] += 1
+    mark_part(split, "row_sort")
+    return s_keys, s_rows, payload
+
+
+def longest_edges(
+    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
+    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+):
+    """(src, dst, ovl int32 (capacity,), n_edges): the longest overlap of
+    each (src, dst) among the ``ok`` candidates, sorted by (src, dst)
+    and padded with (INT32_MAX, INT32_MAX, 0) (see plain.longest_edges;
+    vertex ids below ``n_vertices``, overlaps up to ``read_len``).
+    Kernel K14: a launch builds each candidate's key (the composite
+    (src, dst, ovl) key, or ovl where 2 db + ob > 63; -1 where not ok),
+    torch.sort orders it (the wide order: a stable sort by ovl, a launch
+    gathering the (src, dst) keys, a second stable sort), and two passes
+    around a scan of the tile counts mark the last row of each (src,
+    dst) run, compact those rows and fill the padding (see
+    kernels/csrc/longest_edges.cu). One host read a call (n_edges)."""
+    n = ok.shape[0]
+    if not (cand_a.shape == cand_b.shape == cand_ovl.shape == (n,)):
+        raise ValueError("ok and the candidate arrays must be (n,) alike")
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} below the {n} candidates")
+    if _on_cpu(ok, cand_a, cand_b, cand_ovl):
+        return plain.longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
+                                   read_len, capacity)
+    _dtype(ok, torch.bool, "ok")
+    for t in (cand_a, cand_b, cand_ovl):
+        _dtype(t, torch.int32, "candidate arrays")
+    db, ob = plain.edge_key_bits(n_vertices, read_len)
+    wide = 2 * db + ob > 63
+    dev = ok.device
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    perm1 = perm2 = None
+    if n:
+        _launch("longest_edges", "sage2_edge_keys", _ptr(ok), _ptr(cand_a),
+                _ptr(cand_b), _ptr(cand_ovl), n, db, ob, int(wide),
+                _ptr(keys), _stream())
+        LAUNCHES["longest_edges"] += 1
+    if not wide:
+        keys = torch.sort(keys).values
+    else:
+        perm1 = torch.sort(keys, stable=True).indices
+        if n:
+            _launch("longest_edges", "sage2_edge_pairs", _ptr(ok),
+                    _ptr(cand_a), _ptr(cand_b), _ptr(perm1), n, _ptr(keys),
+                    _stream())
+            LAUNCHES["longest_edges"] += 1
+        keys, perm2 = torch.sort(keys, stable=True)
+    counts, total = _tile_scan(n, dev)
+    if n:
+        _launch("longest_edges", "sage2_edge_count", _ptr(keys), n,
+                0 if wide else ob, _ptr(counts), _stream())
+        LAUNCHES["longest_edges"] += 1
+        _scan_tiles("longest_edges", counts, total)
+    else:
+        total.zero_()
+    src, dst, ovl = (torch.empty(capacity, dtype=torch.int32, device=dev)
+                     for _ in range(3))
+    if capacity:
+        _launch("longest_edges", "sage2_edge_write", _ptr(keys), n, db, ob,
+                int(wide), _ptr(perm1), _ptr(perm2), _ptr(cand_ovl),
+                _ptr(counts), _ptr(total), capacity, _ptr(src), _ptr(dst),
+                _ptr(ovl), _stream())
+        LAUNCHES["longest_edges"] += 1
+    return src, dst, ovl, int(total)

@@ -15,7 +15,8 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from sage2_tpu_torch.ops.sort import unique_sorted_pairs, words_less
+from sage2_tpu_torch.ops.sort import I32_MAX, unique_sorted_pairs, words_less
+from sage2_tpu_torch.utils.metrics import mark_part
 
 _U32 = 0xFFFFFFFF
 
@@ -452,3 +453,200 @@ def gather_along(tbl: torch.Tensor, idx: torch.Tensor,
     if axis == 0:
         return tbl[i, torch.arange(W, device=tbl.device)[None, :]]
     return tbl[torch.arange(N, device=tbl.device)[:, None], i]
+
+
+def _u32_pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 of the 64 bits hi:lo (each an int64 holding a uint32) with
+    the top bit flipped, so signed order is the unsigned order."""
+    return (hi - (1 << 31)) * (1 << 32) + lo
+
+
+def dedup_keys(fwd_w: torch.Tensor, rc_w: torch.Tensor,
+               take_rc: torch.Tensor, lengths: Optional[torch.Tensor],
+               L: int) -> list:
+    """The sort keys of the dedup, most significant first: the bit string
+    of each read's canonical words (``rc_w`` where ``take_rc``, else
+    ``fwd_w``), led for ragged reads by its length (clamped to [0, L]) in
+    lb = bit_length(L) bits, cut into 64-bit keys with the top bit
+    flipped. The string ends after its 2 L + lb significant bits (the
+    words are zero past each read), so it takes ceil((2 L + lb) / 64)
+    keys: the order of the keys is the (length, words...) order."""
+    canon = torch.where(take_rc[:, None], rc_w, fwd_w)
+    N, W = canon.shape
+    lb = 0 if lengths is None else L.bit_length()
+    if lb:
+        # 32-bit words of the string: the length's lb bits, then the words
+        ext = torch.cat([lengths.clamp(0, L).to(torch.int64)[:, None], canon,
+                         canon.new_zeros((N, 1))], dim=1)
+        canon = (((ext[:, :-1] << (32 - lb)) & _U32)
+                 | (ext[:, 1:] >> lb))[:, : -(-(2 * L + lb) // 32)]
+    if canon.shape[1] % 2:
+        canon = torch.cat([canon, canon.new_zeros((N, 1))], dim=1)
+    return [_u32_pair_key(canon[:, 2 * c], canon[:, 2 * c + 1])
+            for c in range(canon.shape[1] // 2)]
+
+
+def dedup_reads(
+    reads: torch.Tensor, lengths: Optional[torch.Tensor], rc: torch.Tensor,
+    fwd_w: torch.Tensor, rc_w: torch.Tensor, take_rc: torch.Tensor, *,
+    split=None,
+):
+    """(uniq, mult, vertex_of_read, n_unique, lens_u) of the dedup
+    (sage2_tpu/overlap/prepare.py:97-133) over K8's outputs: reads in
+    the stable order of their canonical (length, words) keys
+    (``dedup_keys``, chained stable sorts from the last key to the
+    first), grouped by equal keys. Group g's first read in that order
+    is its representative: ``uniq`` row g holds it in canonical
+    orientation (``rc`` where ``take_rc``) with codes past its length
+    zero, ``mult`` the group's size, ``lens_u`` its length (None
+    without lengths); rows from n_unique on are zero. Read i's vertex
+    is its group, plus N where it was flipped."""
+    N, L = reads.shape
+    dev = reads.device
+    keys = dedup_keys(fwd_w, rc_w, take_rc, lengths, L)
+    order = torch.arange(N, device=dev)
+    for key in reversed(keys):
+        order = order[torch.sort(key[order], stable=True).indices]
+    mark_part(split, "sort")
+    neq = torch.arange(N, device=dev) == 0
+    for key in keys:
+        s_key = key[order]
+        neq[1:] |= s_key[1:] != s_key[:-1]
+    group_id = torch.cumsum(neq.to(torch.int64), 0) - 1
+    n_unique = int(group_id[-1]) + 1 if N else 0
+    heads = torch.nonzero(neq).reshape(-1)
+    rep = order[heads]
+    mult = torch.zeros(N, dtype=torch.int32, device=dev)
+    mult[:n_unique] = torch.diff(heads, append=heads.new_tensor([N])).to(
+        torch.int32)
+    row = torch.where(take_rc[rep][:, None], rc[rep], reads[rep])
+    lens_u = None
+    if lengths is not None:
+        real = torch.arange(L, device=dev)[None, :] < lengths[rep].clamp(
+            0, L)[:, None]
+        row = torch.where(real, row, 0)
+        lens_u = torch.zeros_like(lengths)
+        lens_u[:n_unique] = lengths[rep]
+    uniq = torch.zeros_like(reads)
+    uniq[:n_unique] = row
+    gid = torch.empty(N, dtype=torch.int64, device=dev)
+    gid[order] = group_id
+    vertex_of_read = (gid + take_rc.to(torch.int64) * N).to(torch.int32)
+    mark_part(split, "group")
+    return uniq, mult, vertex_of_read, n_unique, lens_u
+
+
+def seed_positions(g: int, n_pos: int) -> list:
+    """The seed positions of a read's R = g + n_pos rows: entries at
+    offsets 0 .. g - 1, queries at g, 2g, ..., n_pos g."""
+    return list(range(g)) + [g * (j + 1) for j in range(n_pos)]
+
+
+def seed_rows(
+    reads2: torch.Tensor, valid2: torch.Tensor,
+    lengths: Optional[torch.Tensor], s: int, g: int, n_pos: int, trim: int,
+    *, split=None,
+):
+    """(s_keys, s_rows, payload) of the overlap join's seed rows
+    (sage2_tpu/overlap/detect.py:642 build_seed_rows with :562
+    _row_payload), for (M, L) int32 reads.
+
+    Row t of read m has id m * R + t (R = g + n_pos) and the seed at
+    ``seed_positions(g, n_pos)[t]``. ``payload`` (M, R, Wt + 2) int32:
+    [aw_0 .. aw_{Wt-1}, xw, len], aw_t the word of bases [pos + 16 (trim
+    + t), +16) (Wt = ceil((L - g) / 16) - trim), xw for ENTRY rows (t <
+    g) the read's first word (the B side of the prefix check), for QUERY
+    rows the word ending at pos (base pos - 1 in its low 2 bits; the A
+    side), len the read's length (L without lengths). A row is live when
+    its read is valid and, for ragged reads, its seed lies inside the
+    read (pos + s <= len). The live rows, laid out as the reference's
+    (key, tag | id) sort orders them (entries by id, then queries by
+    id), are sorted stably by their exact seed key (int64, the
+    left-aligned (hi, lo) pair with its top bit flipped): ``s_keys`` and
+    the int32 row ids ``s_rows``."""
+    from sage2_tpu_torch.ops import bitpack
+    from sage2_tpu_torch.overlap import detect
+
+    M, L = reads2.shape
+    R = g + n_pos
+    Wt = -(-(L - g) // 16) - trim
+    positions = seed_positions(g, n_pos)
+    words0 = bitpack.pack_read_words(reads2)
+    first = words0[:, 0]
+    if lengths is None:
+        length = torch.full_like(first, L)
+    else:
+        length = lengths.to(torch.int64)
+    keys, rows = [], []
+    for i, pos in enumerate(positions):
+        keys.append(detect.seed_keys(words0, s, pos))
+        aw = [bitpack.word_at(words0, pos + 16 * (trim + t))
+              for t in range(Wt)]
+        if i < g:
+            xw = first
+        elif pos < 16:
+            xw = first >> (2 * (16 - pos))
+        else:
+            xw = bitpack.word_at(words0, pos - 16)
+        rows.append(detect._as_int32(torch.stack(aw + [xw, length], dim=1)))
+    live = valid2[:, None].expand(M, R)
+    if lengths is not None:
+        pos = torch.tensor(positions, device=reads2.device)
+        live = live & (pos[None, :] + s <= length[:, None])
+    keys = torch.stack(keys, dim=1)
+    payload = torch.stack(rows, dim=1)
+    mark_part(split, "seed_rows")
+    ids = torch.arange(M * R, dtype=torch.int32,
+                       device=reads2.device).reshape(M, R)
+    base = torch.cat([ids[:, :g][live[:, :g]], ids[:, g:][live[:, g:]]])
+    s_keys, perm = torch.sort(keys.reshape(-1)[base], stable=True)
+    mark_part(split, "row_sort")
+    return s_keys, base[perm], payload
+
+
+def edge_key_bits(n_vertices: int, read_len: int) -> Tuple[int, int]:
+    """(db, ob): the bits of a vertex id below ``n_vertices`` and of an
+    overlap length up to ``read_len``; K14 packs (src, dst, ovl) into one
+    int64 key where 2 db + ob <= 63."""
+    return max(n_vertices - 1, 0).bit_length(), int(read_len).bit_length()
+
+
+def longest_edges(
+    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
+    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+):
+    """(src, dst, ovl, n_edges): the longest overlap of each (src, dst)
+    pair among the ``ok`` candidates (sage2_tpu/overlap/detect.py:1015
+    _reduce_fused), sorted by (src, dst) and padded to ``capacity`` rows
+    with (INT32_MAX, INT32_MAX, 0).
+
+    With (db, ob) = ``edge_key_bits(n_vertices, read_len)`` and 2 db +
+    ob <= 63 one sort orders the key src << (db + ob) | dst << ob | ovl;
+    otherwise two stable sorts, by ovl and then by src << 32 | dst.
+    Rows that are not ok take the key -1 and sort first. The last row of
+    each (src, dst) run holds its longest overlap."""
+    db, ob = edge_key_bits(n_vertices, read_len)
+    a, b, v = (x.to(torch.int64) for x in (cand_a, cand_b, cand_ovl))
+    neg = torch.full_like(a, -1)
+    if 2 * db + ob <= 63:
+        s_key = torch.sort(torch.where(
+            ok, (a << (db + ob)) | (b << ob) | v, neg)).values
+        pair = s_key >> ob
+        s_src, s_dst = s_key >> (db + ob), pair & ((1 << db) - 1)
+        s_ovl = s_key & ((1 << ob) - 1)
+    else:
+        o1 = torch.sort(torch.where(ok, v, neg), stable=True).indices
+        pair, o2 = torch.sort(torch.where(
+            ok[o1], (a[o1] << 32) | b[o1], neg[o1]), stable=True)
+        s_src, s_dst = pair >> 32, pair & _U32
+        s_ovl = v[o1[o2]]
+    is_last = pair >= 0
+    is_last[:-1] &= pair[1:] != pair[:-1]
+    n_edges = int(is_last.sum())
+    dev = ok.device
+    out = []
+    for x, fill in ((s_src, I32_MAX), (s_dst, I32_MAX), (s_ovl, 0)):
+        col = torch.full((capacity,), fill, dtype=torch.int32, device=dev)
+        col[:n_edges] = x[is_last].to(torch.int32)
+        out.append(col)
+    return (*out, n_edges)

@@ -20,7 +20,8 @@ of each read, grouped by the top B bits of their 16-base word into a
 candidate of a bucket is verified against the whole overlap from the
 reads' unshifted words. The functions below are its plain definitions;
 kernels K9 (``seed_table``) and K10 (``probe_join``) compute them on the
-card.
+card. Both joins keep the longest overlap per (src, dst) with kernel K14
+(``longest_edges``); K13 (``seed_rows``) builds the in-core join's rows.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from sage2_tpu_torch import kernels
 from sage2_tpu_torch.ops import bitpack
-from sage2_tpu_torch.ops.sort import I32_MAX
+from sage2_tpu_torch.utils.metrics import mark_part
 
 # find_overlaps_auto's last good candidate capacity per problem shape
 # (M, L, min_overlap, seed_len, stride, ragged): [capacity,
@@ -293,128 +294,57 @@ def probe_seed_table(st: SeedTable, a_hi: torch.Tensor,
 
 def build_seed_rows(
     reads2: torch.Tensor, valid2: torch.Tensor, s: int, geo: JoinGeometry,
-    lengths: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None, split=None,
 ):
-    """Seed rows of the join for (M, L) reads.
+    """The join's seed rows of (M, L) reads (kernel K13): (s_keys int64,
+    s_rows int32, payload (M, R, Wt + 2) int32).
 
-    Returns (keys (M, R) int64, live (M, R) bool, payload (M, R, Wt + 2)
-    int32). Row t of read m has id m * R + t. Payload row = [aw_0 ..
-    aw_{Wt-1}, xw, len]: aw_t the word of bases [pos + 16 (trim + t),
-    +16); xw is, for ENTRY rows, the read's first word (the B side of
-    the prefix check), for QUERY rows the word ending at pos (base
-    pos - 1 in its low 2 bits; the A side); len the read length (the
-    reference's _row_payload, :562): L, or ``lengths[m]`` for ragged
-    reads. Rows of invalid reads are not live, nor for ragged reads the
-    rows whose seed passes the read's end (pos + s > len, :676-678).
-    """
-    M, L = reads2.shape
-    g, n_pos, R = geo.g, geo.n_pos, geo.R
-    positions = list(range(g)) + [g * (j + 1) for j in range(n_pos)]
-    words0 = bitpack.pack_read_words(reads2)
-    first = words0[:, 0]
-    if lengths is None:
-        length = torch.full_like(first, L)
-    else:
-        length = lengths.to(torch.int64)
-    keys, rows = [], []
-    for i, pos in enumerate(positions):
-        if pos + s > L:
-            raise ValueError(f"seed position {pos} + seed length {s} "
-                             f"exceeds read length {L}")
-        keys.append(seed_keys(words0, s, pos))
-        aw = [bitpack.word_at(words0, pos + 16 * (geo.trim + t))
-              for t in range(geo.Wt)]
-        if i < g:
-            xw = first
-        elif pos < 16:
-            xw = first >> (2 * (16 - pos))
-        else:
-            xw = bitpack.word_at(words0, pos - 16)
-        rows.append(_as_int32(torch.stack(aw + [xw, length], dim=1)))
-    live = valid2[:, None].expand(M, R)
-    if lengths is not None:
-        pos = torch.tensor(positions, device=reads2.device)
-        live = live & (pos[None, :] + s <= length[:, None])
-    return torch.stack(keys, dim=1), live, torch.stack(rows, dim=1)
-
-
-def sorted_seed_rows(keys, live, geo: JoinGeometry):
-    """The live seed rows in the reference's sort order: (s_keys int64,
-    s_rows int32 row ids).
+    Row t of read m has id m * R + t. Payload row = [aw_0 .. aw_{Wt-1},
+    xw, len]: aw_t the word of bases [pos + 16 (trim + t), +16); xw is,
+    for ENTRY rows, the read's first word (the B side of the prefix
+    check), for QUERY rows the word ending at pos (base pos - 1 in its
+    low 2 bits; the A side); len the read length (the reference's
+    _row_payload, :562): L, or ``lengths[m]`` for ragged reads. Rows of
+    invalid reads are not live, nor for ragged reads the rows whose seed
+    passes the read's end (pos + s > len, :676-678).
 
     The reference sorted (hi, lo, packed) with packed = tag | row id, so
-    within a key entries (tag 0) precede queries, each by row id. Here
-    the live rows are laid out in that order (entries, then queries,
-    each by id) and sorted stably by key alone.
+    within a key entries (tag 0) precede queries, each by row id: the
+    live rows are laid out in that order and sorted stably by their
+    exact seed key (``s_keys``, with ``s_rows`` their ids).
     """
-    M, R = keys.shape
-    g = geo.g
-    ids = torch.arange(M * R, dtype=torch.int32,
-                       device=keys.device).reshape(M, R)
-    base = torch.cat([ids[:, :g][live[:, :g]], ids[:, g:][live[:, g:]]])
-    s_keys, perm = torch.sort(keys.reshape(-1)[base], stable=True)
-    return s_keys, base[perm]
-
-
-def fused_join_core(keys, live, payload, geo: JoinGeometry,
-                    min_overlap: int, contained=None, slot_limit=None):
-    """Sort the live seed rows and join them (kernel K3). Returns (ok,
-    cand_a, cand_b, ovl, total), one entry per candidate slot below
-    ``slot_limit`` (an int, or a function of ``total``; see
-    kernels.overlap_join); ``contained`` (uint8, ragged reads) gets the
-    containment marks of those slots."""
-    s_keys, s_rows = sorted_seed_rows(keys, live, geo)
-    return kernels.overlap_join(
-        s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), geo.R, geo.g,
-        geo.trim, min_overlap, contained, slot_limit,
-    )
+    return kernels.seed_rows(
+        reads2, valid2, None if lengths is None else lengths.to(torch.int32),
+        s, geo.g, geo.n_pos, geo.trim, split=split)
 
 
 def _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len: int,
-                  capacity: int):
+                  capacity: int, n_vertices: int):
     """Longest overlap per (src, dst), sorted by (src, dst), padded to
-    ``capacity`` rows (INT32_MAX, INT32_MAX, 0). Returns (src, dst, ovl,
-    n_edges)."""
-    a = cand_a[ok].to(torch.int64)
-    b = cand_b[ok].to(torch.int64)
-    v = cand_ovl[ok].to(torch.int64)
-    # sort by (src, dst, ovl): ovl first, then stably by (src, dst)
-    o1 = torch.sort(v, stable=True).indices
-    o2 = torch.sort((a[o1] << 32) | b[o1], stable=True).indices
-    order = o1[o2]
-    a, b, v = a[order], b[order], v[order]
-    is_last = torch.ones_like(a, dtype=torch.bool)
-    is_last[:-1] = (a[1:] != a[:-1]) | (b[1:] != b[:-1])
-    n_edges = int(is_last.sum())
-    dev = cand_a.device
-    src = torch.full((capacity,), I32_MAX, dtype=torch.int32, device=dev)
-    dst = torch.full((capacity,), I32_MAX, dtype=torch.int32, device=dev)
-    ovl = torch.zeros((capacity,), dtype=torch.int32, device=dev)
-    src[:n_edges] = a[is_last].to(torch.int32)
-    dst[:n_edges] = b[is_last].to(torch.int32)
-    ovl[:n_edges] = v[is_last].to(torch.int32)
-    return src, dst, ovl, n_edges
+    ``capacity`` rows (INT32_MAX, INT32_MAX, 0); vertex ids below
+    ``n_vertices``, overlaps up to ``read_len`` (kernel K14, which packs
+    (src, dst, ovl) into one sort key where they fit). Returns (src, dst,
+    ovl, n_edges)."""
+    return kernels.longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
+                                 read_len, capacity)
 
 
-def reduce_edge_candidates(ok, cand_a, cand_b, cand_ovl, read_len: int):
+def reduce_edge_candidates(ok, cand_a, cand_b, cand_ovl, read_len: int,
+                           n_vertices: int):
     """Longest overlap per (src, dst) of the ok candidates, sorted by
     (src, dst) and padded to the candidate count (:488). Returns (src,
-    dst, ovl, n_edges); the first n_edges rows are the reference's
-    (which packs dst and ovl into one sort operand where they fit, an
-    order-preserving change; its ``max_vertex`` chose that and is not
-    taken)."""
+    dst, ovl, n_edges); the first n_edges rows are the reference's."""
     return _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len,
-                         ok.shape[0])
+                         ok.shape[0], n_vertices)
 
 
 def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,
-            lengths=None):
+            lengths=None, split=None):
     M, L = reads2.shape
     s = min(seed_len, min_overlap, 32)
     geo = join_geometry(L, min_overlap, s, stride)
-    if M * geo.R >= (1 << 31) - 1:
-        raise ValueError(f"seed rows {M * geo.R} overflow 31-bit row ids")
-    keys, live, payload = build_seed_rows(reads2, valid2, s, geo, lengths)
+    s_keys, s_rows, payload = build_seed_rows(reads2, valid2, s, geo,
+                                              lengths, split)
     cont = (None if lengths is None else
             torch.zeros(M, dtype=torch.uint8, device=reads2.device))
     caps = []
@@ -425,10 +355,15 @@ def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,
         caps.append(capacity_of(total))
         return caps[0]
 
-    ok, cand_a, cand_b, ovl, total = fused_join_core(
-        keys, live, payload, geo, min_overlap, cont, limit)
+    ok, cand_a, cand_b, ovl, total = kernels.overlap_join(
+        s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), geo.R, geo.g,
+        geo.trim, min_overlap, cont, limit)
+    del s_keys, s_rows, payload
+    mark_part(split, "join")
     C = caps[0]
-    src, dst, e_ovl, n_edges = _reduce_fused(ok, cand_a, cand_b, ovl, L, C)
+    src, dst, e_ovl, n_edges = _reduce_fused(ok, cand_a, cand_b, ovl, L, C,
+                                             M)
+    mark_part(split, "reduce")
     if cont is None:
         contained, n_contained = torch.zeros(
             M, dtype=torch.bool, device=reads2.device), 0
@@ -466,6 +401,7 @@ def find_overlaps_auto(
     stride: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
     validate: bool = True,
+    split=None,
 ) -> OverlapResult:
     """find_overlaps with the reference's self-sizing capacity
     (sage2_tpu/overlap/detect.py:1190-1277), which sets the length of
@@ -480,7 +416,9 @@ def find_overlaps_auto(
     (re-entering the sizing on overflow), later ones take it unchecked,
     so a denser same-shape input may then come back with ``overflow``
     set. K3's count pass knows the exact candidate count before anything
-    is written, so the sizing costs no second join here.
+    is written, so the sizing costs no second join here. ``split``
+    (utils.metrics.DeviceSplit) gets the ends of the seed rows, the row
+    sort, the join and the reduction.
     """
     M = reads2.shape[0]
     grain = 1 << 16
@@ -510,4 +448,4 @@ def find_overlaps_auto(
         return cap
 
     return _detect(reads2, valid2, min_overlap, seed_len, stride,
-                   capacity_of, lengths)
+                   capacity_of, lengths, split)

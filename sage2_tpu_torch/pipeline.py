@@ -64,7 +64,7 @@ from sage2_tpu_torch.stream import (
     prepare_reads_chunked,
 )
 from sage2_tpu_torch.utils.device import resolve_device
-from sage2_tpu_torch.utils.metrics import MetricsLog
+from sage2_tpu_torch.utils.metrics import DeviceSplit, MetricsLog
 from sage2_tpu_torch.utils.spill import SpillStore
 from sage2_tpu_torch.utils.stats import assembly_stats
 
@@ -298,8 +298,10 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                 )
                 _sync(dev)
             del r, table
-            corrected_np = corrected.to(torch.int8).cpu().numpy()
+            # kept on the card for the in-core dedup
+            corrected8 = corrected.to(torch.int8)
             del corrected
+            corrected_np = corrected8.cpu().numpy()
         if not spilled:
             _save(outdir, log, "corrected", reads=corrected_np)
         _manifest(outdir, config, "correct", spilled=spilled)
@@ -356,17 +358,26 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                   valid2=valid2_np, multiplicity=mult_np)
         _manifest(outdir, config, "overlap", spilled=spilled)
     elif start <= STAGES.index("overlap"):
+        if start > STAGES.index("correct"):
+            corrected8 = torch.from_numpy(
+                _writable(np.asarray(corrected_np, np.int8))).to(dev)
         with log.timed("dedup"):
-            rs = prepare_reads(
-                torch.from_numpy(corrected_np.astype(np.int32)).to(dev),
-                lens)
+            split = DeviceSplit(dev)
+            corrected = corrected8.to(torch.int32)
+            split.mark("widen")
+            del corrected8
+            rs = prepare_reads(corrected, lens, split)
+            del corrected
             _sync(dev)
+        log.log("dedup_split", **split.ms())
         with log.timed("overlap"):
+            split = DeviceSplit(dev)
             res = find_overlaps_auto(
                 rs.reads2, rs.valid2, config.min_overlap,
-                config.effective_seed_len, lengths=rs.lengths2,
+                config.effective_seed_len, lengths=rs.lengths2, split=split,
             )
             _sync(dev)
+        log.log("overlap_split", **split.ms())
         if res.overflow:
             raise RuntimeError("find_overlaps_auto returned an overflowed "
                                "candidate capacity")

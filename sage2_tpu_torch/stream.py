@@ -217,11 +217,11 @@ def _words(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
     return bitpack.pack_read_words(_rows(rows, dev))
 
 
-def _chunk_edges(ok, cand_a, cand_b, cand_ovl, L: int):
-    """The longest overlap per (src, dst) of one chunk's candidates, as
-    host arrays in (src, dst) order."""
+def _chunk_edges(ok, cand_a, cand_b, cand_ovl, L: int, M: int):
+    """The longest overlap per (src, dst) of one chunk's candidates (of
+    M vertices), as host arrays in (src, dst) order."""
     src, dst, ovl, n_keep = detect.reduce_edge_candidates(
-        ok, cand_a, cand_b, cand_ovl, L)
+        ok, cand_a, cand_b, cand_ovl, L, M)
     return tuple(a[:n_keep].cpu().numpy() for a in (src, dst, ovl))
 
 
@@ -330,7 +330,7 @@ def find_overlaps_chunked(
             slab, L, s, g, pa, i, capacity_per_chunk)
         if n_cand > capacity_per_chunk:
             return _overflow(writers or [])
-        part = _chunk_edges(ok, ca, cb, ovl, L)
+        part = _chunk_edges(ok, ca, cb, ovl, L, M)
         del ok, ca, cb, ovl
         n_edges += part[0].shape[0]
         if writers is not None:
@@ -398,7 +398,7 @@ def _find_overlaps_chunked_blocked(
                 capacity_per_chunk)
             if n_cand > capacity_per_chunk:
                 return _overflow([w for ws in frag_writers or [] for w in ws])
-            part = _chunk_edges(ok, ca, cb, ovl, L)
+            part = _chunk_edges(ok, ca, cb, ovl, L, M)
             del ok, ca, cb, ovl
             if frag_writers is not None:
                 for w, a in zip(frag_writers[ci], part):

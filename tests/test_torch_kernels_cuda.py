@@ -28,13 +28,11 @@ from sage2_tpu_torch.kmer.count import count_kmers
 from sage2_tpu_torch.ops.bitpack import pack_read_words
 from sage2_tpu_torch.ops.sort import sort_by_pair
 from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
-from sage2_tpu_torch.overlap.detect import (
-    build_seed_rows,
-    join_geometry,
-    sorted_seed_rows,
-)
+from sage2_tpu_torch.overlap.detect import build_seed_rows, join_geometry
 from torch_kernel_cases import (
+    DEDUP_CASES,
     MARKS_READ_LEN,
+    REDUCE_CASES,
     SIGNED_CASES,
     UNSIGNED_CASES,
     VOTE_CASES,
@@ -42,6 +40,9 @@ from torch_kernel_cases import (
     lookup_case,
     marks_graph,
     oracle_lookup,
+    dedup_case,
+    reduce_case,
+    seed_case,
     slot_splits,
     vote_case,
 )
@@ -160,9 +161,8 @@ def test_lookup_counts_kernel_packed(cuda, span_bits, packed):
 def test_overlap_join_kernel(cuda, seed):
     r = _reads(seed=seed, err=0.002).to(cuda)
     geo = join_geometry(100, 40, 32)
-    keys, live, payload = build_seed_rows(
+    s_keys, s_rows, payload = build_seed_rows(
         r, torch.ones(r.shape[0], dtype=torch.bool, device=cuda), 32, geo)
-    s_keys, s_rows = sorted_seed_rows(keys, live, geo)
     args = (s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), geo.R, geo.g,
             geo.trim, 40)
     before = kernels.LAUNCHES["overlap_join"]
@@ -434,9 +434,8 @@ def _ragged_rows(cuda, min_overlap=40):
     r, lens = _ragged()
     rs = prepare_reads(r.to(cuda), lens.to(cuda))
     geo = join_geometry(r.shape[1], min_overlap, 32)
-    keys, live, payload = build_seed_rows(rs.reads2, rs.valid2, 32, geo,
-                                          rs.lengths2)
-    s_keys, s_rows = sorted_seed_rows(keys, live, geo)
+    s_keys, s_rows, payload = build_seed_rows(rs.reads2, rs.valid2, 32, geo,
+                                              rs.lengths2)
     return rs, (s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), geo.R,
                 geo.g, geo.trim, min_overlap)
 
@@ -633,3 +632,95 @@ def test_merge_runs_kernel_wraps(cuda):
     want = (runs.to(torch.int64) * (2**30 + 12345) + 2**31) % 2**32 - 2**31
     assert torch.equal(got[1].cpu().to(torch.int64), want)
     assert (want != runs.to(torch.int64) * (2**30 + 12345)).all()
+
+
+def _dedup_inputs(cuda, case):
+    """(reads, lengths) on the card: a case of torch_kernel_cases, or the
+    30 kbp reads ("sim"; "sim_ragged" the mixed-length ones) with copies
+    and reverse complements of some of them."""
+    if case.startswith("sim"):
+        r, lens = _ragged() if case == "sim_ragged" else (_reads(), None)
+        some = None if lens is None else lens[500:900]
+        rc = plain.canonical_reads(r[500:900], some, True)[0]
+        r = torch.cat([r, r[:500], rc])
+        if lens is not None:
+            lens = torch.cat([lens, lens[:500], some])
+    else:
+        r, lens = dedup_case(case)
+        r = torch.from_numpy(r)
+        lens = None if lens is None else torch.from_numpy(lens)
+    return r.to(cuda), None if lens is None else lens.to(cuda)
+
+
+@pytest.mark.parametrize("case", DEDUP_CASES + ("sim", "sim_ragged"))
+def test_dedup_reads_kernel(cuda, case):
+    r, lens = _dedup_inputs(cuda, case)
+    k8 = kernels.canonical_reads(r, lens)
+    L = r.shape[1]
+    n_keys = -(-(2 * L + (0 if lens is None else L.bit_length())) // 64)
+    before = kernels.LAUNCHES["dedup_reads"]
+    got = kernels.dedup_reads(r, lens, *k8)
+    assert kernels.LAUNCHES["dedup_reads"] == before + n_keys + 4
+    _equal(got[:4], plain.dedup_reads(r, lens, *k8)[:4])
+    if lens is not None:
+        _equal(got[4:], plain.dedup_reads(r, lens, *k8)[4:])
+    assert 0 < got[3] <= r.shape[0]
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("seed_len,min_overlap", [(32, 40), (12, 20)])
+@pytest.mark.parametrize("sim", [False, True])
+def test_seed_rows_kernel(cuda, sim, ragged, seed_len, min_overlap):
+    if sim:
+        r, lens = _ragged() if ragged else (_reads(), None)
+        valid = torch.ones(r.shape[0], dtype=torch.bool)
+        valid[::7] = False
+    else:
+        r, valid, lens = (None if a is None else torch.from_numpy(a)
+                          for a in seed_case(ragged))
+    r, valid = r.to(cuda), valid.to(cuda)
+    lens = None if lens is None else lens.to(cuda)
+    s = min(seed_len, min_overlap, 32)
+    geo = join_geometry(r.shape[1], min_overlap, s)
+    args = (r, valid, lens, s, geo.g, geo.n_pos, geo.trim)
+    before = kernels.LAUNCHES["seed_rows"]
+    got = kernels.seed_rows(*args)
+    assert kernels.LAUNCHES["seed_rows"] == before + 5
+    _equal(got, plain.seed_rows(*args))
+    assert got[0].numel() > 0
+
+
+def _join_candidates(cuda):
+    """(ok, cand_a, cand_b, ovl, M, L) of K3 on the 30 kbp reads."""
+    rs = prepare_reads(_reads(err=0.002).to(cuda))
+    geo = join_geometry(100, 40, 32)
+    s_keys, s_rows, payload = build_seed_rows(rs.reads2, rs.valid2, 32, geo)
+    ok, a, b, ovl, _ = kernels.overlap_join(
+        s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), geo.R, geo.g,
+        geo.trim, 40)
+    return ok, a, b, ovl, rs.reads2.shape[0], 100
+
+
+@pytest.mark.parametrize("case", REDUCE_CASES + ("join", "join_wide"))
+def test_longest_edges_kernel(cuda, case):
+    if case.startswith("join"):
+        ok, a, b, ovl, V, L = _join_candidates(cuda)
+        cap = ok.shape[0] + 777
+        if case == "join_wide":     # the same pairs at ids near 2^30
+            V += 1 << 30
+            a, b = a + (1 << 30), b + (1 << 30)
+    else:
+        ok, a, b, ovl, L, V, cap = reduce_case(case)
+        ok, a, b, ovl = (torch.from_numpy(x).to(cuda)
+                         for x in (ok, a, b, ovl))
+    db, ob = plain.edge_key_bits(V, L)
+    wide = 2 * db + ob > 63
+    assert wide == case.endswith("wide")
+    args = (ok, a, b, ovl, V, L, cap)
+    before = kernels.LAUNCHES["longest_edges"]
+    got = kernels.longest_edges(*args)
+    n_launches = kernels.LAUNCHES["longest_edges"] - before
+    assert n_launches == (5 if wide else 4)
+    _equal(got, plain.longest_edges(*args))
+    if case == "no_ok":
+        assert got[3] == 0 and bool((got[0] == 2**31 - 1).all())

@@ -1,6 +1,7 @@
-"""Inputs shared by the CPU and the CUDA tests of kernel K2
-(``kernels.lookup_counts``), made with numpy from a seed, and the
-geometry of its bucket directory (kernels/csrc/bucket_search.cuh).
+"""Inputs shared by the CPU and the CUDA tests of kernels K2
+(``kernels.lookup_counts``, with the geometry of its bucket directory,
+kernels/csrc/bucket_search.cuh), K5, K7 and K12-K14, made with numpy
+from a seed.
 
 Imports neither JAX nor sage2_tpu, so the CUDA tests can use it on a
 machine without JAX."""
@@ -261,3 +262,114 @@ def slot_splits(offsets: np.ndarray, src: np.ndarray, n_reads: int = 1500):
         "zero-run": [max(before - 3, 0), after + 3, total],
         "every-1000": list(range(1000, total, 1000)) + [total],
     }
+
+
+# K12 (the dedup): equal reads, a read equal to another's reverse
+# complement, reverse palindromes, one read, poly-T reads; ragged reads
+# whose words agree and whose lengths differ, and a width whose key
+# string ends inside its last word
+DEDUP_CASES = ("all_equal", "rc_of_another", "palindromes", "single",
+               "poly_t", "ragged_poly_t", "ragged_same_words", "ragged_wide")
+# K14 (the longest overlap per pair)
+REDUCE_CASES = ("periodic", "no_ok", "all_ok", "capacity", "wide")
+
+
+def _rc(row, n):
+    """Reverse complement of the first n codes, zero-padded to len(row)."""
+    out = np.zeros_like(row)
+    out[:n] = (3 - row[:n])[::-1]
+    return out
+
+
+def dedup_case(case: str, seed: int = 5):
+    """(reads (N, L) int32, lengths (N,) int32 or None) of a dedup case."""
+    rng = np.random.default_rng(seed)
+    L = 40
+    rand = rng.integers(0, 4, (12, L), dtype=np.int32)
+    if case == "all_equal":
+        return np.repeat(rand[:1], 9, axis=0), None
+    if case == "rc_of_another":
+        return np.concatenate([rand, _rc(rand[3], L)[None],
+                               _rc(rand[7], L)[None]]), None
+    if case == "palindromes":
+        half = rng.integers(0, 4, (4, L // 2), dtype=np.int32)
+        pal = np.concatenate([half, (3 - half)[:, ::-1]], axis=1)
+        return np.concatenate([pal, pal[:2], rand[:4]]), None
+    if case == "single":
+        return rand[:1], None
+    if case == "poly_t":
+        return np.concatenate([np.full((2, L), 3, np.int32),
+                               np.zeros((1, L), np.int32), rand[:5]]), None
+    lens = rng.integers(20, L + 1, 12).astype(np.int32)
+    if case == "ragged_poly_t":
+        reads = np.concatenate([np.full((3, L), 3, np.int32), rand[:5]])
+        lens = np.concatenate([[L, 30, 30], lens[:5]]).astype(np.int32)
+    elif case == "ragged_same_words":
+        # reads ending in A cut by up to three bases: the same packed
+        # words, told apart by the length alone; and their copies
+        ends_a = rand.copy()
+        ends_a[:, 30:] = 0
+        reads = np.concatenate([ends_a[:4], ends_a[:4], ends_a[:4], rand])
+        lens = np.concatenate([[33, 34, 35, 40], [32, 34, 31, 40],
+                               [33, 34, 35, 40], lens]).astype(np.int32)
+    else:                               # a width whose key string ends
+        L = 159                         # inside word 10: 6 keys with lengths
+        base = rng.integers(0, 4, (6, L), dtype=np.int32)
+        reads = np.concatenate([base, base[:3], rng.integers(
+            0, 4, (3, L), dtype=np.int32)])
+        reads[6:9, 150:] = rng.integers(0, 4, (3, 9))
+        lens = np.array([159, 158, 150, 159, 100, 80, 159, 158, 150, 159, 40,
+                         1], np.int32)
+        reads = np.concatenate([reads, _rc(reads[0], 159)[None],
+                                _rc(reads[1], 158)[None]])
+        lens = np.concatenate([lens, [159, 158]]).astype(np.int32)
+    # codes past a read's length are not part of it
+    past = np.arange(reads.shape[1])[None, :] >= lens[:, None]
+    reads = np.where(past, rng.integers(0, 4, reads.shape), reads)
+    return reads.astype(np.int32), lens
+
+
+def seed_case(ragged: bool, seed: int = 9, L: int = 60, M: int = 10):
+    """(reads (M, L) int32, valid (M,) bool, lengths or None) of a seed-row
+    case: a poly-T read, two equal reads, two invalid ones."""
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, 4, (M, L), dtype=np.int32)
+    reads[2] = 3                        # poly-T: all-ones seed keys
+    reads[3] = reads[1]                 # equal keys across reads
+    valid = np.ones(M, bool)
+    valid[[4, 8]] = False
+    lens = None
+    if ragged:
+        lens = rng.integers(30, L + 1, M).astype(np.int32)
+        lens[2] = L
+        reads[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return reads, valid, lens
+
+
+def reduce_case(case: str, seed: int = 13):
+    """(ok, cand_a, cand_b, cand_ovl, read_len, n_vertices, capacity) of a
+    K14 case (numpy)."""
+    rng = np.random.default_rng(seed)
+    L, V, n = 100, 64, 400
+    a = rng.integers(0, V, n)
+    b = rng.integers(0, V, n)
+    ovl = rng.integers(40, L, n)
+    ok = rng.random(n) < 0.6
+    cap = n
+    if case == "periodic":      # pairs verified at several overlaps
+        a[:60], b[:60] = 5, 9
+        a[60:90], b[60:90] = 7, 2
+        ok[:90] = True
+    elif case == "no_ok":
+        ok[:] = False
+    elif case == "all_ok":
+        ok[:] = True
+    elif case == "capacity":
+        cap = n + 1000
+    elif case == "wide":        # 2 db + ob > 63: the two-sort order
+        V = (1 << 30) + 7
+        a = rng.integers(V - 50, V, n)
+        b = rng.integers(V - 50, V, n)
+        a[:40], b[:40] = V - 1, V - 2
+    return (ok, a.astype(np.int32), b.astype(np.int32), ovl.astype(np.int32),
+            L, V, cap)
