@@ -6,7 +6,7 @@
 Phases (one flushed line each, with its seconds):
 
   0  the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1  build the fifteen CUDA kernels (nvcc, sm_90a, one process per
+  1  build the nineteen CUDA kernels (nvcc, sm_90a, one process per
      source, all at once) and the host libraries;
   3  the overlap join at the bench's shard 0 (100,000 reads x 100 bp,
      genome 222,222 bp, seeds 7/8, min_overlap 40, seed 32): asserts the
@@ -46,16 +46,23 @@ Phases (one flushed line each, with its seconds):
      the spilled native reduction), 10b the voting corrector and the
      device reduction with --entry-block-reads 3,000,000 (2 entry
      blocks: the block-nested join), no artifacts; 10a's contigs and
-     stats asserted equal to phase 4's, 10b's to phase 5's. Phases 4,
-     5, 10a and 10b each print their peak device memory
-     (torch.cuda.max_memory_allocated after a reset);
+     stats asserted equal to phase 4's, 10b's to phase 5's; 10c phase
+     8's ragged reads streamed alike with a spill dir and artifacts (one
+     entry slab of K13 rows, 3 query chunks of 2 M reads2 joined by K3
+     with lengths), 10d the same reads with the voting corrector, the
+     device reduction and 3,000,000-read entry blocks (2 slabs), no
+     spill; 10c's contigs and stats asserted equal to 8a's, 10d's to
+     8b's. Phases 4, 5, 10a-10d each print their peak device memory
+     (torch.cuda.max_memory_allocated after a reset), 10a-10d the host
+     split of their streamed dedup (K8's words, the host sort and
+     grouping, the representative rows);
   2  (the card's clocks, power, temperature and throttle reasons
      printed before and after it) each kernel against its plain
      PyTorch version on the inputs that
      its path's run gave it (captured during that run, so phase 2 comes
      last): one row for each kernel of each path (PATHS), "name" on its
      first path and "name:<path>" on every other (phases 4, 5, 7, 8a,
-     8b, 10a, 10b; not 3, 6 or 9). A row takes the path's call with the
+     8b, 10a-10d; not 3, 6 or 9). A row takes the path's call with the
      most input elements (for reduce_marks the largest slot range;
      pointer_jump once for each of its ops none/min/add; gather_along
      once per probe shape; the kernels with a ragged branch as
@@ -76,8 +83,15 @@ Phases (one flushed line each, with its seconds):
      one (torch.searchsorted beside K2 and beside K9's bucket table,
      torch.gather beside P1, torch.unique_consecutive beside K11,
      torch.unique(dim=0) of the canonical words (the length first for
-     ragged reads) beside K12; for K4
-     none the path's `steps` chained index_select(p, 0, p)). A K4 row
+     ragged reads) beside K12, torch.masked_select of the keys and
+     the counts beside K15; for K4
+     none the path's `steps` chained index_select(p, 0, p)). A K2 row
+     takes the pruned table of its path's K16 row and the canonical keys
+     of that row's reads (K1, in phase 2): K16 makes those lookups inside
+     its own launch now, and the path launches K2 only for the bucket
+     directory that K16 and K17 share: a K2 row's "launches" are that
+     directory's, printed as such, and its search is timed on inputs
+     the path never gave it. A K4 row
      times one whole doubling loop (one launch) and prints its time a
      step beside one index_select a step and the cost of one grid
      barrier (the loop on 4 vertices, less one step, over steps - 1);
@@ -86,11 +100,16 @@ Phases (one flushed line each, with its seconds):
      count_from_keys makes after the kernel.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after it: phase 4 for K1-K4, K8 and K11-K14, phase 5 for K5-K7
-and K12-K14, phase 7 for P1, phases 8a and 8b for the ragged path (K12
-to K14 too), 10a and 10b for the streamed path (K9-K11 with K1, K2, K8,
-K4 and K14, and with K5-K7). Every kernel of a path (PATHS) must have
-launched on it, and on 8a/8b K3, K5, K6, K7, K8, K12 and K13 with their
+just after it: phase 4 for K1-K4, K8 and K11-K18, phase 5 for K5-K7,
+K12-K15 and K18, phase 7 for P1, phases 8a and 8b for the ragged path
+(K12 to K18 too), 10a and 10b for the streamed path (K9-K11 with K1,
+K2, K8, K4, K14, K15 and K18, and K16-K17 or K5-K7), 10c and 10d for
+the streamed ragged path (K13 and K3 in their streamed mode: the
+":entries", ":queries" and ":streamed" keys; K1, K2, K4, K8 and K11 on
+ragged chunks, K14 a query chunk, K15-K18, and K5-K7 with lengths on
+10d). Every kernel of a path (PATHS) must have launched on it, and is
+held against its plain version on that path's own inputs; on 8a/8b,
+10c and 10d K3, K5, K6, K7, K8, K12, K13 and K16 launch with their
 lengths pointers (the ":ragged" keys). pointer_jump's
 counts are split by op: one launch a doubling loop, so 2 none, 1 min
 and 1 add a unitig contraction (asserted); K11 one launch a call
@@ -196,30 +215,65 @@ KERNEL_INFO = {
                          "sage2_tpu/overlap/detect.py:642", "8a"),
     "longest_edges": (_CSRC + "longest_edges.cu",
                       "sage2_tpu/overlap/detect.py:1015", "4"),
+    "prune_table": (_CSRC + "prune_table.cu",
+                    "sage2_tpu/kmer/correct.py:246", "4"),
+    "weak_windows": (_CSRC + "weak_windows.cu",
+                     "sage2_tpu/kmer/correct.py:270", "4"),
+    "weak_windows:ragged": (_CSRC + "weak_windows.cu",
+                            "sage2_tpu/kmer/correct.py:270", "8a"),
+    "fix_windows": (_CSRC + "fix_windows.cu",
+                    "sage2_tpu/kmer/correct.py:293", "4"),
+    "chain_links": (_CSRC + "chain_links.cu",
+                    "sage2_tpu/graph/traverse.py:40", "4"),
+    "chain_links:cut": (_CSRC + "chain_links.cu",
+                        "sage2_tpu/graph/traverse.py:96", "4"),
+    "seed_rows:entries": (_CSRC + "seed_rows.cu", "sage2_tpu/stream.py:835",
+                          "10c"),
+    "seed_rows:queries": (_CSRC + "seed_rows.cu", "sage2_tpu/stream.py:847",
+                          "10c"),
+    "overlap_join:streamed": (_CSRC + "overlap_join.cu",
+                              "sage2_tpu/stream.py:847", "10c"),
 }
 for _n, _w, _a in PROBE_SHAPES:
     KERNEL_INFO[f"gather_along:{_a}:{_n}x{_w}"] = (
         _CSRC + "gather_along.cu", "scripts/probe_pallas_gather.py:73", "7")
 
 _JUMPS = ["pointer_jump:none", "pointer_jump:min", "pointer_jump:add"]
+_CHAIN = ["chain_links", "chain_links:cut"]
+# the two-phase corrector: K2's directory, K15 (also pruned for K5), K16
+# and K17
+_TWOPHASE = ["lookup_counts", "prune_table", "weak_windows", "fix_windows"]
 # the keys that must launch on each path
 _STREAMED = ["seed_table", "probe_join", "merge_runs", "merge_runs:weighted",
-             "canonical_reads", "kmer_keys", "longest_edges", *_JUMPS]
+             "canonical_reads", "kmer_keys", "longest_edges", "prune_table",
+             *_JUMPS, *_CHAIN]
+_STREAMED_RAGGED = ["seed_rows:entries", "seed_rows:queries",
+                    "overlap_join:streamed", "merge_runs",
+                    "merge_runs:weighted", "canonical_reads:ragged",
+                    "kmer_keys", "longest_edges", "prune_table", *_JUMPS,
+                    *_CHAIN]
 _DEDUP_JOIN = ["dedup_reads", "seed_rows", "longest_edges"]
 _RAGGED_DEDUP_JOIN = ["dedup_reads:ragged", "seed_rows:ragged",
                       "longest_edges"]
 PATHS = {
-    "4": ["kmer_keys", "lookup_counts", "canonical_reads", "overlap_join",
-          "merge_runs", *_JUMPS, *_DEDUP_JOIN],
-    "5": ["vote_windows", "reduce_counts", "reduce_marks", *_DEDUP_JOIN],
+    "4": ["kmer_keys", *_TWOPHASE, "canonical_reads", "overlap_join",
+          "merge_runs", *_JUMPS, *_DEDUP_JOIN, *_CHAIN],
+    "5": ["vote_windows", "reduce_counts", "reduce_marks", "prune_table",
+          *_DEDUP_JOIN, *_CHAIN],
     "7": [k for k in KERNEL_INFO if k.startswith("gather_along")],
-    "8a": ["kmer_keys", "lookup_counts", "canonical_reads:ragged",
-           "overlap_join:ragged", *_JUMPS, *_RAGGED_DEDUP_JOIN],
-    "8b": ["kmer_keys", "vote_windows:ragged", "canonical_reads:ragged",
-           "overlap_join:ragged", "reduce_counts:ragged",
-           "reduce_marks:ragged", *_JUMPS, *_RAGGED_DEDUP_JOIN],
-    "10a": [*_STREAMED, "lookup_counts"],
+    "8a": ["kmer_keys", "lookup_counts", "prune_table",
+           "weak_windows:ragged", "fix_windows", "canonical_reads:ragged",
+           "overlap_join:ragged", *_JUMPS, *_RAGGED_DEDUP_JOIN, *_CHAIN],
+    "8b": ["kmer_keys", "vote_windows:ragged", "prune_table",
+           "canonical_reads:ragged", "overlap_join:ragged",
+           "reduce_counts:ragged", "reduce_marks:ragged", *_JUMPS,
+           *_RAGGED_DEDUP_JOIN, *_CHAIN],
+    "10a": [*_STREAMED, "lookup_counts", "weak_windows", "fix_windows"],
     "10b": [*_STREAMED, "vote_windows", "reduce_counts", "reduce_marks"],
+    "10c": [*_STREAMED_RAGGED, "lookup_counts", "weak_windows:ragged",
+            "fix_windows"],
+    "10d": [*_STREAMED_RAGGED, "vote_windows:ragged", "reduce_counts:ragged",
+            "reduce_marks:ragged"],
 }
 # every kernel of a path is held against its plain version at that
 # path's shapes: a second row "<key>:<path>" where its first row comes
@@ -294,7 +348,15 @@ class RawDeviceCopies:
     current stream; ``free`` releases the memory (cudaFree waits for the
     device). A large int32 tensor whose values all lie in [0, 255] (read
     codes, overlap lengths) is kept as uint8: ``copy`` converts it on the
-    copy, ``Capture.inputs`` widens it back."""
+    copy, ``Capture.inputs`` widens it back. A large 1-D tensor that ends
+    in a run of one value (the padding rows of an edge list) is kept
+    without the run, which ``Capture.inputs`` appends again. Past
+    DEVICE_BUDGET bytes the copies go to host memory instead (their
+    handle is None), so that phase 2 keeps room on the card for its
+    plain versions; ``Capture.inputs`` brings them back."""
+
+    DEVICE_BUDGET = 48 << 30
+    TAIL_MIN = 1 << 20          # elements: the shortest tail cut off
 
     _TYPESTR = {"int8": "|i1", "uint8": "|u1", "bool": "|b1",
                 "int32": "<i4", "int64": "<i8"}
@@ -312,19 +374,34 @@ class RawDeviceCopies:
                                   ctypes.c_size_t]
         rt.cudaFree.argtypes = [ctypes.c_void_p]
         self.ctypes, self.rt = ctypes, rt
-        self.kept = 0           # bytes copied so far
+        self.kept = 0           # bytes held on the card
+        self.kept_host = 0      # bytes copied to the host
+        self.sizes = {}         # bytes of each raw copy
 
     def copy(self, t):
-        """(a tensor viewing the raw copy of ``t``, its handle)."""
+        """(a tensor viewing the raw copy of ``t``, its handle, and the
+        (length, value) of the run cut from its end, or None)."""
         import torch
 
+        tail = None
+        if t.dim() == 1 and t.numel() >= self.TAIL_MIN:
+            differs = (t != t[-1]).flip(0).to(torch.uint8)
+            n = t.numel() - (int(torch.argmax(differs)) if int(
+                differs.max()) else t.numel())
+            if t.numel() - n >= self.TAIL_MIN:
+                tail = (t.numel() - n, t[-1].item())
+                t = t[:n]
+            del differs
         dtype = t.dtype
         if dtype == torch.int32 and t.numel() >= 1 << 20:
             lo, hi = (int(x) for x in torch.aminmax(t))
             if 0 <= lo and hi <= 255:
                 dtype = torch.uint8
-        ptr = self.ctypes.c_void_p()
         size = max(1, t.numel() * dtype.itemsize)
+        if self.kept + size > self.DEVICE_BUDGET:
+            self.kept_host += size
+            return t.to("cpu", dtype), None, tail
+        ptr = self.ctypes.c_void_p()
         rc = self.rt.cudaMalloc(self.ctypes.byref(ptr), size)
         if rc != 0:     # PyTorch's cache may hold the memory: release it
             self.rt.cudaGetLastError()
@@ -341,10 +418,12 @@ class RawDeviceCopies:
             raise RuntimeError("torch.as_tensor copied the raw buffer")
         out.copy_(t)
         self.kept += size
-        return out, ptr.value
+        self.sizes[ptr.value] = size
+        return out, ptr.value, tail
 
     def free(self, handle) -> None:
         self.rt.cudaFree(self.ctypes.c_void_p(handle))
+        self.kept -= self.sizes.pop(handle)
 
 
 class Capture:
@@ -357,25 +436,33 @@ class Capture:
     ordinary tensors. It splits the wrappers' own launch counts
     (``kernels.LAUNCHES``) by key."""
 
+    # wrappers outside KERNELS, and the kernel whose launches they count
+    EXTRA = {"lookup_directory": "lookup_counts", "chain_cut": "chain_links"}
+
     def __init__(self, kernels):
         self.kernels = kernels
-        self.originals = {n: getattr(kernels, n) for n in kernels.KERNELS}
+        self.originals = {n: getattr(kernels, n)
+                          for n in (*kernels.KERNELS, *self.EXTRA)}
         self.copies = RawDeviceCopies()
         self.args: dict = {}
         self.phase = None
+        self.depth = 0          # wrapped calls in progress
         self.entry_base = 0     # the first read of the last seed table
         self.launches = {base_key(row): 0 for row in KERNEL_INFO}
         self.calls = dict.fromkeys(self.launches, 0)    # non-empty ones
-        for name, fn in self.originals.items():
-            setattr(kernels, name, self._wrap(name, fn))
+        for attr, fn in self.originals.items():
+            setattr(kernels, attr, self._wrap(attr, fn))
 
-    def _wrap(self, name, fn):
+    def _wrap(self, attr, fn):
         import torch
+
+        name = self.EXTRA.get(attr, attr)
 
         # where each kernel with a ragged branch takes its lengths, and
         # K11 its weights: a call given one gets the key suffix
         branch_at = {"canonical_reads": (1, "ragged"),
                      "dedup_reads": (1, "ragged"),
+                     "weak_windows": (1, "ragged"),
                      "seed_rows": (2, "ragged"),
                      "overlap_join": (7, "ragged"),
                      "vote_windows": (5, "ragged"),
@@ -384,6 +471,17 @@ class Capture:
                      "merge_runs": (1, "weighted")}
 
         def call(*args, **kw):
+            # a wrapper called by another (K2's and K5's directory) is
+            # counted and kept as part of the outer call
+            if self.depth:
+                return fn(*args, **kw)
+            self.depth += 1
+            try:
+                return counted(*args, **kw)
+            finally:
+                self.depth -= 1
+
+        def counted(*args, **kw):
             # keyword arguments (a stage's DeviceSplit) are not kept
             key = name
             size = sum(a.numel() for a in args
@@ -394,6 +492,13 @@ class Capture:
                 key = f"{name}:{args[2]}:{args[0].shape[0]}x{args[0].shape[1]}"
             elif name == "reduce_marks":
                 size += args[-1] - args[-2]      # the slot range
+            elif attr == "chain_cut":
+                key = "chain_links:cut"
+            elif name == "seed_rows" and len(args) > 8 and args[8] != "all":
+                key = f"{name}:{args[8]}"        # the streamed join's rows
+            elif name == "overlap_join" and len(args) > 9 and isinstance(
+                    args[9], torch.Tensor):
+                key = f"{name}:streamed"         # an entry slab's payload
             # the streamed join's rows prefer a later entry block (a
             # table and slab of global ids from base > 0) and a query
             # chunk after the first, then the most input elements
@@ -405,20 +510,24 @@ class Capture:
                 rank = (self.entry_base > 0,
                         (args[8] if len(args) > 8 else 0) > 0, size)
             at, suffix = branch_at.get(name, (None, None))
-            if at is not None and len(args) > at and isinstance(
-                    args[at], torch.Tensor):
+            if key == name and at is not None and len(args) > at and (
+                    isinstance(args[at], torch.Tensor)):
                 key += ":" + suffix
             row = (key if KERNEL_INFO[key][2] == self.phase
                    else f"{key}:{self.phase}")
             kept = self.args.get(row)
-            keep = row in KERNEL_INFO and (kept is None or rank > kept[0])
+            # the directory alone is no K2 call: its launch counts, and the
+            # K2 row takes other inputs (see phase 2)
+            keep = row in KERNEL_INFO and attr != "lookup_directory" and (
+                kept is None or rank > kept[0])
             if keep:        # copied before the call: some update in place
                 self._drop(row)
                 copies = [self.copies.copy(a) if isinstance(
-                    a, torch.Tensor) else (a, None) for a in args]
+                    a, torch.Tensor) else (a, None, None) for a in args]
                 kept = [c[0] for c in copies]
                 handles = [c[1] for c in copies if c[1] is not None]
-                dtypes = [getattr(a, "dtype", None) for a in args]
+                dtypes = [(getattr(a, "dtype", None), c[2])
+                          for a, c in zip(args, copies)]
             before = self.kernels.LAUNCHES[name]
             out = fn(*args, **kw)
             self.launches[key] += self.kernels.LAUNCHES[name] - before
@@ -440,13 +549,25 @@ class Capture:
     def inputs(self, row: str) -> tuple:
         """The kept arguments of ``row`` as tensors of PyTorch's own (the
         raw copies are freed)."""
+        args = self.peek(row)
+        self._drop(row)
+        return args
+
+    def peek(self, row: str) -> tuple:
+        """The kept arguments of ``row`` as tensors of PyTorch's own; the
+        raw copies stay."""
         import torch
 
         _, kept, _, dtypes = self.args[row]
-        args = tuple(a.to(dtype, copy=True) if isinstance(a, torch.Tensor)
-                     else a for a, dtype in zip(kept, dtypes))
-        self._drop(row)
-        return args
+        out = []
+        for a, (dtype, tail) in zip(kept, dtypes):
+            if isinstance(a, torch.Tensor):
+                a = a.to("cuda", dtype, copy=True)
+                if tail is not None:
+                    a = torch.cat([a, torch.full((tail[0],), tail[1],
+                                                 dtype=dtype, device="cuda")])
+            out.append(a)
+        return tuple(out)
 
     def reset_launch_counts(self, phase: str) -> None:
         """Counts to 0, for the path of ``phase``; PyTorch's cached
@@ -484,8 +605,8 @@ class Capture:
         return dict(self.launches)
 
     def close(self) -> None:
-        for name, fn in self.originals.items():
-            setattr(self.kernels, name, fn)
+        for attr, fn in self.originals.items():
+            setattr(self.kernels, attr, fn)
 
 
 def work(key: str, args: tuple, total=0):
@@ -508,10 +629,12 @@ def work(key: str, args: tuple, total=0):
     if name == "overlap_join":
         s_keys, s_rows, payload = args[:3]
         contained = args[7] if len(args) > 7 else None
+        entries = args[9] if len(args) > 9 else None   # a streamed slab's
         W = payload.shape[1]
         n = s_keys.numel()
         marks = 0 if contained is None else contained.numel()
-        return (n * 12 + payload.numel() * 4 + total * 13 + marks,
+        pay = payload.numel() + (0 if entries is None else entries.numel())
+        return (n * 12 + pay * 4 + total * 13 + marks,
                 n * 8 + total * (6 * (W - 2) + 22))
     if key.startswith("pointer_jump"):
         p, val, op, steps = args
@@ -583,17 +706,57 @@ def work(key: str, args: tuple, total=0):
                 + N * (L * 4 + 8) + lens,
                 N * n_keys * max(1, math.ceil(math.log2(N))) * 2)
     if name == "seed_rows":
-        reads2, valid2, lengths, s, g, n_pos, trim = args
+        reads2, valid2, lengths, s, g, n_pos, trim = args[:7]
+        rows = args[8] if len(args) > 8 else "all"
+        prior = args[9] if len(args) > 9 else None
         M, L = reads2.shape
-        n = M * (g + n_pos)
+        Rw = {"all": g + n_pos, "entries": g, "queries": n_pos}[rows]
+        n = M * Rw
+        n_prior = 0 if prior is None else prior.numel()
         Wt = -(-(L - g) // 16) - trim
-        # codes, flags and lengths in; every row's payload and the live
-        # rows' keys and ids out; two shifts and an or a payload word,
-        # and the sort's comparisons of the live keys
+        sorted_rows = 0 if rows == "entries" else total
+        # codes, flags and lengths (and a slab's keys and ids) in; every
+        # built row's payload and the live rows' keys and ids out; two
+        # shifts and an or a payload word, and the sort's comparisons of
+        # the live keys (none for an unsorted slab)
         return (reads2.numel() * 4 + M + (0 if lengths is None else M * 4)
-                + n * (Wt + 2) * 4 + total * 12,
-                n * (Wt + 4) * 3
-                + total * max(1, math.ceil(math.log2(total + 1))) * 2)
+                + n_prior * 12 + n * (Wt + 2) * 4 + total * 12,
+                n * (Wt + 4) * 3 + sorted_rows
+                * max(1, math.ceil(math.log2(sorted_rows + 1))) * 2)
+    if name == "prune_table":
+        keys, counts = args[:2]
+        T = keys.numel()
+        # the table in, the kept entries out; a compare a count
+        return T * 12 + total * 12, T * 2
+    if name == "weak_windows":
+        reads, lengths, table = args[:3]
+        k = args[5]
+        N, L = reads.shape
+        n_windows = N * (L - k + 1)
+        # codes, lengths and the table (keys and counts) in, the weak
+        # windows' indices out; a lookup of every window's canonical key
+        return (reads.numel() * 4 + (0 if lengths is None else N * 4)
+                + table.numel() * 12 + total * 8,
+                n_windows * (LOOKUP_OPS + 2 * k))
+    if name == "fix_windows":
+        reads, widx, table = args[:3]
+        k = args[5]
+        # codes and the table in, the indices in, the copy out; the 4
+        # variant lookups of each weak window
+        return (reads.numel() * 8 + widx.numel() * 8 + table.numel() * 12,
+                widx.numel() * (4 * LOOKUP_OPS + 3 * k))
+    if key.startswith("chain_links"):
+        if key == "chain_links:cut":
+            p = args[0]
+            # p, pf, m in; p' and d0 out (the few breakers' edits aside)
+            return p.numel() * 20, p.numel() * 6
+        src, V = args[0], args[3]
+        n_real = int((src != 2**31 - 1).sum())
+        # the edge rows' src in (a padding row needs no more), a real
+        # edge's dst and ovl; degrees, links and parents out; 2 atomics
+        # and 3 stores an edge, the masks a vertex
+        return (src.numel() * 4 + n_real * 8 + V * 20,
+                src.numel() + n_real * 6 + V * 10)
     if name == "longest_edges":
         ok, capacity = args[0], args[6]
         n = ok.numel()
@@ -948,8 +1111,8 @@ def main() -> int:
                         stats, genome, genome_fraction)
         say(f"  n_contained={n_contained[0]} ragged_launches="
             f"{json.dumps(ragged_launches)}")
+        incore[label] = (contigs, stats)
         del contigs, stats
-    del ragged, lengths
 
     # --- phase 9: ragged device reduction against the native one --------
     t0 = time.perf_counter()
@@ -981,25 +1144,31 @@ def main() -> int:
     del nat, dev_red, edges, reduce_input
 
     # --- phase 10: streamed beyond device memory ------------------------
-    streamed = (
-        ("10a", AssemblyConfig(max_device_reads=STREAM_CHUNK), "4"),
-        ("10b", AssemblyConfig(correction_rule="vote_all_windows",
-                               reduce_backend="device",
-                               max_device_reads=STREAM_CHUNK,
-                               entry_block_reads=ENTRY_BLOCK), "5"),
-    )
-    for label, cfg, twin in streamed:
+    # (label, config, the in-core twin, reads, lengths); 10a and 10c with
+    # a spill dir and artifacts
+    default = AssemblyConfig(max_device_reads=STREAM_CHUNK)
+    voting = AssemblyConfig(correction_rule="vote_all_windows",
+                            reduce_backend="device",
+                            max_device_reads=STREAM_CHUNK,
+                            entry_block_reads=ENTRY_BLOCK)
+    streamed = (("10a", default, "4", reads, None),
+                ("10b", voting, "5", reads, None),
+                ("10c", default, "8a", ragged, lengths),
+                ("10d", voting, "8b", ragged, lengths))
+    for label, cfg, twin, stream_reads, stream_lengths in streamed:
         t0 = time.perf_counter()
         log = MetricsLog(None, echo=False)
+        spill = label in ("10a", "10c")
         with tempfile.TemporaryDirectory() as tmp:
-            if label == "10a":
+            if spill:
                 cfg = dataclasses.replace(
                     cfg, spill_dir=os.path.join(tmp, "spill"))
             torch.cuda.reset_peak_memory_stats()
             capture.reset_launch_counts(label)
             contigs, stats = assemble(
-                reads, cfg, outdir=os.path.join(tmp, "out") if
-                label == "10a" else None, metrics=log, device="cuda")
+                stream_reads, cfg, outdir=os.path.join(tmp, "out") if
+                spill else None, metrics=log, device="cuda",
+                lengths=stream_lengths)
             launches = dict(kernels.LAUNCHES)
             launches_by_key[label] = capture.path_launches(label)
             t_asm = time.perf_counter() - t0
@@ -1016,31 +1185,44 @@ def main() -> int:
                                  f"from phase {twin}'s in-core one")
         chunks = [r for r in log.records if r["stage"] == "streaming"]
         retries = [r for r in log.records if r["stage"] == "overlap_retry"]
+        contained = [r["n_contained"] for r in log.records
+                     if r["stage"] == "containment"]
         say(f"  equal to phase {twin}: contigs and stats; streaming "
             f"{json.dumps(chunks[0]['chunk_reads'])} reads a chunk, "
-            f"overlap retries {len(retries)}, spill files {spilled}")
+            f"overlap retries {len(retries)}, spill files {spilled}"
+            + (f", n_contained {contained[0]}" if contained else ""))
         del contigs, stats
+    del ragged, lengths
     capture.close()
     say("peak device memory (GiB, max_memory_allocated): "
         + json.dumps(peaks) + f"; kernel inputs kept for phase 2: "
-        f"{capture.copies.kept / 2**30:.3f} GiB")
+        f"{capture.copies.kept / 2**30:.3f} GiB on the card, "
+        f"{capture.copies.kept_host / 2**30:.3f} GiB on the host")
     del incore
 
     # --- phase 2: each kernel against its plain version -----------------
     t0 = time.perf_counter()
     say(f"card before phase 2: {card_state()}")
     rows = []
-    for row, (source, replaces, path) in KERNEL_INFO.items():
+    # K2's rows first: they read their path's K16 row's inputs
+    order = sorted(KERNEL_INFO.items(), key=lambda item: not base_key(
+        item[0]).startswith("lookup_counts"))
+    for row, (source, replaces, path) in order:
         t1 = time.perf_counter()
         key = base_key(row)
         name = key.split(":")[0]
-        args = capture.inputs(row)          # freed after its row
-        wrapper = getattr(kernels, name)
-        ref = getattr(plain, name)
+        if name == "lookup_counts":
+            args = k2_inputs(capture, path)
+        else:
+            args = capture.inputs(row)      # freed after its row
+        fn = "chain_cut" if key == "chain_links:cut" else name
+        wrapper = getattr(kernels, fn)
+        ref = getattr(plain, fn)
 
-        # reduce_marks and overlap_join (its containment marks) update an
-        # argument in place: the kernel takes a copy of the inputs, the
-        # plain version the inputs themselves, and the two must end equal
+        # reduce_marks, overlap_join (its containment marks) and the cut
+        # (nxt, ovl_next) update an argument in place: the kernel takes a
+        # copy of the inputs, the plain version the inputs themselves, and
+        # the two must end equal
         a_got = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                       for a in args)
         a_want = args
@@ -1066,9 +1248,13 @@ def main() -> int:
             total = got[0].numel()
         elif name == "longest_edges":           # edges kept
             total = got[3]
+        elif name == "prune_table":             # entries kept
+            total = got[0].numel()
+        elif name == "weak_windows":            # weak windows
+            total = got.numel()
         else:
             total = 0
-        heavy = name == "vote_windows"
+        heavy = name in ("vote_windows", "weak_windows")
         ms = time_ms(lambda: wrapper(*args), reps=3 if heavy else 5)
         plain_ms = time_ms(lambda: ref(*args), reps=1 if heavy else 3)
         library_ms, library = library_time(key, args)
@@ -1087,6 +1273,8 @@ def main() -> int:
         shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         per_step = ""
         if name == "lookup_counts":         # K2's first launch alone
+            # the path's K2 launches are all directory launches
+            rows[-1]["launches_of"] = "bucket directory"
             rows[-1]["index_ms"] = time_ms(
                 lambda: kernels.lookup_directory(args[0], args[1]))
             per_step = (f", of which the bucket directory "
@@ -1139,13 +1327,25 @@ def main() -> int:
         say(f"  {row}: equal, {ms:.3f} ms (plain {plain_ms:.3f} ms"
             + (f", {library} {library_ms:.3f} ms" if library else "")
             + f"), bound {max(t_bytes, t_ops):.3f} ms, launches "
-            f"{n_launches} (phase {path}), inputs {shape}" + per_step
+            f"{n_launches}"
+            + (" (bucket directory only; the search is built from the "
+               "weak_windows row's inputs)" if name == "lookup_counts"
+               else "")
+            + f" (phase {path}), inputs {shape}" + per_step
             + (f", {total} candidates" if name in ("overlap_join",
                                                    "probe_join") else "")
             + ({"dedup_reads": f", {total} unique reads",
                 "seed_rows": f", {total} live rows",
-                "longest_edges": f", {total} edges"}.get(name, ""))
+                "longest_edges": f", {total} edges",
+                "prune_table": f", {total} solid entries",
+                "weak_windows": f", {total} weak windows"}.get(name, ""))
+            + (f", {args[1].numel()} weak windows" if name == "fix_windows"
+               else "")
             + f", check {time.perf_counter() - t1:.1f} s")
+        # the row's tensors go, and PyTorch's cache with them, before the
+        # next row's inputs come back
+        del args, a_got, a_want, got, want, unmarked
+        torch.cuda.empty_cache()
     say(f"card after phase 2: {card_state()}")
     phase("2 kernels vs plain", t0)
 
@@ -1189,12 +1389,14 @@ def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
     gf = genome_fraction(contigs, genome)
     phase(label, t0, assemble_s=f"{t_asm:.3f}", stages=json.dumps(stages),
           launches=json.dumps(launches))
-    # the device time of the parts of dedup and overlap (CUDA events)
+    # the parts of dedup and overlap: device time (CUDA events) in core,
+    # the host clock in the streamed dedup
     splits = {r["stage"]: {k: round(v, 3) for k, v in r.items()
                            if k.endswith("_ms")}
               for r in log.records if r["stage"].endswith("_split")}
     if splits:
-        say(f"  device split, ms: {json.dumps(splits)}")
+        say(f"  {'host' if '10' in label else 'device'} split, ms: "
+            f"{json.dumps(splits)}")
     say(f"assembly: n_contigs={stats['n_contigs']} n50={stats['n50']} "
         f"total_bases={stats['total_bases']} genome_fraction={gf:.6f} "
         f"(sage2_tpu reference on this input, default config, for comparison: "
@@ -1203,10 +1405,34 @@ def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
         raise AssertionError(f"{label}: genome_fraction {gf} < 0.99")
 
 
+def k2_inputs(capture, path: str) -> tuple:
+    """K2's row inputs on ``path``: the pruned table of the path's K16
+    row, and the canonical keys of that row's reads (K1). K16 looks every
+    window's canonical key up inside its own launch; the path launches
+    K2 only for the bucket directory of that table."""
+    from sage2_tpu_torch import kernels
+
+    weak = next(row for row, info in KERNEL_INFO.items()
+                if info[2] == path and base_key(row).startswith(
+                    "weak_windows"))
+    reads, _, table, counts, _, k, _ = capture.peek(weak)
+    return table, counts, kernels.kmer_keys(reads, k)[2]
+
+
 def library_time(key: str, args: tuple):
     """(ms, name) of one PyTorch call computing the kernel's function on
     the same inputs, or (None, None) where there is none."""
     import torch
+
+    if key == "prune_table":
+        keys, counts, threshold = args
+
+        def masked():
+            keep = counts >= threshold
+            return (torch.masked_select(keys, keep),
+                    torch.masked_select(counts, keep))
+
+        return time_ms(masked), "masked_select"
 
     if key == "lookup_counts":
         table, _, queries = args

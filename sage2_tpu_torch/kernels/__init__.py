@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
-Fifteen kernels (sources in ``kernels/csrc``):
+Nineteen kernels (sources in ``kernels/csrc``):
 
   K1 ``kmer_keys``      forward, RC and canonical k-mer keys
   K2 ``lookup_counts``  count of each query key in a count table: bucket
@@ -35,6 +35,17 @@ Fifteen kernels (sources in ``kernels/csrc``):
   K14 ``longest_edges`` longest overlap per (src, dst) of the join's
                         candidates, compacted and padded (launches around
                         one torch.sort, two for wide vertex ids)
+  K15 ``prune_table``   the solid entries of a sorted count table, in
+                        table order (count, scan, write)
+  K16 ``weak_windows``  flat indices of the weak windows of a correction
+                        sub-pass, keys rolled from the reads and looked up
+                        through K2's bucket directory (mask, scan, write)
+  K17 ``fix_windows``   the variant lookups, replacement rule and edits
+                        at the weak windows (one launch)
+  K18 ``chain_links``   degrees, single neighbours, chain links and the
+                        initial parents of unitig labeling (one
+                        cooperative launch); ``chain_cut`` the cycle cut
+                        after K4's first two loops (one launch)
   P1 ``gather_along``   gather along one axis of an (N, W) table (the
                         Pallas probe's kernel; on no path of the package)
 
@@ -43,7 +54,9 @@ tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 ``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
-``probe_join`` launch two per call, K12-K14 more). K12 and K13 take a
+``probe_join`` launch two per call, K12-K16 more; ``lookup_directory``,
+K2's first launch, builds the directory that K16 and K17 share, and
+``chain_cut`` counts as a ``chain_links`` launch). K12 and K13 take a
 ``split`` (utils.metrics.DeviceSplit) that marks the end of their sort
 and of their grouping or row build.
 
@@ -73,7 +86,8 @@ from sage2_tpu_torch.utils.metrics import mark_part
 KERNELS = ("kmer_keys", "lookup_counts", "overlap_join", "pointer_jump",
            "vote_windows", "reduce_counts", "reduce_marks", "canonical_reads",
            "seed_table", "probe_join", "merge_runs", "gather_along",
-           "dedup_reads", "seed_rows", "longest_edges")
+           "dedup_reads", "seed_rows", "longest_edges", "prune_table",
+           "weak_windows", "fix_windows", "chain_links")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -90,8 +104,9 @@ _ARGTYPES = {
     },
     "overlap_join": {
         "sage2_join_count": [_P, _P, _I64, _I, _I, _P, _P, _P],
-        "sage2_join_write": [_P, _P, _I, _I64, _P, _P, _P, _I, _I, _I,
-                             _I, _I64, _P, _P, _P, _P, _P, _P],
+        "sage2_join_write": [_P, _P, _I64, _I, _P, _I64, _I, _I, _I, _I64,
+                             _P, _P, _P, _I, _I, _I, _I, _I64, _P, _P, _P,
+                             _P, _P, _P],
     },
     "pointer_jump": {
         "sage2_pointer_jump": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
@@ -140,11 +155,12 @@ _ARGTYPES = {
                              _P, _P],
     },
     "seed_rows": {
-        "sage2_seed_rows": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P],
-        "sage2_seed_count": [_P, _I64, _I, _I, _P, _P],
+        "sage2_seed_rows": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P],
+        "sage2_seed_count": [_P, _I64, _I, _I, _I, _P, _P],
         "sage2_scan_tiles": [_P, _I64, _P, _P],
-        "sage2_seed_compact": [_P, _P, _I64, _I, _I, _P, _P, _P, _P],
+        "sage2_seed_compact": [_P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P,
+                               _P, _P],
         "sage2_seed_gather": [_P, _P, _I64, _P, _P],
     },
     "longest_edges": {
@@ -154,6 +170,26 @@ _ARGTYPES = {
         "sage2_scan_tiles": [_P, _I64, _P, _P],
         "sage2_edge_write": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P,
                              _I64, _P, _P, _P, _P],
+    },
+    "prune_table": {
+        "sage2_prune_count": [_P, _I64, _I, _P, _P],
+        "sage2_scan_tiles": [_P, _I64, _P, _P],
+        "sage2_prune_write": [_P, _P, _I64, _I, _P, _P, _P, _P],
+    },
+    "weak_windows": {
+        "sage2_weak_mask": [_P, _P, _I64, _I, _I, _P, _P, _I64, _P, _I, _P,
+                            _P, _P],
+        "sage2_scan_tiles": [_P, _I64, _P, _P],
+        "sage2_weak_write": [_P, _I64, _I, _P, _P, _P],
+    },
+    "fix_windows": {
+        "sage2_fix_windows": [_P, _I, _I, _P, _P, _I64, _P, _I, _I, _P,
+                              _I64, _P, _P],
+    },
+    "chain_links": {
+        "sage2_chain_links": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P],
+        "sage2_chain_cut": [_P, _P, _P, _I64, _P, _P, _P, _P, _P],
     },
 }
 
@@ -181,7 +217,9 @@ def nvcc_command() -> list:
 HEADERS = {"lookup_counts": ("bucket_search.cuh",),
            "vote_windows": ("bucket_search.cuh",),
            "dedup_reads": ("scan.cuh",), "seed_rows": ("scan.cuh",),
-           "longest_edges": ("scan.cuh",)}
+           "longest_edges": ("scan.cuh",), "prune_table": ("scan.cuh",),
+           "weak_windows": ("bucket_search.cuh", "scan.cuh"),
+           "fix_windows": ("bucket_search.cuh",)}
 
 
 def _specs():
@@ -339,6 +377,9 @@ def overlap_join(
     min_overlap: int,
     contained: Optional[torch.Tensor] = None,
     slot_limit: Union[int, Callable[[int], int], None] = None,
+    entry_payload: Optional[torch.Tensor] = None,
+    entry_base: int = 0,
+    query_base: int = 0,
 ):
     """(ok bool, cand_a, cand_b, ovl int32, total) over the sorted live
     seed rows: ``s_keys`` int64 and ``s_rows`` int32 row ids, sorted by
@@ -352,17 +393,34 @@ def overlap_join(
     ``contained``: None (fixed-length reads), or a (reads,) uint8
     tensor in which the write pass sets ``contained[b] = 1`` for each
     verified pair of those slots that holds read b whole (ragged
-    reads)."""
+    reads).
+
+    The streamed join's rows (global ids read * R + t) find their
+    payload in two arrays: ``entry_payload`` (an entry slab's rows, the
+    entry row t of read b at (b - entry_base) * g + t) and ``payload``
+    (one query chunk's rows, the query row t of read a at (a -
+    query_base) * (R - g) + t - g). Without ``entry_payload``
+    ``payload`` holds every row at its row id."""
     tensors = (s_keys, s_rows, payload) + (
-        () if contained is None else (contained,))
+        () if contained is None else (contained,)) + (
+        () if entry_payload is None else (entry_payload,))
     if _on_cpu(*tensors):
         return plain.overlap_join(s_keys, s_rows, payload, R, g, trim,
-                                  min_overlap, contained, slot_limit)
+                                  min_overlap, contained, slot_limit,
+                                  entry_payload, entry_base, query_base)
     _dtype(s_keys, torch.int64, "s_keys")
     _dtype(s_rows, torch.int32, "s_rows")
     _dtype(payload, torch.int32, "payload")
     if contained is not None:
         _dtype(contained, torch.uint8, "contained")
+    if entry_payload is None:       # one payload at the row ids
+        segments = (payload, 0, R, payload, 0, R, 0)
+    else:
+        _dtype(entry_payload, torch.int32, "entry_payload")
+        if entry_payload.shape[1] != payload.shape[1]:
+            raise ValueError("entry and query payload rows differ in width")
+        segments = (entry_payload, entry_base, g, payload, query_base, R - g,
+                    g)
     dev = s_keys.device
     n = s_keys.shape[0]
 
@@ -384,7 +442,9 @@ def overlap_join(
     starts = offsets - counts
     ok = empty(n_out, torch.bool)
     cand = [empty(n_out, torch.int32) for _ in range(3)]
-    _launch("overlap_join", "sage2_join_write", _ptr(s_rows), _ptr(payload),
+    ent, e_base, e_stride, qry, q_base, q_stride, q_off = segments
+    _launch("overlap_join", "sage2_join_write", _ptr(s_rows), _ptr(ent),
+            e_base, e_stride, _ptr(qry), q_base, q_stride, q_off,
             payload.shape[1], n, _ptr(counts), _ptr(ebase), _ptr(starts),
             R, g, trim, min_overlap, n_out, _ptr(ok), *map(_ptr, cand),
             _ptr(contained), _stream())
@@ -915,33 +975,54 @@ def dedup_reads(
 def seed_rows(
     reads2: torch.Tensor, valid2: torch.Tensor,
     lengths: Optional[torch.Tensor], s: int, g: int, n_pos: int, trim: int,
-    *, split=None,
+    id_base: int = 0, rows: str = "all",
+    prior_keys: Optional[torch.Tensor] = None,
+    prior_ids: Optional[torch.Tensor] = None, *, split=None,
 ):
-    """(s_keys int64, s_rows int32, payload (M, R, Wt + 2) int32): the
+    """(s_keys int64, s_rows int32, payload (M, Rw, Wt + 2) int32): the
     overlap join's seed rows of the (M, L) int32 ``reads2`` in its sort
-    order, and every row's payload (see plain.seed_rows). Kernel K13:
-    the keys, live flags and payload rows in one launch (one warp a
+    order, and the built rows' payload (see plain.seed_rows). Kernel
+    K13: the keys, live flags and payload rows in one launch (one warp a
     read, its words packed in shared memory), the live row ids and
     their keys compacted in the join's order (two passes around a scan
     of the tile counts), a stable torch.sort of the keys, and the row
     ids gathered through its permutation (see
-    kernels/csrc/seed_rows.cu). One host read a call (the live rows)."""
+    kernels/csrc/seed_rows.cu). One host read a call (the live rows).
+
+    ``rows``: "all" (Rw = R = g + n_pos rows a read), "entries" (Rw = g)
+    or "queries" (Rw = n_pos); ids are global, (id_base + m) * R + t.
+    With "entries" the live rows come back compacted in id order and
+    unsorted (four launches: the streamed join's entry slab); with
+    "queries", ``prior_keys``/``prior_ids`` (a slab's) go before the
+    chunk's live rows into the sort."""
     M, L = reads2.shape
     R = g + n_pos
+    if rows not in plain.SEED_ROW_KINDS:
+        raise ValueError(f"unknown seed rows {rows!r}")
+    if (prior_keys is None) != (prior_ids is None) or (
+            prior_keys is not None and rows != "queries"):
+        raise ValueError("prior_keys and prior_ids go together, with "
+                         "rows='queries'")
     for pos in plain.seed_positions(g, n_pos):
         if pos + s > L:
             raise ValueError(f"seed position {pos} + seed length {s} "
                              f"exceeds read length {L}")
-    if M * R >= (1 << 31) - 1:
-        raise ValueError(f"seed rows {M * R} overflow 31-bit row ids")
-    tensors = (reads2, valid2) + (() if lengths is None else (lengths,))
+    if (id_base + M) * R >= (1 << 31) - 1:
+        raise ValueError(f"seed rows {(id_base + M) * R} overflow 31-bit "
+                         f"row ids")
+    tensors = (reads2, valid2) + (() if lengths is None else (lengths,)) + (
+        () if prior_keys is None else (prior_keys, prior_ids))
     if _on_cpu(*tensors):
         return plain.seed_rows(reads2, valid2, lengths, s, g, n_pos, trim,
+                               id_base, rows, prior_keys, prior_ids,
                                split=split)
     _dtype(reads2, torch.int32, "reads2")
     _dtype(valid2, torch.bool, "valid2")
     if lengths is not None:
         _dtype(lengths, torch.int32, "lengths")
+    if prior_keys is not None:
+        _dtype(prior_keys, torch.int64, "prior_keys")
+        _dtype(prior_ids, torch.int32, "prior_ids")
     if not 1 <= s <= 32:
         raise ValueError(f"seed length {s} outside [1, 32]")
     W = -(-L // 16)
@@ -950,37 +1031,47 @@ def seed_rows(
                          f"than K13 takes")
     dev = reads2.device
     Wt = -(-(L - g) // 16) - trim
-    n = M * R
+    t0, Rw = plain.seed_row_span(rows, g, n_pos)
+    n = M * Rw
+    n_prior = 0 if prior_keys is None else prior_keys.shape[0]
     keys = torch.empty(n, dtype=torch.int64, device=dev)
     live = torch.empty(n, dtype=torch.uint8, device=dev)
-    payload = torch.empty((M, R, Wt + 2), dtype=torch.int32, device=dev)
-    if n == 0:
-        mark_part(split, "seed_rows")
-        mark_part(split, "row_sort")
-        return keys, torch.empty(0, dtype=torch.int32, device=dev), payload
-    _launch("seed_rows", "sage2_seed_rows", _ptr(reads2), _ptr(valid2),
-            _ptr(lengths), M, L, s, g, n_pos, trim, _ptr(keys), _ptr(live),
-            _ptr(payload), _stream())
-    LAUNCHES["seed_rows"] += 1
+    payload = torch.empty((M, Rw, Wt + 2), dtype=torch.int32, device=dev)
+    base = torch.empty(n_prior + n, dtype=torch.int32, device=dev)
+    ckeys = torch.empty(n_prior + n, dtype=torch.int64, device=dev)
+    if n_prior:
+        ckeys[:n_prior].copy_(prior_keys)
+        base[:n_prior].copy_(prior_ids)
+    n_live = 0
+    if n:
+        _launch("seed_rows", "sage2_seed_rows", _ptr(reads2), _ptr(valid2),
+                _ptr(lengths), M, L, s, g, n_pos, trim, t0, Rw, _ptr(keys),
+                _ptr(live), _ptr(payload), _stream())
+        LAUNCHES["seed_rows"] += 1
     mark_part(split, "seed_rows")
-    counts, total = _tile_scan(n, dev)
-    _launch("seed_rows", "sage2_seed_count", _ptr(live), M, g, n_pos,
-            _ptr(counts), _stream())
-    LAUNCHES["seed_rows"] += 1
-    _scan_tiles("seed_rows", counts, total)
-    base = torch.empty(n, dtype=torch.int32, device=dev)
-    ckeys = torch.empty(n, dtype=torch.int64, device=dev)
-    _launch("seed_rows", "sage2_seed_compact", _ptr(live), _ptr(keys), M, g,
-            n_pos, _ptr(counts), _ptr(base), _ptr(ckeys), _stream())
-    LAUNCHES["seed_rows"] += 1
+    if n:
+        counts, total = _tile_scan(n, dev)
+        _launch("seed_rows", "sage2_seed_count", _ptr(live), M, g, n_pos, Rw,
+                _ptr(counts), _stream())
+        LAUNCHES["seed_rows"] += 1
+        _scan_tiles("seed_rows", counts, total)
+        _launch("seed_rows", "sage2_seed_compact", _ptr(live), _ptr(keys), M,
+                g, n_pos, t0, Rw, id_base, _ptr(counts),
+                base[n_prior:].data_ptr(), ckeys[n_prior:].data_ptr(),
+                _stream())
+        LAUNCHES["seed_rows"] += 1
+        n_live = int(total)
     del keys, live
-    n_live = int(total)
-    s_keys, perm = torch.sort(ckeys[:n_live], stable=True)
+    n_rows = n_prior + n_live
+    if rows == "entries":
+        mark_part(split, "row_sort")
+        return ckeys[:n_rows], base[:n_rows], payload
+    s_keys, perm = torch.sort(ckeys[:n_rows], stable=True)
     del ckeys
-    s_rows = torch.empty(n_live, dtype=torch.int32, device=dev)
-    if n_live:
+    s_rows = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    if n_rows:
         _launch("seed_rows", "sage2_seed_gather", _ptr(base), _ptr(perm),
-                n_live, _ptr(s_rows), _stream())
+                n_rows, _ptr(s_rows), _stream())
         LAUNCHES["seed_rows"] += 1
     mark_part(split, "row_sort")
     return s_keys, s_rows, payload
@@ -1049,3 +1140,215 @@ def longest_edges(
                 _ptr(ovl), _stream())
         LAUNCHES["longest_edges"] += 1
     return src, dst, ovl, int(total)
+
+
+def prune_table(keys: torch.Tensor, counts: torch.Tensor,
+                threshold: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(keys, counts) of the entries of the sorted int64 ``keys`` whose
+    int32 ``counts`` reach ``threshold``, in table order, each of its own
+    size. Kernel K15: a count and a write pass around a scan of the tile
+    counts (see kernels/csrc/prune_table.cu); one host read a call (the
+    kept count, to size the outputs)."""
+    if keys.shape != counts.shape or keys.dim() != 1:
+        raise ValueError("keys and counts must be 1-D of one length")
+    if _on_cpu(keys, counts):
+        return plain.prune_table(keys, counts, threshold)
+    _dtype(keys, torch.int64, "keys")
+    _dtype(counts, torch.int32, "counts")
+    T = keys.shape[0]
+    dev = keys.device
+    if T == 0:
+        return keys.clone(), counts.clone()
+    tiles, total = _tile_scan(T, dev)
+    _launch("prune_table", "sage2_prune_count", _ptr(counts), T, threshold,
+            _ptr(tiles), _stream())
+    LAUNCHES["prune_table"] += 1
+    _scan_tiles("prune_table", tiles, total)
+    n = int(total)
+    out_keys = torch.empty(n, dtype=torch.int64, device=dev)
+    out_counts = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("prune_table", "sage2_prune_write", _ptr(keys), _ptr(counts), T,
+            threshold, _ptr(tiles), _ptr(out_keys), _ptr(out_counts),
+            _stream())
+    LAUNCHES["prune_table"] += 1
+    return out_keys, out_counts
+
+
+def table_directory(table: torch.Tensor,
+                    counts: torch.Tensor) -> Optional[torch.Tensor]:
+    """K2's bucket directory over a count table (``lookup_directory``),
+    for K16 and K17 to share; None for CPU tensors, whose plain versions
+    search the table itself."""
+    if _on_cpu(table, counts):
+        return None
+    _dtype(table, torch.int64, "table")
+    _dtype(counts, torch.int32, "counts")
+    return lookup_directory(table, counts)
+
+
+def _window_checks(reads: torch.Tensor, k: int) -> Tuple[int, int, int]:
+    """(N, L, P) of (N, L) reads with windows of 1 < k <= 31 bases; raises
+    when N * P passes 31 bits."""
+    if not 1 < k <= 31:
+        raise ValueError(f"k must be in (1, 31], got {k}")
+    N, L = reads.shape
+    P = L - k + 1
+    if P < 1:
+        raise ValueError(f"k ({k}) exceeds read length ({L})")
+    if N * P > (1 << 31) - 1:
+        raise ValueError(f"{N * P} windows overflow 31 bits")
+    return N, L, P
+
+
+def _directory_checked(directory: Optional[torch.Tensor]) -> torch.Tensor:
+    """The table's bucket directory, which a launch on the card needs
+    (``table_directory`` builds it once for all its callers)."""
+    if directory is None:
+        raise ValueError("a CUDA call needs the table's bucket directory "
+                         "(kernels.table_directory)")
+    _dtype(directory, torch.int64, "directory")
+    return directory
+
+
+def weak_windows(
+    reads: torch.Tensor, lengths: Optional[torch.Tensor],
+    table: torch.Tensor, counts: torch.Tensor,
+    directory: Optional[torch.Tensor], k: int, threshold: int,
+) -> torch.Tensor:
+    """int64 flat indices r * P + w (P = L - k + 1), ascending, of the
+    weak windows of the (N, L) int32 ``reads``: windows whose canonical
+    key counts below ``threshold`` in the sorted int64 ``table`` (int32
+    ``counts``; 0 where absent), with (N,) int32 ``lengths`` only those
+    inside their read. ``directory``: the table's bucket directory from
+    ``table_directory`` (None for CPU tensors). Kernel K16: mask, scan
+    and write launches (see kernels/csrc/weak_windows.cu); one host read
+    a call (the weak count, to size the output)."""
+    N, L, P = _window_checks(reads, k)
+    tensors = (reads, table, counts) + (
+        () if lengths is None else (lengths,))
+    if _on_cpu(*tensors):
+        return plain.weak_windows(reads, lengths, table, counts, directory,
+                                  k, threshold)
+    _dtype(reads, torch.int32, "reads")
+    _dtype(table, torch.int64, "table")
+    _dtype(counts, torch.int32, "counts")
+    if lengths is not None:
+        _dtype(lengths, torch.int32, "lengths")
+    W = -(-L // 16)
+    if 8 * (8 * W + 4 * -(-L // 4)) > 48 * 1024:
+        raise ValueError(f"reads of length {L} need more shared memory "
+                         f"than K16 takes")
+    dev = reads.device
+    if N == 0:
+        return torch.empty(0, dtype=torch.int64, device=dev)
+    directory = _directory_checked(directory)
+    mask = torch.empty((N, -(-P // 32)), dtype=torch.int32, device=dev)
+    tiles = -(-N // WEAK_TILE_READS)
+    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
+    tile_counts, total = scratch[:tiles], scratch[tiles:]
+    _launch("weak_windows", "sage2_weak_mask", _ptr(reads), _ptr(lengths), N,
+            L, k, _ptr(table), _ptr(counts), table.shape[0], _ptr(directory),
+            threshold, _ptr(mask), _ptr(tile_counts), _stream())
+    LAUNCHES["weak_windows"] += 1
+    _scan_tiles("weak_windows", tile_counts, total)
+    out = torch.empty(int(total), dtype=torch.int64, device=dev)
+    _launch("weak_windows", "sage2_weak_write", _ptr(mask), N, P,
+            _ptr(tile_counts), _ptr(out), _stream())
+    LAUNCHES["weak_windows"] += 1
+    return out
+
+
+# reads a tile of K16 (kTileReads in kernels/csrc/weak_windows.cu)
+WEAK_TILE_READS = 32
+
+
+def fix_windows(
+    reads: torch.Tensor, widx: torch.Tensor, table: torch.Tensor,
+    counts: torch.Tensor, directory: Optional[torch.Tensor], k: int,
+    threshold: int, which: str,
+) -> torch.Tensor:
+    """A copy of the (N, L) int32 ``reads`` with the single_window rule
+    applied at the weak windows ``widx`` (int64 flat indices from
+    ``weak_windows``): window w's base w + off (off = k - 1 for ``which``
+    "last", 0 for "first") becomes the one variant whose canonical key
+    counts at least ``threshold`` in the table when the current base's
+    does not and no other variant ties it (sage2_tpu/kmer/correct.py
+    _phase2_kernel). ``directory`` as for weak_windows. Kernel K17, one
+    launch (see kernels/csrc/fix_windows.cu)."""
+    if which not in ("last", "first"):
+        raise ValueError(f"which must be 'last' or 'first', got {which!r}")
+    N, L, P = _window_checks(reads, k)
+    if widx.dim() != 1:
+        raise ValueError("widx must be 1-D")
+    if _on_cpu(reads, widx, table, counts):
+        return plain.fix_windows(reads, widx, table, counts, directory, k,
+                                 threshold, which)
+    _dtype(reads, torch.int32, "reads")
+    _dtype(widx, torch.int64, "widx")
+    _dtype(table, torch.int64, "table")
+    _dtype(counts, torch.int32, "counts")
+    out = reads.clone()
+    n = widx.shape[0]
+    if n:
+        directory = _directory_checked(directory)
+        _launch("fix_windows", "sage2_fix_windows", _ptr(reads), L, k,
+                _ptr(table), _ptr(counts), table.shape[0], _ptr(directory),
+                threshold, k - 1 if which == "last" else 0, _ptr(widx), n,
+                _ptr(out), _stream())
+        LAUNCHES["fix_windows"] += 1
+    return out
+
+
+def chain_links(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
+                n_vertices: int):
+    """(outdeg, indeg, nxt, ovl_next, p), int32 (V,), of the padded int32
+    edge rows (``src == INT32_MAX`` is padding; real ids below
+    ``n_vertices``): the degrees, the chain edge out of each vertex
+    (outdeg(v) == 1 and indeg(succ) == 1: its successor and overlap,
+    else -1 and 0) and the initial parent of unitig labeling (the
+    predecessor over the chain edge into v, else v;
+    sage2_tpu/graph/traverse.py:40-77). Kernel K18's first launch, one
+    cooperative kernel (see kernels/csrc/chain_links.cu)."""
+    if not (src.shape == dst.shape == ovl.shape) or src.dim() != 1:
+        raise ValueError("src, dst and ovl must be 1-D of one length")
+    if _on_cpu(src, dst, ovl):
+        return plain.chain_links(src, dst, ovl, n_vertices)
+    for t in (src, dst, ovl):
+        _dtype(t, torch.int32, "edge arrays")
+    V, E = n_vertices, src.shape[0]
+    out = [torch.empty(V, dtype=torch.int32, device=src.device)
+           for _ in range(8)]
+    if V:
+        # outdeg, indeg, then the scratch succ, succ_ovl and pred, then
+        # nxt, ovl_next and p
+        _launch("chain_links", "sage2_chain_links", _ptr(src), _ptr(dst),
+                _ptr(ovl), E, V, *map(_ptr, out), _stream())
+        LAUNCHES["chain_links"] += 1
+    outdeg, indeg, _, _, _, nxt, ovl_next, p = out
+    return outdeg, indeg, nxt, ovl_next, p
+
+
+def chain_cut(p: torch.Tensor, pf: torch.Tensor, m: torch.Tensor,
+              nxt: torch.Tensor, ovl_next: torch.Tensor):
+    """(p', d0), int32 (V,): the cycle cut of unitig labeling
+    (sage2_tpu/graph/traverse.py:96-107) over chain_links' parents ``p``,
+    their roots ``pf`` (K4 "none") and the least id over each vertex's
+    backward closure ``m`` (K4 "min"): each cycle's least vertex becomes
+    its own parent and the chain edge into it goes (``nxt`` and
+    ``ovl_next`` of its predecessor set to -1 and 0, in place); d0 = (p'
+    != v), where K4's "add" loop starts. K18's second launch, counted as
+    a ``chain_links`` launch."""
+    if not (p.shape == pf.shape == m.shape == nxt.shape == ovl_next.shape):
+        raise ValueError("p, pf, m, nxt and ovl_next must be (V,) alike")
+    if _on_cpu(p, pf, m, nxt, ovl_next):
+        return plain.chain_cut(p, pf, m, nxt, ovl_next)
+    for t in (p, pf, m, nxt, ovl_next):
+        _dtype(t, torch.int32, "chain arrays")
+    V = p.shape[0]
+    p_out, d0 = torch.empty_like(p), torch.empty_like(p)
+    if V:
+        _launch("chain_links", "sage2_chain_cut", _ptr(p), _ptr(pf), _ptr(m),
+                V, _ptr(nxt), _ptr(ovl_next), _ptr(p_out), _ptr(d0),
+                _stream())
+        LAUNCHES["chain_links"] += 1
+    return p_out, d0

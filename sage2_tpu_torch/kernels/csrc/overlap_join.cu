@@ -37,6 +37,14 @@
 // reference's candidate capacity, when the caller keeps fewer slots than
 // there are candidates.
 //
+// The streamed join (sage2_tpu/stream.py:835-887) joins an entry slab
+// with one query chunk: its rows carry global ids (read * R + t), but the
+// payload rows lie in two arrays, the slab's entries ((read - entry
+// base) * g + t) and the chunk's queries ((read - query base) * n_pos +
+// t - g). The write pass finds a row's payload through that two-segment
+// map; the in-core join passes one payload with both bases 0 and both
+// strides R, which is the row id itself.
+//
 // Bound: bytes. The count pass reads each key and row id about twice;
 // the write pass reads one payload row per query and one per candidate
 // (Wt + 2 words each) and writes 13 bytes per candidate.
@@ -64,22 +72,44 @@ __global__ void join_count_kernel(const int64_t* __restrict__ keys,
   }
 }
 
+// Where the payload row of a seed row lies: entry rows (t < g) in `ent`
+// at (read - ent_base) * ent_stride + t, query rows in `qry` at (read -
+// qry_base) * qry_stride + t - qry_off; W2 int32 words a row.
+struct PayloadMap {
+  const uint32_t* ent;
+  int64_t ent_base;
+  int ent_stride;
+  const uint32_t* qry;
+  int64_t qry_base;
+  int qry_stride;
+  int qry_off;
+  int W2;
+
+  __device__ __forceinline__ const uint32_t* row(int32_t id, int R,
+                                                 int g) const {
+    const int64_t read = id / R;
+    const int t = id % R;
+    if (t < g) return ent + ((read - ent_base) * ent_stride + t) * W2;
+    return qry + ((read - qry_base) * qry_stride + t - qry_off) * W2;
+  }
+};
+
 __global__ void join_write_kernel(
-    const int32_t* __restrict__ rows, const uint32_t* __restrict__ payload,
-    int W2, int64_t n, const int32_t* __restrict__ counts,
+    const int32_t* __restrict__ rows, const PayloadMap pm, int64_t n,
+    const int32_t* __restrict__ counts,
     const int32_t* __restrict__ ebase, const int64_t* __restrict__ starts,
     int R, int g, int trim, int min_overlap, int64_t slot_limit,
     bool* __restrict__ ok, int32_t* __restrict__ cand_a,
     int32_t* __restrict__ cand_b, int32_t* __restrict__ cand_ovl,
     uint8_t* __restrict__ contained) {
-  const int Wt = W2 - 2;  // payload row: [Wt words, prev/first word, len]
+  const int Wt = pm.W2 - 2;  // payload row: [Wt words, prev/first word, len]
   SAGE2_GRID_STRIDE(i, n) {
     const int c = counts[i];
     if (c == 0) continue;
     const int32_t qid = rows[i];
     const int32_t a = qid / R;
     const int p = (qid % R - g + 1) * g;  // query probe position in read a
-    const uint32_t* pa = payload + static_cast<int64_t>(qid) * W2;
+    const uint32_t* pa = pm.row(qid, R, g);
     const int len_a = static_cast<int>(pa[Wt + 1]);
     const uint32_t apw = pa[Wt];  // bases [p-16, p) of a, right-aligned
     const int64_t slot0 = starts[i];
@@ -90,7 +120,7 @@ __global__ void join_write_kernel(
       const int32_t eid = rows[e0 + r];
       const int32_t b = eid / R;
       const int o = eid % R;  // entry offset inside read b's prefix
-      const uint32_t* pb = payload + static_cast<int64_t>(eid) * W2;
+      const uint32_t* pb = pm.row(eid, R, g);
       const int len_b = static_cast<int>(pb[Wt + 1]);
       const int ovl = len_a - (p - o);
       bool match = a != b;
@@ -128,20 +158,27 @@ SAGE2_EXPORT int sage2_join_count(const void* keys, const void* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// payload: (n_rows_total, W2) int32 words indexed by row id; starts: (n,)
-// int64 first slot of each query; ok/cand_*: (min(total, slot_limit),)
-// outputs; contained: (reads,) uint8 marks, or NULL.
-SAGE2_EXPORT int sage2_join_write(const void* rows, const void* payload,
-                                  int W2, int64_t n, const void* counts,
+// ent_payload, qry_payload: (rows, W2) int32 payload words, a row's at
+// PayloadMap::row (in core: one payload indexed by row id, bases 0,
+// strides R, qry_off 0); starts: (n,) int64 first slot of each query;
+// ok/cand_*: (min(total, slot_limit),) outputs; contained: (reads,)
+// uint8 marks, or NULL.
+SAGE2_EXPORT int sage2_join_write(const void* rows, const void* ent_payload,
+                                  int64_t ent_base, int ent_stride,
+                                  const void* qry_payload, int64_t qry_base,
+                                  int qry_stride, int qry_off, int W2,
+                                  int64_t n, const void* counts,
                                   const void* ebase, const void* starts,
                                   int R, int g, int trim, int min_overlap,
                                   int64_t slot_limit, void* ok, void* cand_a,
                                   void* cand_b, void* cand_ovl,
                                   void* contained, void* stream) {
+  const PayloadMap pm{static_cast<const uint32_t*>(ent_payload), ent_base,
+                      ent_stride, static_cast<const uint32_t*>(qry_payload),
+                      qry_base, qry_stride, qry_off, W2};
   join_write_kernel<<<sage2_blocks(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(rows),
-      static_cast<const uint32_t*>(payload), W2, n,
+      static_cast<const int32_t*>(rows), pm, n,
       static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(ebase),
       static_cast<const int64_t*>(starts), R, g, trim, min_overlap,

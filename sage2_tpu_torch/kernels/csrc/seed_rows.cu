@@ -22,6 +22,17 @@
 //            keeps the order within a key.
 //   gather   s_rows = the live ids through the sort's permutation.
 //
+// The streamed join (sage2_tpu/stream.py:835-887, _ragged_entry_kernel
+// and _ragged_join_kernel) builds the rows of a chunk of reads with
+// global ids, (id_base + m) * R + t: the entry rows alone (t < g) for
+// its entry slab, or the query rows alone (t >= g) of a query chunk.
+// Then the rows kernel builds only the chosen rows, the payload holds
+// only theirs ((M, g) or (M, n_pos) rows), and the tie order over one
+// kind is read order; the compaction writes the ids behind the rows
+// compacted before (the slab: entries by global id), so the stable
+// sort of [slab + the chunk's queries] keeps the reference's (key,
+// tag | id) order.
+//
 // Bound: bytes. The codes are read once; the payload (Wt + 2 words a
 // row), the keys and the compacted ids and keys are written once; the
 // sort moves the rest.
@@ -52,11 +63,13 @@ __device__ __forceinline__ int seed_pos(int t, int g) {
   return t < g ? t : g * (t - g + 1);
 }
 
-// the row id at position v of the join's tie order: entries (read-major,
-// t < g), then queries (read-major, t >= g)
+// the built row at position v of the join's tie order: with every row
+// built (Rw == R), entries (read-major, t < g), then queries (read-major,
+// t >= g); with one kind of row built, read order
 __device__ __forceinline__ int64_t row_at(int64_t v, int64_t M, int g,
-                                          int n_pos) {
+                                          int n_pos, int Rw) {
   const int64_t R = g + n_pos;
+  if (Rw != R) return v;
   const int64_t entries = M * g;
   if (v < entries) return (v / g) * R + v % g;
   const int64_t u = v - entries;
@@ -67,12 +80,11 @@ __global__ void __launch_bounds__(kThreads)
     seed_rows_kernel(const int32_t* __restrict__ reads2,
                      const bool* __restrict__ valid2,
                      const int32_t* __restrict__ lengths, int64_t M, int L,
-                     int s, int g, int n_pos, int trim,
+                     int s, int g, int n_pos, int trim, int t0, int Rw,
                      int64_t* __restrict__ keys, uint8_t* __restrict__ live,
                      int32_t* __restrict__ payload) {
   extern __shared__ uint32_t smem[];
   const int W = (L + 15) / 16;
-  const int R = g + n_pos;
   const int Wt = (L - g + 15) / 16 - trim;
   const int cols = Wt + 2;
   const int lane = threadIdx.x % kWarp;
@@ -92,9 +104,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     const int len = lengths == nullptr ? L : lengths[m];
     const bool valid = valid2[m];
-    int32_t* prow = payload + m * R * cols;
-    for (int e = lane; e < R * cols; e += kWarp) {
-      const int t = e / cols, col = e - t * cols;
+    int32_t* prow = payload + m * Rw * cols;
+    for (int e = lane; e < Rw * cols; e += kWarp) {
+      const int t = t0 + e / cols, col = e % cols;
       const int pos = seed_pos(t, g);
       uint32_t v;
       if (col < Wt) {
@@ -110,7 +122,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       prow[e] = static_cast<int32_t>(v);
     }
-    for (int t = lane; t < R; t += kWarp) {
+    for (int i = lane; i < Rw; i += kWarp) {
+      const int t = t0 + i;
       const int pos = seed_pos(t, g);
       uint32_t hi = word_at_u32(words, W, pos);
       if (s < 16) hi = mask_top(hi, s);
@@ -119,9 +132,9 @@ __global__ void __launch_bounds__(kThreads)
         lo = word_at_u32(words, W, pos + 16);
         if (s < 32) lo = mask_top(lo, s - 16);
       }
-      keys[m * R + t] = static_cast<int64_t>(
+      keys[m * Rw + i] = static_cast<int64_t>(
           (static_cast<uint64_t>(hi ^ 0x80000000u) << 32) | lo);
-      live[m * R + t] = valid && (lengths == nullptr || pos + s <= len);
+      live[m * Rw + i] = valid && (lengths == nullptr || pos + s <= len);
     }
     __syncwarp();
   }
@@ -129,12 +142,12 @@ __global__ void __launch_bounds__(kThreads)
 
 __global__ void __launch_bounds__(kThreads)
     seed_count_kernel(const uint8_t* __restrict__ live, int64_t M, int g,
-                      int n_pos, int64_t* __restrict__ tile_counts) {
-  const int64_t n = M * (g + n_pos);
+                      int n_pos, int Rw, int64_t* __restrict__ tile_counts) {
+  const int64_t n = M * Rw;
   const int64_t i0 = scan_first_item();
   int count = 0;
   for (int k = 0; k < kScanItems && i0 + k < n; ++k) {
-    count += live[row_at(i0 + k, M, g, n_pos)];
+    count += live[row_at(i0 + k, M, g, n_pos, Rw)];
   }
   int total;
   block_exclusive_scan<int>(count, &total);
@@ -144,17 +157,19 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     seed_compact_kernel(const uint8_t* __restrict__ live,
                         const int64_t* __restrict__ keys, int64_t M, int g,
-                        int n_pos, const int64_t* __restrict__ tile_offsets,
+                        int n_pos, int t0, int Rw, int64_t id_base,
+                        const int64_t* __restrict__ tile_offsets,
                         int32_t* __restrict__ base,
                         int64_t* __restrict__ ckeys) {
-  const int64_t n = M * (g + n_pos);
+  const int64_t R = g + n_pos;
+  const int64_t n = M * Rw;
   const int64_t i0 = scan_first_item();
   int64_t rows[kScanItems];
   int count = 0;
   for (int k = 0; k < kScanItems; ++k) {
     rows[k] = -1;
     if (i0 + k < n) {
-      const int64_t row = row_at(i0 + k, M, g, n_pos);
+      const int64_t row = row_at(i0 + k, M, g, n_pos, Rw);
       if (live[row]) {
         rows[k] = row;
         ++count;
@@ -166,7 +181,9 @@ __global__ void __launch_bounds__(kThreads)
                  block_exclusive_scan<int>(count, &total);
   for (int k = 0; k < kScanItems; ++k) {
     if (rows[k] < 0) continue;
-    base[slot] = static_cast<int32_t>(rows[k]);
+    // the row's global id: (id_base + read) * R + t
+    base[slot] = static_cast<int32_t>((id_base + rows[k] / Rw) * R + t0 +
+                                      rows[k] % Rw);
     ckeys[slot] = keys[rows[k]];
     ++slot;
   }
@@ -181,12 +198,15 @@ __global__ void seed_gather_kernel(const int32_t* __restrict__ base,
 }  // namespace
 
 // reads2: (M, L) int32 codes; valid2: (M,) bool; lengths: (M,) int32 or
-// NULL; keys (M * R,) int64, live (M * R,) uint8 and payload (M, R,
-// Wt + 2) int32 out, R = g + n_pos, Wt = ceil((L - g) / 16) - trim.
+// NULL; rows t0 .. t0 + Rw - 1 of each read are built (all: 0, R; the
+// entries: 0, g; the queries: g, n_pos); keys (M * Rw,) int64, live
+// (M * Rw,) uint8 and payload (M, Rw, Wt + 2) int32 out, R = g + n_pos,
+// Wt = ceil((L - g) / 16) - trim.
 SAGE2_EXPORT int sage2_seed_rows(const void* reads2, const void* valid2,
                                  const void* lengths, int64_t M, int L, int s,
-                                 int g, int n_pos, int trim, void* keys,
-                                 void* live, void* payload, void* stream) {
+                                 int g, int n_pos, int trim, int t0, int Rw,
+                                 void* keys, void* live, void* payload,
+                                 void* stream) {
   const int W = (L + 15) / 16;
   int64_t blocks = (M + kRowWarps - 1) / kRowWarps;
   if (blocks > (int64_t{1} << 20)) blocks = int64_t{1} << 20;
@@ -195,7 +215,7 @@ SAGE2_EXPORT int sage2_seed_rows(const void* reads2, const void* valid2,
                      kRowWarps * W * sizeof(uint32_t),
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(reads2), static_cast<const bool*>(valid2),
-      static_cast<const int32_t*>(lengths), M, L, s, g, n_pos, trim,
+      static_cast<const int32_t*>(lengths), M, L, s, g, n_pos, trim, t0, Rw,
       static_cast<int64_t*>(keys), static_cast<uint8_t*>(live),
       static_cast<int32_t*>(payload));
   return static_cast<int>(cudaGetLastError());
@@ -203,25 +223,28 @@ SAGE2_EXPORT int sage2_seed_rows(const void* reads2, const void* valid2,
 
 // tile_counts: the live rows of each tile of the tie order (scan.cuh).
 SAGE2_EXPORT int sage2_seed_count(const void* live, int64_t M, int g,
-                                  int n_pos, void* tile_counts,
+                                  int n_pos, int Rw, void* tile_counts,
                                   void* stream) {
-  seed_count_kernel<<<scan_tiles_of(M * (g + n_pos)), kThreads, 0,
+  seed_count_kernel<<<scan_tiles_of(M * Rw), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(live), M, g, n_pos,
+      static_cast<const uint8_t*>(live), M, g, n_pos, Rw,
       static_cast<int64_t*>(tile_counts));
   return static_cast<int>(cudaGetLastError());
 }
 
-// tile_offsets: the scanned tile counts; base (int32 ids) and ckeys
-// (int64 keys) get the live rows in the tie order.
+// tile_offsets: the scanned tile counts; base (int32 global ids, (id_base
+// + read) * R + t) and ckeys (int64 keys) get the live rows in the tie
+// order.
 SAGE2_EXPORT int sage2_seed_compact(const void* live, const void* keys,
-                                    int64_t M, int g, int n_pos,
+                                    int64_t M, int g, int n_pos, int t0,
+                                    int Rw, int64_t id_base,
                                     const void* tile_offsets, void* base,
                                     void* ckeys, void* stream) {
-  seed_compact_kernel<<<scan_tiles_of(M * (g + n_pos)), kThreads, 0,
+  seed_compact_kernel<<<scan_tiles_of(M * Rw), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(live), static_cast<const int64_t*>(keys),
-      M, g, n_pos, static_cast<const int64_t*>(tile_offsets),
+      M, g, n_pos, t0, Rw, id_base,
+      static_cast<const int64_t*>(tile_offsets),
       static_cast<int32_t*>(base), static_cast<int64_t*>(ckeys));
   return static_cast<int>(cudaGetLastError());
 }

@@ -109,6 +109,9 @@ def overlap_join(
     min_overlap: int,
     contained: Optional[torch.Tensor] = None,
     slot_limit: Union[int, Callable[[int], int], None] = None,
+    entry_payload: Optional[torch.Tensor] = None,
+    entry_base: int = 0,
+    query_base: int = 0,
     block: int = 1 << 22,
 ):
     """(ok, cand_a, cand_b, ovl, total) of the sorted seed rows.
@@ -117,10 +120,14 @@ def overlap_join(
     queries within a key; ``payload``: (rows, Wt + 2) int32 indexed by
     row id. One candidate per (query, entry of its run), in sorted
     query order and entry order within a query; the first
-    ``slots_to_write(total, slot_limit)`` of them are returned. ``contained`` (uint8, updated
-    in place): read b of each verified pair among those with len_b <=
-    ovl, the reference's ok_contained scattered (detect.py:836-843).
-    The slots are computed ``block`` at a time.
+    ``slots_to_write(total, slot_limit)`` of them are returned.
+    ``contained`` (uint8, updated in place): read b of each verified
+    pair among those with len_b <= ovl, the reference's ok_contained
+    scattered (detect.py:836-843). With ``entry_payload`` (the streamed
+    join) the entry row t of read b is its row (b - entry_base) * g + t
+    and ``payload`` holds the query rows, the query row t of read a at
+    (a - query_base) * (R - g) + t - g. The slots are computed ``block``
+    at a time.
     """
     dev = s_keys.device
     n = s_keys.shape[0]
@@ -149,8 +156,13 @@ def overlap_join(
         ei = run_start[run[qi]] + rank
         qid = s_rows[qi].to(torch.int64)
         eid = s_rows[ei].to(torch.int64)
-        pa = payload[qid].to(torch.int64) & _U32
-        pb = payload[eid].to(torch.int64) & _U32
+        if entry_payload is None:
+            pa = payload[qid].to(torch.int64) & _U32
+            pb = payload[eid].to(torch.int64) & _U32
+        else:
+            pa = payload[(qid // R - query_base) * (R - g) + qid % R - g]
+            pb = entry_payload[(eid // R - entry_base) * g + eid % R]
+            pa, pb = pa.to(torch.int64) & _U32, pb.to(torch.int64) & _U32
 
         cand_a = qid // R
         p = (qid % R - g + 1) * g
@@ -542,17 +554,32 @@ def seed_positions(g: int, n_pos: int) -> list:
     return list(range(g)) + [g * (j + 1) for j in range(n_pos)]
 
 
+# which rows of each read seed_rows builds
+SEED_ROW_KINDS = ("all", "entries", "queries")
+
+
+def seed_row_span(rows: str, g: int, n_pos: int) -> Tuple[int, int]:
+    """(t0, Rw): seed_rows builds rows t0 .. t0 + Rw - 1 of each read."""
+    return {"all": (0, g + n_pos), "entries": (0, g),
+            "queries": (g, n_pos)}[rows]
+
+
 def seed_rows(
     reads2: torch.Tensor, valid2: torch.Tensor,
     lengths: Optional[torch.Tensor], s: int, g: int, n_pos: int, trim: int,
-    *, split=None,
+    id_base: int = 0, rows: str = "all",
+    prior_keys: Optional[torch.Tensor] = None,
+    prior_ids: Optional[torch.Tensor] = None, *, split=None,
 ):
     """(s_keys, s_rows, payload) of the overlap join's seed rows
     (sage2_tpu/overlap/detect.py:642 build_seed_rows with :562
     _row_payload), for (M, L) int32 reads.
 
-    Row t of read m has id m * R + t (R = g + n_pos) and the seed at
-    ``seed_positions(g, n_pos)[t]``. ``payload`` (M, R, Wt + 2) int32:
+    Row t of read m has the global id (id_base + m) * R + t (R = g +
+    n_pos) and the seed at ``seed_positions(g, n_pos)[t]``. ``rows``
+    picks the rows built: "all", "entries" (t < g) or "queries" (t >=
+    g), Rw of them a read (seed_row_span). ``payload`` (M, Rw, Wt + 2)
+    int32:
     [aw_0 .. aw_{Wt-1}, xw, len], aw_t the word of bases [pos + 16 (trim
     + t), +16) (Wt = ceil((L - g) / 16) - trim), xw for ENTRY rows (t <
     g) the read's first word (the B side of the prefix check), for QUERY
@@ -563,45 +590,62 @@ def seed_rows(
     (key, tag | id) sort orders them (entries by id, then queries by
     id), are sorted stably by their exact seed key (int64, the
     left-aligned (hi, lo) pair with its top bit flipped): ``s_keys`` and
-    the int32 row ids ``s_rows``."""
+    the int32 row ids ``s_rows``. With "entries" the live rows come back
+    in that order unsorted (an entry slab of the streamed join); with
+    "queries", ``prior_keys``/``prior_ids`` (a slab) go before them into
+    the sort (the reference's stream.py:865-876)."""
     from sage2_tpu_torch.ops import bitpack
     from sage2_tpu_torch.overlap import detect
 
     M, L = reads2.shape
     R = g + n_pos
     Wt = -(-(L - g) // 16) - trim
-    positions = seed_positions(g, n_pos)
+    t0, Rw = seed_row_span(rows, g, n_pos)
+    positions = seed_positions(g, n_pos)[t0 : t0 + Rw]
     words0 = bitpack.pack_read_words(reads2)
     first = words0[:, 0]
     if lengths is None:
         length = torch.full_like(first, L)
     else:
         length = lengths.to(torch.int64)
-    keys, rows = [], []
+    keys, prows = [], []
     for i, pos in enumerate(positions):
         keys.append(detect.seed_keys(words0, s, pos))
         aw = [bitpack.word_at(words0, pos + 16 * (trim + t))
               for t in range(Wt)]
-        if i < g:
+        if t0 + i < g:
             xw = first
         elif pos < 16:
             xw = first >> (2 * (16 - pos))
         else:
             xw = bitpack.word_at(words0, pos - 16)
-        rows.append(detect._as_int32(torch.stack(aw + [xw, length], dim=1)))
-    live = valid2[:, None].expand(M, R)
+        prows.append(detect._as_int32(torch.stack(aw + [xw, length],
+                                                  dim=1)))
+    dev = reads2.device
+    live = valid2[:, None].expand(M, Rw)
     if lengths is not None:
-        pos = torch.tensor(positions, device=reads2.device)
+        pos = torch.tensor(positions, device=dev)
         live = live & (pos[None, :] + s <= length[:, None])
     keys = torch.stack(keys, dim=1)
-    payload = torch.stack(rows, dim=1)
+    payload = (torch.stack(prows, dim=1) if prows else
+               torch.empty((M, 0, Wt + 2), dtype=torch.int32, device=dev))
     mark_part(split, "seed_rows")
-    ids = torch.arange(M * R, dtype=torch.int32,
-                       device=reads2.device).reshape(M, R)
-    base = torch.cat([ids[:, :g][live[:, :g]], ids[:, g:][live[:, g:]]])
-    s_keys, perm = torch.sort(keys.reshape(-1)[base], stable=True)
+    local = torch.arange(M * Rw, dtype=torch.int64,
+                         device=dev).reshape(M, Rw)
+    ne = max(0, min(Rw, g - t0))      # the built entry rows of a read
+    order = torch.cat([local[:, :ne][live[:, :ne]],
+                       local[:, ne:][live[:, ne:]]])
+    ids = ((id_base + order // Rw) * R + t0 + order % Rw).to(torch.int32)
+    c_keys = keys.reshape(-1)[order]
+    if prior_keys is not None:
+        c_keys = torch.cat([prior_keys, c_keys])
+        ids = torch.cat([prior_ids, ids])
+    if rows == "entries":
+        mark_part(split, "row_sort")
+        return c_keys, ids, payload
+    s_keys, perm = torch.sort(c_keys, stable=True)
     mark_part(split, "row_sort")
-    return s_keys, base[perm], payload
+    return s_keys, ids[perm], payload
 
 
 def edge_key_bits(n_vertices: int, read_len: int) -> Tuple[int, int]:
@@ -650,3 +694,134 @@ def longest_edges(
         col[:n_edges] = x[is_last].to(torch.int32)
         out.append(col)
     return (*out, n_edges)
+
+
+def prune_table(keys: torch.Tensor, counts: torch.Tensor,
+                threshold: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The entries of a sorted count table with count >= threshold, in
+    table order (sage2_tpu/kmer/correct.py:246 _prune_impl)."""
+    keep = counts >= threshold
+    return keys[keep], counts[keep]
+
+
+def weak_windows(
+    reads: torch.Tensor, lengths: Optional[torch.Tensor],
+    table: torch.Tensor, counts: torch.Tensor, directory, k: int,
+    threshold: int, rows_per_block: int = 1 << 18,
+) -> torch.Tensor:
+    """Flat indices r * P + w, ascending, of the windows whose canonical
+    key counts below ``threshold`` in the table, with ``lengths`` only
+    windows inside their read, p < len - k + 1
+    (sage2_tpu/kmer/correct.py:270 _phase1_kernel). ``directory`` is the
+    kernel's and is not needed here. ``rows_per_block`` reads at a time."""
+    N, L = reads.shape
+    P = L - k + 1
+    parts = []
+    for r0 in range(0, N, rows_per_block):
+        r = reads[r0 : r0 + rows_per_block]
+        weak = lookup_counts(table, counts, kmer_keys(r, k)[2]) < threshold
+        if lengths is not None:
+            ln = lengths[r0 : r0 + rows_per_block].to(torch.int64)
+            weak &= (torch.arange(P, device=reads.device)[None, :]
+                     < ln[:, None] - (k - 1))
+        parts.append(torch.nonzero(weak.reshape(-1)).reshape(-1) + r0 * P)
+    if not parts:
+        return torch.empty(0, dtype=torch.int64, device=reads.device)
+    return torch.cat(parts)
+
+
+def fix_windows(
+    reads: torch.Tensor, widx: torch.Tensor, table: torch.Tensor,
+    counts: torch.Tensor, directory, k: int, threshold: int, which: str,
+    block: int = 1 << 21,
+) -> torch.Tensor:
+    """A copy of ``reads`` with the single_window rule applied at the
+    weak windows ``widx`` (sage2_tpu/kmer/correct.py:293 _phase2_kernel):
+    the forward and RC keys of each window, its four variant canonical
+    keys with base off set to 0-3 (off = k - 1 for "last", 0 for
+    "first"), their counts, and the edit where the current base counts
+    below the threshold and one variant alone reaches the maximum, which
+    is at least the threshold. ``block`` windows at a time (their edit
+    targets are distinct, so the blocks are independent)."""
+    N, L = reads.shape
+    P = L - k + 1
+    off = k - 1 if which == "last" else 0
+    dev = reads.device
+    flat = reads.reshape(-1)
+    out = reads.clone()
+    # base off of the window: forward position off, RC position k-1-off
+    # with the complemented code (ops/bitpack.set_base)
+    wf = 1 << (2 * (k - 1 - off))
+    wr = 1 << (2 * off)
+    for b0 in range(0, widx.shape[0], block):
+        w = widx[b0 : b0 + block]
+        start = (w // P) * L + w % P
+        codes = flat[start[:, None] + torch.arange(k, device=dev)[None, :]]
+        fwd = torch.zeros_like(start)
+        rc = torch.zeros_like(start)
+        for j in range(k):
+            c = codes[:, j].to(torch.int64)
+            fwd = fwd * 4 + c
+            rc = rc + ((3 - c) << (2 * j))
+        cur = codes[:, off].to(torch.int64)
+        variants = [torch.minimum(fwd + (b - cur) * wf, rc + (cur - b) * wr)
+                    for b in range(4)]
+        cnt4 = lookup_counts(table, counts, torch.stack(variants, dim=1))
+        m = cnt4.max(dim=1).values
+        n_at_max = (cnt4 == m[:, None]).sum(dim=1)
+        cur_cnt = cnt4.gather(1, cur[:, None]).reshape(-1)
+        best = cnt4.argmax(dim=1).to(reads.dtype)
+        replace = (cur_cnt < threshold) & (m >= threshold) & (n_at_max == 1)
+        out.reshape(-1)[(start + off)[replace]] = best[replace]
+    return out
+
+
+def chain_links(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
+                n_vertices: int):
+    """(outdeg, indeg, nxt, ovl_next, p) of unitig labeling
+    (sage2_tpu/graph/traverse.py:40-77): the degrees, the chain edge out
+    of each vertex (its successor and overlap, or -1 and 0) and the
+    initial parent (the predecessor over a chain edge, else the vertex).
+    The neighbour scatters keep an arbitrary writer where a degree
+    exceeds 1; the masks read them only where it is 1."""
+    V = n_vertices
+    dev = src.device
+    i32 = torch.int32
+    is_edge = src != I32_MAX
+    e_src = src[is_edge].to(torch.int64)
+    e_dst = dst[is_edge].to(torch.int64)
+    outdeg = torch.bincount(e_src, minlength=V).to(i32)
+    indeg = torch.bincount(e_dst, minlength=V).to(i32)
+    succ = torch.full((V,), -1, dtype=i32, device=dev)
+    succ[e_src] = e_dst.to(i32)
+    succ_ovl = torch.zeros((V,), dtype=i32, device=dev)
+    succ_ovl[e_src] = ovl[is_edge]
+    pred = torch.full((V,), -1, dtype=i32, device=dev)
+    pred[e_dst] = e_src.to(i32)
+    succ_c = succ.clamp(min=0).to(torch.int64)
+    chain_out = (outdeg == 1) & (succ >= 0) & (indeg[succ_c] == 1)
+    nxt = torch.where(chain_out, succ, -1).to(i32)
+    ovl_next = torch.where(chain_out, succ_ovl, 0).to(i32)
+    pred_c = pred.clamp(min=0)
+    chain_in = (indeg == 1) & (pred >= 0) & (
+        outdeg[pred_c.to(torch.int64)] == 1)
+    p = torch.where(chain_in, pred_c,
+                    torch.arange(V, dtype=i32, device=dev))
+    return outdeg, indeg, nxt, ovl_next, p
+
+
+def chain_cut(p: torch.Tensor, pf: torch.Tensor, m: torch.Tensor,
+              nxt: torch.Tensor, ovl_next: torch.Tensor):
+    """(p', d0) of the cycle cut (sage2_tpu/graph/traverse.py:96-107):
+    breakers (p[pf] != pf and m == id, each cycle's least vertex) become
+    their own parents, and the chain edge into each (out of its
+    predecessor p[breaker]) is dissolved in ``nxt``/``ovl_next`` (in
+    place); d0 = (p' != id)."""
+    ids = torch.arange(p.shape[0], dtype=p.dtype, device=p.device)
+    pf64 = pf.to(torch.int64)
+    breaker = (p[pf64] != pf) & (m == ids)
+    bpred = p[breaker].to(torch.int64)
+    nxt[bpred] = -1
+    ovl_next[bpred] = 0
+    p_out = torch.where(breaker, ids, p)
+    return p_out, (p_out != ids).to(p.dtype)

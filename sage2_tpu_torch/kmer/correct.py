@@ -11,14 +11,16 @@ kernel K5 a round.
 Single window: a base is corrected when the k-mer covering it is weak
 (count below threshold) and exactly one alternative base makes that
 k-mer solid.
-Each round recounts, prunes the table to its solid entries, and runs a
-FORWARD sub-pass (variants of each window's last base) and then a
+Each round recounts, prunes the table to its solid entries (kernel K15),
+builds the pruned table's bucket directory once (K2's first launch), and
+runs a FORWARD sub-pass (variants of each window's last base) and then a
 BACKWARD sub-pass (first base), each in two phases:
 
-  phase 1  canonical key of every window (K1), table lookup (K2), and
-           the flat indices of the weak windows;
-  phase 2  the 4 variant keys of each weak window, one lookup (K2) of
-           all of them, the replacement rule, and the edits.
+  phase 1  the flat indices of the weak windows (kernel K16: each
+           window's canonical key from the read, its lookup through the
+           directory, the weak mask, the indices in order);
+  phase 2  the 4 variant keys of each weak window, their lookups, the
+           replacement rule and the edits (kernel K17).
 
 Both cuts of the reference (lookups only for weak windows; a table
 without sub-threshold entries) leave every verdict unchanged, so the
@@ -36,82 +38,51 @@ from typing import Optional
 import torch
 
 from sage2_tpu_torch import kernels
-from sage2_tpu_torch.kmer.count import (
-    KmerTable,
-    count_kmers,
-    lookup_counts,
-    window_mask,
-)
-from sage2_tpu_torch.ops import bitpack
+from sage2_tpu_torch.kmer.count import KmerTable, count_kmers
 
 
 def prune_table_for_correction(table: KmerTable, threshold: int) -> KmerTable:
     """Drop sub-threshold entries (they can change no verdict); the
-    kept entries stay sorted."""
-    keep = table.count >= threshold
-    keys = table.keys[keep]
-    return KmerTable(keys, table.count[keep], keys.shape[0], table.k)
+    kept entries stay sorted (kernel K15)."""
+    keys, count = kernels.prune_table(table.keys, table.count, threshold)
+    return KmerTable(keys, count, keys.shape[0], table.k)
 
 
-def _phase1_kernel(canon: torch.Tensor, pruned: KmerTable,
-                   threshold: int,
-                   wvalid: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _phase1_kernel(reads: torch.Tensor, pruned: KmerTable, threshold: int,
+                   lengths: Optional[torch.Tensor] = None,
+                   directory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flat (row-major) indices of the weak windows, ascending; with
-    ``wvalid`` only windows inside their read."""
-    weak = lookup_counts(pruned, canon) < threshold
-    if wvalid is not None:
-        weak &= wvalid
-    return torch.nonzero(weak.reshape(-1)).reshape(-1)
+    ``lengths`` only windows inside their read (kernel K16).
+    ``directory``: the pruned table's bucket directory
+    (kernels.table_directory), shared by the round's sub-passes."""
+    return kernels.weak_windows(reads, lengths, pruned.keys, pruned.count,
+                                directory, pruned.k, threshold)
 
 
-def _phase2_kernel(reads: torch.Tensor, fwd: torch.Tensor, rc: torch.Tensor,
-                   pruned: KmerTable, k: int, threshold: int, which: str,
-                   widx: torch.Tensor) -> torch.Tensor:
+def _phase2_kernel(reads: torch.Tensor, pruned: KmerTable, threshold: int,
+                   which: str, widx: torch.Tensor,
+                   directory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Apply the replacement rule to the weak windows ``widx``; window w
-    edits base w + (k - 1 if which == "last" else 0)."""
-    N, L = reads.shape
-    P = L - k + 1
-    off = k - 1 if which == "last" else 0
-    row = widx // P
-    target = row * L + widx % P + off
-    flat = reads.reshape(-1)
-    cur = flat[target].to(torch.int64)
-    wf = fwd.reshape(-1)[widx]
-    wr = rc.reshape(-1)[widx]
-    # the window's base at k-mer position `pos` is base k-1-pos of its
-    # reverse complement, with the complemented code
-    pos = k - 1 if which == "last" else 0
-    variants = []
-    for b in range(4):
-        vf = bitpack.set_base(wf, k, pos, cur, torch.full_like(cur, b))
-        vr = bitpack.set_base(wr, k, k - 1 - pos, 3 - cur,
-                              torch.full_like(cur, 3 - b))
-        variants.append(torch.minimum(vf, vr))
-    cnt4 = lookup_counts(pruned, torch.stack(variants, dim=1))  # (n, 4)
-    m = cnt4.max(dim=1).values
-    n_at_max = (cnt4 == m[:, None]).sum(dim=1)
-    cur_cnt = cnt4.gather(1, cur[:, None]).reshape(-1)
-    best = cnt4.argmax(dim=1).to(reads.dtype)
-    replace = (cur_cnt < threshold) & (m >= threshold) & (n_at_max == 1)
-    # edit targets are unique within a sub-pass (weak windows are
-    # distinct, window w edits base w + off)
-    new = reads.clone()
-    new.reshape(-1)[target[replace]] = best[replace]
-    return new
+    edits base w + (k - 1 if which == "last" else 0) (kernel K17)."""
+    return kernels.fix_windows(reads, widx, pruned.keys, pruned.count,
+                               directory, pruned.k, threshold, which)
 
 
 def twophase_round(reads: torch.Tensor, pruned: KmerTable, k: int,
                    threshold: int,
                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One forward + backward round of the single_window rule against an
-    already-pruned table."""
-    wvalid = (None if lengths is None
-              else window_mask(lengths, reads.shape[1], k))
+    already-pruned table: K16 and K17 for each sub-pass, around one
+    bucket directory of the table."""
+    if pruned.k != k:
+        raise ValueError(f"table of {pruned.k}-mers for k = {k}")
+    if lengths is not None:
+        lengths = lengths.to(torch.int32).contiguous()
+    directory = kernels.table_directory(pruned.keys, pruned.count)
     for which in ("last", "first"):
-        fwd, rc, canon = bitpack.kmer_keys(reads, k)
-        widx = _phase1_kernel(canon, pruned, threshold, wvalid)
-        reads = _phase2_kernel(reads, fwd, rc, pruned, k, threshold, which,
-                               widx)
+        widx = _phase1_kernel(reads, pruned, threshold, lengths, directory)
+        reads = _phase2_kernel(reads, pruned, threshold, which, widx,
+                               directory)
     return reads
 
 

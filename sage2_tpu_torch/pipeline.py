@@ -14,7 +14,8 @@ leaves the graph with its edges.
 Streaming (``config.max_device_reads`` below the read count): count,
 correct, dedup and overlap go to the device in chunks of that many reads
 (``sage2_tpu_torch.stream``; the overlap join through kernels K9 and
-K10), with the in-core result bit for bit. With ``config.spill_dir``
+K10, for ragged reads through K13 and K3 over an entry slab), with the
+in-core result bit for bit. With ``config.spill_dir``
 the big host arrays (corrected reads, the read store, the edge lists)
 become memmaps of a spill store there (``utils.spill``), and the native
 reduction marks and compacts through it.
@@ -59,8 +60,10 @@ from sage2_tpu_torch.kmer import correct_reads, count_kmers
 from sage2_tpu_torch.ops.sort import I32_MAX
 from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
 from sage2_tpu_torch.stream import (
+    compact_pad_edges_spill,
     correct_reads_chunked,
     find_overlaps_chunked,
+    find_overlaps_chunked_ragged,
     prepare_reads_chunked,
 )
 from sage2_tpu_torch.utils.device import resolve_device
@@ -147,8 +150,6 @@ def _unsupported(config: AssemblyConfig, n_reads: int, mate_of,
     """The ROADMAP item a request needs, or None on the ported path."""
     if config.mesh_shape is not None:
         return "a device mesh (ROADMAP Queue 1 item 12)"
-    if lengths is not None and _stream_chunk(config, n_reads) is not None:
-        return "streaming ragged reads (ROADMAP Queue 1 item 17)"
     if mate_of is not None:
         return "paired reads and scaffolding (ROADMAP Queue 1 item 14)"
     return None
@@ -170,9 +171,9 @@ def assemble(
     "cpu". ``lengths``: (N,) per-read lengths of ragged reads, padded
     with zeros to the array width (``--length-policy pad``).
     ``config.max_device_reads`` below the read count streams the device
-    stages (fixed-length reads), ``config.entry_block_reads`` and
-    ``config.spill_dir`` with them; a spilled run resumes only with its
-    spill dir. ``mate_of`` exists for the reference's signature; paired
+    stages (fixed-length and ragged reads), ``config.entry_block_reads``
+    and ``config.spill_dir`` with them; a spilled run resumes only with
+    its spill dir. ``mate_of`` exists for the reference's signature; paired
     inputs raise NotImplementedError, as does any configuration off the
     ported path.
     """
@@ -282,7 +283,7 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                     rule=config.correction_rule,
                     out=(store.empty("corrected", np.int8, reads.shape)
                          if spilled else None),
-                    device=dev,
+                    device=dev, lengths=lengths,
                 )
         else:
             r = torch.from_numpy(reads.astype(np.int32)).to(dev)
@@ -311,9 +312,13 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     # --- stage 3: dedup + overlaps -------------------------------------
     if start <= STAGES.index("overlap") and stream_chunk is not None:
         with log.timed("dedup", streamed=True):
-            reads2_np, valid2_np, mult_np, n_uniq, _, _ = (
+            # on the host clock: each part ends in a read to the host
+            split = DeviceSplit("cpu")
+            reads2_np, valid2_np, mult_np, n_uniq, _, lengths2_np = (
                 prepare_reads_chunked(corrected_np, stream_chunk,
-                                      store=store, device=dev))
+                                      store=store, device=dev,
+                                      lengths=lengths, split=split))
+        log.log("dedup_split", **split.ms())
         # ~19 edges a vertex at 50x coverage: up to ~32 candidates a read
         # of a chunk; starting at 64x avoids doubling retries (each a
         # full streamed pass) on dense graphs
@@ -321,23 +326,50 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
         while True:
             with log.timed("overlap", streamed=True,
                            chunk_reads=stream_chunk):
-                e_src, e_dst, e_ovl, n_edges, overflow = (
-                    find_overlaps_chunked(
-                        reads2_np, valid2_np, config.min_overlap,
-                        chunk_reads=2 * stream_chunk,
-                        seed_len=config.effective_seed_len,
-                        capacity_per_chunk=cap_chunk, store=store,
-                        entry_block_reads=config.entry_block_reads,
-                        device=dev,
-                    ))
+                common = dict(chunk_reads=2 * stream_chunk,
+                              seed_len=config.effective_seed_len,
+                              capacity_per_chunk=cap_chunk, store=store,
+                              entry_block_reads=config.entry_block_reads,
+                              device=dev)
+                if lengths2_np is not None:
+                    e_src, e_dst, e_ovl, n_edges, cont, overflow = (
+                        find_overlaps_chunked_ragged(
+                            reads2_np, valid2_np, lengths2_np,
+                            config.min_overlap, **common))
+                else:
+                    e_src, e_dst, e_ovl, n_edges, overflow = (
+                        find_overlaps_chunked(
+                            reads2_np, valid2_np, config.min_overlap,
+                            **common))
             if not overflow:
                 break
             cap_chunk *= 2
             log.log("overlap_retry", capacity_per_chunk=cap_chunk)
-        if spilled:
+        cont_mask = None
+        if lengths2_np is not None:
+            # SAGE containment removal (sage2_tpu/pipeline.py:474-483): a
+            # read contained in either orientation leaves the graph with
+            # its edges
+            cont = cont | np.roll(cont, cont.shape[0] // 2)
+            n_cont = int(cont.sum())
+            log.log("containment", n_contained=n_cont)
+            if n_cont:
+                cont_mask = cont
+                valid2_np = valid2_np & ~cont
+        if spilled and lengths2_np is None:
             # find_overlaps_chunked wrote the padded edges_* memmaps
             edges = (e_src, e_dst, e_ovl)
+        elif spilled:
+            *edges, n_edges = compact_pad_edges_spill(
+                store, e_src, e_dst, e_ovl, n_edges, cont=cont_mask)
+            edges = tuple(edges)
         else:
+            if cont_mask is not None:
+                keep = ~(cont_mask[e_src[:n_edges]]
+                         | cont_mask[e_dst[:n_edges]])
+                e_src, e_dst, e_ovl = (a[:n_edges][keep]
+                                       for a in (e_src, e_dst, e_ovl))
+                n_edges = int(keep.sum())
             # pad to the reference's grain of the sorted edge list
             pad_to = max(1, -(-n_edges // (1 << 14)) * (1 << 14))
             edges = tuple(
@@ -346,16 +378,16 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                 for j, a in enumerate((e_src, e_dst, e_ovl)))
         log.log("overlap_result", n_edges=n_edges, n_candidates=n_edges,
                 n_unique_reads=n_uniq)
-        lengths2_np = None
+        extra = {} if lengths2_np is None else {"lengths2": lengths2_np}
         if spilled:
             # the big arrays live in the spill store; the npz carries
             # only the small per-vertex ones
             _save(outdir, log, "edges", n_edges=n_edges, valid2=valid2_np,
-                  multiplicity=mult_np)
+                  multiplicity=mult_np, **extra)
         else:
             _save(outdir, log, "edges", src=edges[0], dst=edges[1],
                   ovl=edges[2], n_edges=n_edges, reads2=reads2_np,
-                  valid2=valid2_np, multiplicity=mult_np)
+                  valid2=valid2_np, multiplicity=mult_np, **extra)
         _manifest(outdir, config, "overlap", spilled=spilled)
     elif start <= STAGES.index("overlap"):
         if start > STAGES.index("correct"):

@@ -21,15 +21,26 @@ from sage2_tpu_torch.data import (
     simulate_ragged_reads,
     simulate_reads,
 )
+from sage2_tpu_torch import stream
 from sage2_tpu_torch.graph import reduce as reduce_mod
+from sage2_tpu_torch.graph.traverse import contract_unitigs
 from sage2_tpu_torch.kernels import plain
-from sage2_tpu_torch.kmer.correct import prune_table_for_correction
+from sage2_tpu_torch.kmer.correct import (
+    prune_table_for_correction,
+    twophase_round,
+)
 from sage2_tpu_torch.kmer.count import count_kmers
 from sage2_tpu_torch.ops.bitpack import pack_read_words
+from sage2_tpu_torch.utils import native_build
 from sage2_tpu_torch.ops.sort import sort_by_pair
-from sage2_tpu_torch.overlap import find_overlaps_auto, prepare_reads
+from sage2_tpu_torch.overlap import (
+    find_overlaps,
+    find_overlaps_auto,
+    prepare_reads,
+)
 from sage2_tpu_torch.overlap.detect import build_seed_rows, join_geometry
 from torch_kernel_cases import (
+    CHAIN_CASES,
     DEDUP_CASES,
     MARKS_READ_LEN,
     REDUCE_CASES,
@@ -37,6 +48,7 @@ from torch_kernel_cases import (
     UNSIGNED_CASES,
     VOTE_CASES,
     bucket_geometry,
+    chain_case,
     lookup_case,
     marks_graph,
     oracle_lookup,
@@ -724,3 +736,189 @@ def test_longest_edges_kernel(cuda, case):
     _equal(got, plain.longest_edges(*args))
     if case == "no_ok":
         assert got[3] == 0 and bool((got[0] == 2**31 - 1).all())
+
+
+# --- K15-K17: the two-phase corrector ----------------------------------------
+
+@pytest.mark.parametrize("threshold", [1, 2, 3, 10**6])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_prune_table_kernel(cuda, ragged, threshold):
+    r, lens = _ragged() if ragged else (_reads(), None)
+    t = count_kmers(r.to(cuda), 25, None if lens is None else lens.to(cuda))
+    before = kernels.LAUNCHES["prune_table"]
+    got = kernels.prune_table(t.keys, t.count, threshold)
+    assert kernels.LAUNCHES["prune_table"] == before + 3   # count, scan, write
+    _equal(got, plain.prune_table(t.keys, t.count, threshold))
+    assert got[0].numel() == int((t.count >= threshold).sum())
+    empty = t.keys[:0], t.count[:0]
+    _equal(kernels.prune_table(*empty, threshold), empty)
+
+
+def _phase_inputs(cuda, case, k):
+    if case in ("sim", "sim_ragged"):
+        r, lens = _ragged() if case == "sim_ragged" else (_reads(), None)
+        r = r.to(cuda)
+        lens = None if lens is None else lens.to(cuda)
+        t = prune_table_for_correction(count_kmers(r, k, lens), 2)
+        return r, lens, t.keys, t.count, k, 2
+    reads, lengths, keys, counts, k, threshold, _ = vote_case(case, k=k)
+    return (torch.from_numpy(reads).to(cuda),
+            None if lengths is None else torch.from_numpy(lengths).to(cuda),
+            torch.from_numpy(keys).to(cuda),
+            torch.from_numpy(counts).to(cuda), k, threshold)
+
+
+@pytest.mark.parametrize("k", [15, 25])
+@pytest.mark.parametrize("case", VOTE_CASES + ("sim", "sim_ragged"))
+def test_weak_and_fix_windows_kernels(cuda, case, k):
+    r, lens, keys, counts, k, threshold = _phase_inputs(cuda, case, k)
+    before = dict(kernels.LAUNCHES)
+    directory = kernels.table_directory(keys, counts)
+    widx = kernels.weak_windows(r, lens, keys, counts, directory, k,
+                                threshold)
+    _equal([widx], [plain.weak_windows(r, lens, keys, counts, None, k,
+                                       threshold)])
+    assert (widx.numel() == 0) == (case == "clean")
+    for which in ("last", "first"):
+        got = kernels.fix_windows(r, widx, keys, counts, directory, k,
+                                  threshold, which)
+        _equal([got], [plain.fix_windows(r, widx, keys, counts, None, k,
+                                         threshold, which)])
+    assert kernels.LAUNCHES["lookup_counts"] == before["lookup_counts"] + 1
+    assert kernels.LAUNCHES["weak_windows"] == before["weak_windows"] + 3
+    assert kernels.LAUNCHES["fix_windows"] == before["fix_windows"] + (
+        2 if widx.numel() else 0)
+    # on the card each needs the round's directory
+    with pytest.raises(ValueError, match="bucket directory"):
+        kernels.weak_windows(r, lens, keys, counts, None, k, threshold)
+    if widx.numel():
+        with pytest.raises(ValueError, match="bucket directory"):
+            kernels.fix_windows(r, widx, keys, counts, None, k, threshold,
+                                "last")
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_twophase_round_kernels(cuda, ragged):
+    r, lens = _ragged() if ragged else (_reads(), None)
+    t = prune_table_for_correction(count_kmers(r, 25, lens), 2)
+    want = twophase_round(r, t, 25, 2, lens)
+    rc, lc = r.to(cuda), None if lens is None else lens.to(cuda)
+    tc = prune_table_for_correction(count_kmers(rc, 25, lc), 2)
+    got = twophase_round(rc, tc, 25, 2, lc)
+    _equal([got], [want])
+    assert (got.cpu() != r).any()
+
+
+def test_fix_windows_kernel_long_reads(cuda):
+    g = simulate_genome(20_000, seed=3)
+    r, _ = simulate_reads(g, read_len=300, coverage=20, error_rate=0.01,
+                          seed=4)
+    r = torch.from_numpy(r.astype(np.int32)).to(cuda)
+    t = prune_table_for_correction(count_kmers(r, 31), 2)
+    directory = kernels.table_directory(t.keys, t.count)
+    widx = kernels.weak_windows(r, None, t.keys, t.count, directory, 31, 2)
+    _equal([widx], [plain.weak_windows(r, None, t.keys, t.count, None, 31,
+                                       2)])
+    _equal([kernels.fix_windows(r, widx, t.keys, t.count, directory, 31, 2,
+                                "first")],
+           [plain.fix_windows(r, widx, t.keys, t.count, None, 31, 2,
+                              "first")])
+
+
+# --- K18: chain links and the cycle cut -------------------------------------
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_chain_links_kernel(cuda, case):
+    *arrays, V = chain_case(case)
+    src, dst, ovl = (torch.from_numpy(a) for a in arrays)
+    gpu = [a.to(cuda) for a in (src, dst, ovl)]
+    before = kernels.LAUNCHES["chain_links"]
+    links = kernels.chain_links(*gpu, V)
+    _equal(links, plain.chain_links(src, dst, ovl, V))
+    outdeg, indeg, nxt, ovl_next, p = links
+    steps = max(1, int(np.ceil(np.log2(max(V, 2)))) + 1)
+    ids = torch.arange(V, dtype=torch.int32, device=cuda)
+    pf, _ = kernels.pointer_jump(p, None, "none", steps)
+    _, m = kernels.pointer_jump(p, ids, "min", steps)
+    n2, o2 = nxt.clone(), ovl_next.clone()
+    got = kernels.chain_cut(p, pf, m, nxt, ovl_next)
+    want = plain.chain_cut(p, pf, m, n2, o2)
+    _equal(got + (nxt, ovl_next), want + (n2, o2))
+    assert kernels.LAUNCHES["chain_links"] == before + (2 if V else 0)
+    if case == "rings":
+        assert int((got[0] == ids).sum()) > int((p == ids).sum())
+    _equal(contract_unitigs(*gpu, V), contract_unitigs(src, dst, ovl, V))
+
+
+# --- K13 and K3 in the streamed join's mode ---------------------------------
+
+@pytest.mark.parametrize("chunk", [1000, 2500])
+def test_streamed_join_kernels(cuda, chunk):
+    """K13's entry slab and query chunks and K3's two-segment payload
+    against their plain versions, and the streamed ragged join's edges
+    and containment marks against the in-core join's."""
+    r, lens = _ragged()
+    rs = prepare_reads(r.to(cuda), lens.to(cuda))
+    M, L = rs.reads2.shape
+    s, min_overlap = 32, 40
+    geo = join_geometry(L, min_overlap, s)
+    valid, lengths = rs.valid2, rs.lengths2
+    keys, ids, pays = [], [], []
+    for i in range(0, M, chunk):
+        args = (rs.reads2[i : i + chunk], valid[i : i + chunk],
+                lengths[i : i + chunk], s, geo.g, geo.n_pos, geo.trim, i,
+                "entries")
+        before = kernels.LAUNCHES["seed_rows"]
+        got = kernels.seed_rows(*args)
+        assert kernels.LAUNCHES["seed_rows"] == before + 4
+        _equal(got, plain.seed_rows(*args))
+        keys.append(got[0])
+        ids.append(got[1])
+        pays.append(got[2].reshape(-1, geo.Wt + 2))
+    slab = torch.cat(keys), torch.cat(ids), torch.cat(pays)
+    i = chunk
+    args = (rs.reads2[i : i + chunk], valid[i : i + chunk],
+            lengths[i : i + chunk], s, geo.g, geo.n_pos, geo.trim, i,
+            "queries", slab[0], slab[1])
+    rows = kernels.seed_rows(*args)
+    _equal(rows, plain.seed_rows(*args))
+    cont = [torch.zeros(M, dtype=torch.uint8, device=cuda) for _ in range(2)]
+    join = (rows[0], rows[1], rows[2].reshape(-1, geo.Wt + 2), geo.R, geo.g,
+            geo.trim, min_overlap)
+    got = kernels.overlap_join(*join, cont[0], None, slab[2], 0, i)
+    _equal(got, plain.overlap_join(*join, cont[1], None, slab[2], 0, i))
+    assert got[4] > 0 and torch.equal(cont[0], cont[1])
+
+    incore = find_overlaps(rs.reads2, valid, min_overlap, s, 1 << 22,
+                           lengths=lengths)
+    v2, l2 = valid.cpu().numpy(), lengths.cpu().numpy()
+    r2 = rs.reads2.cpu().numpy().astype(np.int8)
+    for block in (None, 3000):
+        e_src, e_dst, e_ovl, n, cont_s, overflow = (
+            stream.find_overlaps_chunked_ragged(
+                r2, v2, l2, min_overlap, chunk, s, 1 << 22,
+                entry_block_reads=block, device=cuda))
+        assert not overflow and n == incore.n_edges
+        for a, b in ((e_src, incore.src), (e_dst, incore.dst),
+                     (e_ovl, incore.ovl)):
+            np.testing.assert_array_equal(a, b[:n].cpu().numpy())
+        np.testing.assert_array_equal(cont_s, incore.contained.cpu().numpy())
+
+
+def test_wrapper_raises_when_its_build_fails(cuda, monkeypatch):
+    """A wrapper given CUDA tensors launches its kernel or raises: with no
+    library and a build that fails it raises, and nothing falls back to
+    its plain version."""
+    keys = torch.arange(10, dtype=torch.int64, device=cuda)
+    counts = torch.ones(10, dtype=torch.int32, device=cuda)
+
+    def fail(specs, *a, **kw):
+        raise native_build.BuildError("nvcc failed")
+
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setattr(native_build, "build_all", fail)
+    with pytest.raises(native_build.BuildError):
+        kernels.prune_table(keys, counts, 2)
+    src = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(native_build.BuildError):
+        kernels.chain_links(src, src, src, 2)

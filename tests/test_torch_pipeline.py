@@ -75,18 +75,19 @@ def test_resume_continues_a_reference_run(runs, stage, tmp_path):
 
 def test_unported_paths_raise(runs):
     """Off the ported path, assemble raises naming the ROADMAP item;
-    ragged reads (``lengths``) and streaming fixed-length reads are on
-    it now and assemble."""
+    ragged reads (``lengths``) and streaming, of fixed-length and of
+    ragged reads, are on it now and assemble."""
     reads = runs[0]
     for cfg, kw in [(AssemblyConfig(mesh_shape=(2,)), {}),
-                    (AssemblyConfig(max_device_reads=5),
-                     {"lengths": np.full(10, reads.shape[1])}),
                     (AssemblyConfig(), {"mate_of": np.arange(10)})]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             assemble(reads[:10], cfg, device="cpu", **kw)
     n = 400
+    full = np.full(n, reads.shape[1])
     _, stats = assemble(reads[:n], AssemblyConfig(), device="cpu",
-                        lengths=np.full(n, reads.shape[1]))
+                        lengths=full)
     assert stats == assemble(reads[:n], AssemblyConfig(), device="cpu")[1]
     assert stats == assemble(reads[:n], AssemblyConfig(max_device_reads=100),
                              device="cpu")[1]
+    assert stats == assemble(reads[:n], AssemblyConfig(max_device_reads=100),
+                             device="cpu", lengths=full)[1]

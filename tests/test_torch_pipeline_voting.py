@@ -89,9 +89,9 @@ def _roadmap_items():
 
 def test_unsupported_names_current_roadmap_items():
     """Both correction rules, every reduce backend, ragged reads, and
-    streaming with entry blocks and a spill dir for fixed-length reads
-    are ported; each remaining refusal names the open ROADMAP item that
-    ports it."""
+    streaming with entry blocks and a spill dir for fixed-length and
+    ragged reads are ported; each remaining refusal names the open
+    ROADMAP item that ports it."""
     for rule in ("single_window", "vote_all_windows"):
         for backend in ("auto", "native", "device"):
             cfg = AssemblyConfig(correction_rule=rule,
@@ -106,14 +106,17 @@ def test_unsupported_names_current_roadmap_items():
         assert _unsupported(cfg, 10, None, None) is None
     assert _unsupported(AssemblyConfig(max_device_reads=10), 10, None,
                         np.full(10, 100)) is None
+    # streamed ragged reads, with entry blocks and a spill dir
+    for cfg in (AssemblyConfig(max_device_reads=5),
+                AssemblyConfig(max_device_reads=5, entry_block_reads=3,
+                               spill_dir="x")):
+        assert _unsupported(cfg, 10, None, np.full(10, 100)) is None
     items = _roadmap_items()
     assert not any("Ragged" in title for title in items.values())
     for cfg, mate_of, lengths, word in [
             (AssemblyConfig(mesh_shape=(2,)), None, None, "parallel"),
             (AssemblyConfig(mesh_shape=(2,), max_device_reads=5), None, None,
              "parallel"),
-            (AssemblyConfig(max_device_reads=5), None, np.full(10, 100),
-             "stream"),
             (AssemblyConfig(), np.arange(10), None, "Paired")]:
         msg = _unsupported(cfg, 10, mate_of, lengths)
         n = int(re.search(r"ROADMAP Queue 1 item (\d+)", msg).group(1))

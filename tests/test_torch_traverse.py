@@ -1,6 +1,8 @@
 """sage2_tpu_torch unitig labeling, its doubling loops (kernel K4's CPU
-path) and the host-native reduction against sage2_tpu (CPU; exact
-equality), on graphs with cycles."""
+path), its links and cycle cut (kernel K18's CPU path) and the
+host-native reduction against sage2_tpu (CPU; exact equality), on graphs
+with cycles, vertices of degree > 1 on both sides, no vertex and only
+padding rows (tests/torch_kernel_cases.py chain_case)."""
 
 import math
 
@@ -17,6 +19,7 @@ from sage2_tpu_torch import kernels
 from sage2_tpu_torch.graph.reduce import transitive_reduction_auto as treduce
 from sage2_tpu_torch.graph.traverse import contract_unitigs as tcontract
 from sage2_tpu_torch.kernels import plain
+from torch_kernel_cases import CHAIN_CASES, chain_case
 
 I32_MAX = 2**31 - 1
 
@@ -47,10 +50,16 @@ def _random_graph(seed, V=400):
     return [(a, b, o) for (a, b), o in edges.items()]
 
 
-@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("seed", [1, 2, 3, *CHAIN_CASES])
 def test_contract_unitigs_matches_reference(seed):
-    V = 400
-    src, dst, ovl = _graph(_random_graph(seed, V), V)
+    """Random graphs (seeds), and K18's cases (names): rings broken at
+    their least vertex, branches of out- and in-degree 2-3 and a
+    self-loop, an empty graph, a graph of padding rows alone."""
+    if isinstance(seed, str):
+        src, dst, ovl, V = chain_case(seed)
+    else:
+        V = 400
+        src, dst, ovl = _graph(_random_graph(seed, V), V)
     j = jcontract(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(ovl), V)
     t = tcontract(torch.from_numpy(src), torch.from_numpy(dst),
                   torch.from_numpy(ovl), V)
@@ -173,3 +182,45 @@ def test_pointer_jump_loop_matches_reference(op, graph, steps):
         np.testing.assert_array_equal(one_v.numpy(), want_v)
     if graph == "chain" and steps > 2:      # every vertex reached the root
         assert not want_p.any()
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_chain_links_and_cut_match_reference_steps(case):
+    """K18's two launches (plain versions) against the reference's own
+    steps: the degrees, the chain links and the initial parents of
+    contract_unitigs (:40-77), and its cycle cut (:96-107) after the
+    `none` and `min` loops."""
+    src, dst, ovl, V = chain_case(case)
+    outdeg, indeg, nxt, ovl_next, p = kernels.chain_links(
+        *(torch.from_numpy(a) for a in (src, dst, ovl)), V)
+    is_edge = src != I32_MAX
+    np.testing.assert_array_equal(
+        outdeg.numpy(), np.bincount(src[is_edge], minlength=V))
+    np.testing.assert_array_equal(
+        indeg.numpy(), np.bincount(dst[is_edge], minlength=V))
+    od, idg = outdeg.numpy(), indeg.numpy()
+    for v in range(V):
+        outs = [(b, o) for a, b, o in zip(src, dst, ovl) if a == v]
+        ins = [a for a, b in zip(src, dst) if b == v and a != I32_MAX]
+        chain_out = len(outs) == 1 and idg[outs[0][0]] == 1
+        assert nxt[v] == (outs[0][0] if chain_out else -1)
+        assert ovl_next[v] == (outs[0][1] if chain_out else 0)
+        chain_in = len(ins) == 1 and od[ins[0]] == 1
+        assert p[v] == (ins[0] if chain_in else v)
+    steps = max(1, math.ceil(math.log2(max(V, 2))) + 1)
+    ids = np.arange(V, dtype=np.int32)
+    pf, _ = _reference_loop(p.numpy(), None, "none", steps)
+    _, m = _reference_loop(p.numpy(), ids, "min", steps)
+    want_nxt, want_ovl = nxt.numpy().copy(), ovl_next.numpy().copy()
+    breaker = (p.numpy()[pf] != pf) & (m == ids)
+    want_nxt[p.numpy()[breaker]] = -1
+    want_ovl[p.numpy()[breaker]] = 0
+    want_p = np.where(breaker, ids, p.numpy())
+    got_p, d0 = kernels.chain_cut(p, torch.from_numpy(pf.copy()),
+                                  torch.from_numpy(m.copy()), nxt, ovl_next)
+    np.testing.assert_array_equal(got_p.numpy(), want_p)
+    np.testing.assert_array_equal(d0.numpy(), want_p != ids)
+    np.testing.assert_array_equal(nxt.numpy(), want_nxt)
+    np.testing.assert_array_equal(ovl_next.numpy(), want_ovl)
+    if case == "rings":   # two rings are cut; the chain into the third
+        assert int(breaker.sum()) == 2      # gives it no chain cycle

@@ -119,7 +119,7 @@ def _tiled(genome: np.ndarray, L: int, copies: int) -> np.ndarray:
     return genome[starts[:, None] + np.arange(L)[None, :]]
 
 
-def vote_case(case: str, seed: int = 0):
+def vote_case(case: str, seed: int = 0, k: int = None):
     """(reads (N, L) int32, lengths (N,) int32 or None, keys, counts, k,
     threshold, truth (N, L) int32) for kernel K5: error-free reads
     tiling a random genome twice over, so that every window is solid,
@@ -137,9 +137,12 @@ def vote_case(case: str, seed: int = 0):
       unpruned  the table of reads tiling the genome once, not pruned:
                 counts from 1 up, many below the threshold of 3;
       empty     a pruned table with no key (threshold above every count);
-      k31       the errors case at k = 31."""
+      k31       the errors case at k = 31.
+
+    ``k``: the k-mer length of every case but k31 (25 by default)."""
     rng = np.random.default_rng(seed)
-    k, threshold, L = (31 if case == "k31" else 25), 2, 60
+    k = 31 if case == "k31" else (k or 25)
+    threshold, L = 2, 60
     genome = rng.integers(0, 4, 400).astype(np.int32)
     reads = _tiled(genome, L, 1 if case == "unpruned" else 2)
     extra, lengths = [], None
@@ -373,3 +376,67 @@ def reduce_case(case: str, seed: int = 13):
         a[:40], b[:40] = V - 1, V - 2
     return (ok, a.astype(np.int32), b.astype(np.int32), ovl.astype(np.int32),
             L, V, cap)
+
+
+# --- kernel K18 (kernels.chain_links, kernels.chain_cut) -------------------
+
+CHAIN_CASES = ("random", "rings", "branches", "empty", "padding")
+
+
+def chain_case(case: str, seed: int = 0):
+    """(src, dst, ovl int32 padded edge rows sorted by (src, dst), V) for
+    unitig labeling:
+
+      random    chains, branches and a ring among 400 vertices;
+      rings     three cycles (one of two vertices, one of three, one of
+                50) and a chain that runs into the third, which then
+                holds no cycle of chain edges;
+      branches  vertices of out- and in-degree 2 and 3 on both ends of
+                chains, and a vertex with a self-loop;
+      empty     no vertex and no edge;
+      padding   300 vertices and only padding rows."""
+    rng = np.random.default_rng(seed)
+    I32 = 2**31 - 1
+    edges = {}
+    if case == "random":
+        V = 400
+        order = rng.permutation(V)
+        for i in range(300):
+            if rng.random() < 0.9:
+                edges[(int(order[i]), int(order[i + 1]))] = int(
+                    rng.integers(20, 60))
+        ring = [int(v) for v in order[310:330]]
+        for a, b in zip(ring, ring[1:] + ring[:1]):
+            edges[(a, b)] = 33
+        for _ in range(40):
+            a, b = (int(x) for x in rng.integers(0, V, 2))
+            if a != b:
+                edges[(a, b)] = int(rng.integers(20, 60))
+    elif case == "rings":
+        V = 120
+        for ring in ([7, 3], [11, 40, 2], list(range(60, 110))):
+            for a, b in zip(ring, ring[1:] + ring[:1]):
+                edges[(a, b)] = int(rng.integers(20, 60))
+        for a, b in ((20, 21), (21, 22), (22, 60)):
+            edges[(a, b)] = 41
+    elif case == "branches":
+        V = 200
+        for a in range(0, 150, 3):
+            edges[(a, a + 1)] = 30
+            edges[(a + 1, a + 2)] = 31
+            if a % 9 == 0:
+                edges[(a, a + 2)] = 25           # out 2 at a, in 2 at a + 2
+            if a % 27 == 0:
+                edges[(a, 199)] = 26             # out 3 at a, in many at 199
+        edges[(170, 170)] = 44                   # a self-loop
+        edges[(171, 172)] = 45
+    elif case == "empty":
+        V = 0
+    else:
+        V = 300
+    e = sorted(edges)
+    pad = 0 if case == "empty" else 7
+    src = np.array([a for a, _ in e] + [I32] * pad, np.int32)
+    dst = np.array([b for _, b in e] + [I32] * pad, np.int32)
+    ovl = np.array([edges[x] for x in e] + [0] * pad, np.int32)
+    return src, dst, ovl, V
