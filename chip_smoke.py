@@ -8,6 +8,23 @@ Phases (one flushed line each, with its seconds):
   0  the card (nvidia-smi name and power limit) and torch/CUDA versions;
   1  build the nineteen CUDA kernels (nvcc, sm_90a, one process per
      source, all at once) and the host libraries;
+  11 the benches, before anything is kept on the card: bench_gpu.py
+     (the overlap join of 16 shards of 100,000 reads against the C++
+     baseline, one shard a call and all 16 through
+     find_overlaps_stacked; every shard's verified count equal to the
+     baseline's, asserted inside it; shard 0's 680,790 asserted here)
+     and bench_e2e_gpu.py (phase 4's assembly without artifacts; its
+     N50 and contig count asserted equal to phase 4's once phase 4 has
+     run), each a subprocess whose JSON line is printed with a prefix;
+     then in this process the bench's 16 shards at the bench's capacity
+     through find_overlaps_stacked under
+     torch.cuda.set_sync_debug_mode("error") (no host synchronisation
+     from its first launch to its return), shard 0's row bit-equal to
+     find_overlaps at that capacity, counts included. Its kernels (K13
+     and K3 in their fixed-capacity modes, K14 deferred) are phase 2's
+     rows "seed_rows:stacked", "overlap_join:stacked" and
+     "longest_edges:deferred" (shard 0's inputs; K14's with a copy of
+     1% of the ok rows at an overlap one shorter, so that n_dups > 0);
   3  the overlap join at the bench's shard 0 (100,000 reads x 100 bp,
      genome 222,222 bp, seeds 7/8, min_overlap 40, seed 32): asserts the
      reference's 1,044,016 candidates and 680,790 verified overlaps; the
@@ -100,7 +117,9 @@ Phases (one flushed line each, with its seconds):
      count_from_keys makes after the kernel.
 
 Each path runs with the launch counts set to 0 just before it and read
-just after it: phase 4 for K1-K4, K8 and K11-K18, phase 5 for K5-K7,
+just after it: phase 11 for K13, K3 and K14 in the stacked path's
+modes (the sync-checked call), phase 4 for K1-K4, K8 and K11-K18,
+phase 5 for K5-K7,
 K12-K15 and K18, phase 7 for P1, phases 8a and 8b for the ragged path
 (K12 to K18 too), 10a and 10b for the streamed path (K9-K11 with K1,
 K2, K8, K4, K14, K15 and K18, and K16-K17 or K5-K7), 10c and 10d for
@@ -233,7 +252,19 @@ KERNEL_INFO = {
                           "10c"),
     "overlap_join:streamed": (_CSRC + "overlap_join.cu",
                               "sage2_tpu/stream.py:847", "10c"),
+    "seed_rows:stacked": (_CSRC + "seed_rows.cu",
+                          "sage2_tpu/overlap/detect.py:1108", "11"),
+    "overlap_join:stacked": (_CSRC + "overlap_join.cu",
+                             "sage2_tpu/overlap/detect.py:1108", "11"),
+    "longest_edges:deferred": (_CSRC + "longest_edges.cu",
+                               "sage2_tpu/overlap/detect.py:1015", "11"),
 }
+# the wrapper of each row whose kernel is called through another wrapper
+# than its own name
+WRAPPER = {"chain_links:cut": "chain_cut",
+           "seed_rows:stacked": "seed_rows_stacked",
+           "overlap_join:stacked": "overlap_join_stacked",
+           "longest_edges:deferred": "longest_edges_deferred"}
 for _n, _w, _a in PROBE_SHAPES:
     KERNEL_INFO[f"gather_along:{_a}:{_n}x{_w}"] = (
         _CSRC + "gather_along.cu", "scripts/probe_pallas_gather.py:73", "7")
@@ -274,6 +305,8 @@ PATHS = {
             "fix_windows"],
     "10d": [*_STREAMED_RAGGED, "vote_windows:ragged", "reduce_counts:ragged",
             "reduce_marks:ragged"],
+    "11": ["seed_rows:stacked", "overlap_join:stacked",
+           "longest_edges:deferred"],
 }
 # every kernel of a path is held against its plain version at that
 # path's shapes: a second row "<key>:<path>" where its first row comes
@@ -437,7 +470,10 @@ class Capture:
     (``kernels.LAUNCHES``) by key."""
 
     # wrappers outside KERNELS, and the kernel whose launches they count
-    EXTRA = {"lookup_directory": "lookup_counts", "chain_cut": "chain_links"}
+    EXTRA = {"lookup_directory": "lookup_counts", "chain_cut": "chain_links",
+             **{w: k.split(":")[0] for k, w in WRAPPER.items()}}
+    # the row key of a wrapper's calls where it is not the kernel's name
+    KEY_OF = {w: k for k, w in WRAPPER.items()}
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -447,6 +483,7 @@ class Capture:
         self.args: dict = {}
         self.phase = None
         self.depth = 0          # wrapped calls in progress
+        self.keeping = True     # False: count only (copies would sync)
         self.entry_base = 0     # the first read of the last seed table
         self.launches = {base_key(row): 0 for row in KERNEL_INFO}
         self.calls = dict.fromkeys(self.launches, 0)    # non-empty ones
@@ -483,17 +520,17 @@ class Capture:
 
         def counted(*args, **kw):
             # keyword arguments (a stage's DeviceSplit) are not kept
-            key = name
+            key = self.KEY_OF.get(attr, name)
             size = sum(a.numel() for a in args
                        if isinstance(a, torch.Tensor))
-            if name == "pointer_jump":
+            if key != name:
+                pass                             # a mode of its own
+            elif name == "pointer_jump":
                 key = f"{name}:{args[2] if len(args) > 2 else 'none'}"
             elif name == "gather_along":
                 key = f"{name}:{args[2]}:{args[0].shape[0]}x{args[0].shape[1]}"
             elif name == "reduce_marks":
                 size += args[-1] - args[-2]      # the slot range
-            elif attr == "chain_cut":
-                key = "chain_links:cut"
             elif name == "seed_rows" and len(args) > 8 and args[8] != "all":
                 key = f"{name}:{args[8]}"        # the streamed join's rows
             elif name == "overlap_join" and len(args) > 9 and isinstance(
@@ -518,7 +555,8 @@ class Capture:
             kept = self.args.get(row)
             # the directory alone is no K2 call: its launch counts, and the
             # K2 row takes other inputs (see phase 2)
-            keep = row in KERNEL_INFO and attr != "lookup_directory" and (
+            keep = self.keeping and row in KERNEL_INFO and (
+                attr != "lookup_directory") and (
                 kept is None or rank > kept[0])
             if keep:        # copied before the call: some update in place
                 self._drop(row)
@@ -616,6 +654,24 @@ def work(key: str, args: tuple, total=0):
     the candidates (K3, K10), marks set (K7) or unique keys (K11) of
     the call, or for K5 its vote_pairs."""
     name = key.split(":")[0]
+    if key == "seed_rows:stacked":
+        reads2, _, s, g, n_pos, trim = args
+        M, L = reads2.shape
+        n = M * (g + n_pos)
+        Wt = -(-(L - g) // 16) - trim
+        # codes and flags in; every row's payload, and the whole buffer's
+        # keys and ids (live and dead) out; the row build and the sort of
+        # the whole buffer
+        return (reads2.numel() * 4 + M + n * (Wt + 2) * 4 + n * 12,
+                n * (Wt + 4) * 3 + n * max(1, math.ceil(math.log2(n + 1)))
+                * 2)
+    if key == "overlap_join:stacked":
+        s_keys, _, payload, _, _, _, _, _, capacity = args
+        n, W = s_keys.numel(), payload.shape[1]
+        # the buffer's keys and ids and the payload in; exactly
+        # `capacity` slots (13 bytes) out
+        return (n * 12 + payload.numel() * 4 + capacity * 13,
+                n * 8 + total * (6 * (W - 2) + 22))
     if key == "kmer_keys":
         reads, k = args
         N, L = reads.shape
@@ -921,6 +977,21 @@ def main() -> int:
     if not flow_native.available():
         raise RuntimeError("native flow solver did not build")
     phase("1 build", t0, kernels=len(kernels.KERNELS))
+    capture = Capture(kernels)
+
+    # --- phase 11: the benches (before anything is kept on the card) ----
+    t0 = time.perf_counter()
+    bench = run_bench("bench_gpu.py")
+    if bench["detail"]["verified_overlaps_shard0"] != SHARD0_VERIFIED:
+        raise AssertionError(f"bench_gpu.py: shard 0 verified "
+                             f"{bench['detail']['verified_overlaps_shard0']}"
+                             f", expected {SHARD0_VERIFIED}")
+    e2e = run_bench("bench_e2e_gpu.py")
+    stacked = stacked_checks(capture, kernels, dev)
+    launches_by_key = {"11": stacked.pop("launches")}
+    phase("11 benches", t0, amortized_reads_per_s=bench["value"],
+          vs_baseline=bench["vs_baseline"],
+          e2e_s=e2e["value"], **stacked)
 
     # --- inputs (set-up, not part of any phase) -------------------------
     t0 = time.perf_counter()
@@ -938,8 +1009,6 @@ def main() -> int:
                               error_rate=e["error_rate"], seed=e["seeds"][1])
     phase("inputs", t0, shard0_genome=g_len, shard0_reads=shard0.shape[0],
           ecoli_reads=reads.shape[0])
-
-    capture = Capture(kernels)
 
     # --- phase 3: overlap join at the bench's shard 0 -------------------
     t0 = time.perf_counter()
@@ -997,7 +1066,7 @@ def main() -> int:
         contigs, stats = assemble(reads, AssemblyConfig(), outdir=outdir,
                                   metrics=log, device="cuda")
         launches = dict(kernels.LAUNCHES)
-        launches_by_key = {"4": capture.path_launches("4")}
+        launches_by_key["4"] = capture.path_launches("4")
         t_asm = time.perf_counter() - t0
         with open(os.path.join(outdir, "stats.json")) as f:
             json.load(f)
@@ -1008,6 +1077,12 @@ def main() -> int:
                     genome, genome_fraction)
     peaks = {"4": peak_gib()}
     incore = {"4": (contigs, stats)}
+    got = {k: e2e["detail"][k] for k in ("n50", "n_contigs")}
+    if got != {k: stats[k] for k in got}:
+        raise AssertionError(f"bench_e2e_gpu.py: {got} differs from phase "
+                             f"4's n50 {stats['n50']}, n_contigs "
+                             f"{stats['n_contigs']}")
+    say(f"  bench_e2e_gpu.py's n50 and n_contigs equal phase 4's: {got}")
 
     # --- phase 5: voting corrector + device reduction -------------------
     t0 = time.perf_counter()
@@ -1215,7 +1290,9 @@ def main() -> int:
             args = k2_inputs(capture, path)
         else:
             args = capture.inputs(row)      # freed after its row
-        fn = "chain_cut" if key == "chain_links:cut" else name
+        if key == "longest_edges:deferred":
+            args = with_duplicates(args)
+        fn = WRAPPER.get(key, name)
         wrapper = getattr(kernels, fn)
         ref = getattr(plain, fn)
 
@@ -1235,7 +1312,7 @@ def main() -> int:
             raise AssertionError(f"{row}: kernel differs from its plain "
                                  f"version (max abs err {err})")
         if name in ("overlap_join", "probe_join"):
-            total = got[4]
+            total = int(got[4])
         elif name == "reduce_marks":            # marks this range sets
             total = int((got != unmarked).sum())
         elif name == "merge_runs":              # unique keys
@@ -1244,10 +1321,12 @@ def main() -> int:
             total = vote_pairs(args)
         elif name == "dedup_reads":             # unique reads
             total = got[3]
-        elif name == "seed_rows":               # live seed rows
+        elif key == "seed_rows:stacked":        # live seed rows
+            total = int(got[3])
+        elif name == "seed_rows":
             total = got[0].numel()
         elif name == "longest_edges":           # edges kept
-            total = got[3]
+            total = int(got[3])
         elif name == "prune_table":             # entries kept
             total = got[0].numel()
         elif name == "weak_windows":            # weak windows
@@ -1334,6 +1413,8 @@ def main() -> int:
             + f" (phase {path}), inputs {shape}" + per_step
             + (f", {total} candidates" if name in ("overlap_join",
                                                    "probe_join") else "")
+            + (f", {int(got[4])} duplicate rows" if key ==
+               "longest_edges:deferred" else "")
             + ({"dedup_reads": f", {total} unique reads",
                 "seed_rows": f", {total} live rows",
                 "longest_edges": f", {total} edges",
@@ -1355,6 +1436,105 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_bench(script: str) -> dict:
+    """Run a bench of the repo (a sibling of this file) at its defaults
+    in a subprocess; print its standard error indented and its JSON line
+    with a prefix; return the parsed line. Raises on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.join(root, script)],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=900)
+    for line in res.stderr.splitlines()[-40:]:
+        say(f"  {script}: {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"{script} exited {res.returncode}")
+    lines = [x for x in res.stdout.splitlines() if x.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"{script} printed {len(lines)} lines: {lines}")
+    say(f"  {script} JSON ({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    return json.loads(lines[0])
+
+
+def stacked_checks(capture, kernels, dev) -> dict:
+    """The bench's 16 shards (bench_gpu.py's inputs) through
+    find_overlaps_stacked at the bench's capacity (shard 0's candidates
+    + 6% on a 64k grain, doubled while a shard overflows): once to keep
+    shard 0's kernel inputs for phase 2, once with the launch counts
+    reset under torch.cuda.set_sync_debug_mode("error"), which raises at
+    any host synchronisation. Shard 0's row must equal find_overlaps at
+    that capacity, counts included, and no shard keep a duplicate row.
+    Returns the phase's fields and the path's launches."""
+    import numpy as np
+    import torch
+
+    from sage2_tpu_torch.data import simulate_genome, simulate_reads
+    from sage2_tpu_torch.overlap import find_overlaps, find_overlaps_stacked
+
+    s = SHARD0
+    n_stack = 16
+    g_len = int(s["n_reads"] * s["read_len"] / s["coverage"])
+    shards = []
+    for kk in range(n_stack):
+        genome = simulate_genome(g_len, seed=s["seeds"][0] + 1000 * kk)
+        rd, _ = simulate_reads(genome, read_len=s["read_len"],
+                               coverage=s["coverage"],
+                               error_rate=s["error_rate"],
+                               seed=s["seeds"][1] + 1000 * kk)
+        shards.append(rd[: s["n_reads"]].astype(np.int32))
+    reads3 = torch.from_numpy(np.stack(shards)).to(dev)
+    valid3 = torch.ones(reads3.shape[:2], dtype=torch.bool, device=dev)
+    del shards
+    cap = -(-int(SHARD0_CANDIDATES * 1.06) // (1 << 16)) * (1 << 16)
+
+    def run():
+        out = find_overlaps_stacked(reads3, valid3, s["min_overlap"], 32,
+                                    capacity=cap, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    capture.reset_launch_counts("11")
+    capture.keeping = False
+    while bool(run()[6].any()):
+        cap *= 2
+    capture.keeping = True              # shard 0's inputs for phase 2
+    run()
+    capture.keeping = False
+    capture.reset_launch_counts("11")
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = find_overlaps_stacked(reads3, valid3, s["min_overlap"], 32,
+                                    capacity=cap, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t_stacked = time.perf_counter() - t1
+    launches = capture.path_launches("11")
+    res = find_overlaps(reads3[0], valid3[0], s["min_overlap"], 32,
+                        capacity=cap)
+    torch.cuda.synchronize()
+    capture.keeping = True
+    fields = ("src", "dst", "ovl", "n_edges", "n_candidates", "n_verified",
+              "overflow", "n_dups")
+    for i, name in enumerate(fields):
+        want = getattr(res, name)
+        got = out[i][0]
+        if not (torch.equal(got, want) if isinstance(want, torch.Tensor)
+                else got.item() == want):
+            raise AssertionError(f"find_overlaps_stacked shard 0 differs "
+                                 f"from find_overlaps in {name}")
+    if bool(out[6].any()) or bool(out[7].any()):
+        raise AssertionError("find_overlaps_stacked: an overflow or "
+                             "duplicate rows in the bench's shards")
+    verified = out[5].cpu().tolist()
+    return {"sync_free": True, "capacity": cap,
+            "stacked_s": f"{t_stacked:.4f}",
+            "shard0_equal_to_find_overlaps": True,
+            "verified": json.dumps(verified),
+            "launches": launches}
 
 
 def card_state() -> str:
@@ -1403,6 +1583,20 @@ def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
         f"{json.dumps(REFERENCE_ASSEMBLY)})")
     if gf < 0.99:
         raise AssertionError(f"{label}: genome_fraction {gf} < 0.99")
+
+
+def with_duplicates(args: tuple) -> tuple:
+    """K14's deferred-mode inputs with a copy of every 100th ok candidate
+    behind them at an overlap one shorter, and the capacity grown by as
+    many: each copy is a pair verified at two lengths, so the row has
+    duplicate rows to keep (the bench's shards have none)."""
+    import torch
+
+    ok, a, b, ovl, n_vertices, read_len, capacity = args
+    pick = torch.nonzero(ok).flatten()[::100]
+    ok, a, b = (torch.cat([x, x[pick]]) for x in (ok, a, b))
+    ovl = torch.cat([ovl, ovl[pick] - 1])
+    return ok, a, b, ovl, n_vertices, read_len, capacity + pick.numel()
 
 
 def k2_inputs(capture, path: str) -> tuple:

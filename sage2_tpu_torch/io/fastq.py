@@ -1,6 +1,10 @@
 """FASTA/FASTQ(.gz) ingest: parse -> code arrays (port of
-sage2_tpu/io/fastq.py, the pure-Python reader; the reference's native
-C++ parser is not part of the port yet).
+sage2_tpu/io/fastq.py). ``read_fastq`` takes the native C++ parser
+(``io.native``) where a compiler is installed, the pure-Python reader
+below otherwise; ``read_fasta`` and the ragged loader are Python, as in
+the reference (the native FASTA parser keeps spaces around sequence
+lines and drops sequence text before the first header; the Python
+reader strips the one and keeps the other).
 
 Fixed-length reads become (N, L) int8 code arrays ('N' -> A, matching
 encode_ascii); ragged inputs are either trimmed/filtered to the
@@ -149,12 +153,17 @@ def load_reads_ragged(paths: Sequence[str]):
 
 
 def read_fastq(path: str, length_policy: str = "strict") -> np.ndarray:
-    """FASTQ(.gz) -> (N, L) int8 codes."""
+    """FASTQ(.gz) -> (N, L) int8 codes. Prefers the native C++ parser."""
+    from sage2_tpu_torch.io import native
+
+    if native.available():
+        return native.parse_fastq(path, length_policy)
     with _open(path) as f:
         return _to_array(_parse_fastq_py(f.read()), length_policy)
 
 
 def read_fasta(path: str, length_policy: str = "strict") -> np.ndarray:
+    """FASTA(.gz) -> (N, L) int8 codes (the Python reader)."""
     with _open(path) as f:
         return _to_array(_parse_fasta_py(f.read()), length_policy)
 

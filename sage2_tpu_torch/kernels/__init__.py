@@ -6,7 +6,8 @@ Nineteen kernels (sources in ``kernels/csrc``):
   K2 ``lookup_counts``  count of each query key in a count table: bucket
                         directory and bucketed search (two launches)
   K3 ``overlap_join``   run accounting, expansion and verify of the
-                        sorted overlap seed rows (two launches)
+                        sorted overlap seed rows (two launches;
+                        ``overlap_join_stacked`` the fixed-capacity mode)
   K4 ``pointer_jump``   a whole pointer-doubling loop of unitig labeling
                         (one cooperative launch)
   K5 ``vote_windows``   one round of the covering-window voting corrector:
@@ -31,10 +32,12 @@ Nineteen kernels (sources in ``kernels/csrc``):
                         launches)
   K13 ``seed_rows``     seed keys, live flags and payload rows of the
                         overlap join, and the live rows in the join's
-                        sort order (five launches around one torch.sort)
+                        sort order (five launches around one torch.sort;
+                        ``seed_rows_stacked`` the fixed-capacity mode)
   K14 ``longest_edges`` longest overlap per (src, dst) of the join's
                         candidates, compacted and padded (launches around
-                        one torch.sort, two for wide vertex ids)
+                        one torch.sort, two for wide vertex ids;
+                        ``longest_edges_deferred`` keeps every ok row)
   K15 ``prune_table``   the solid entries of a sorted count table, in
                         table order (count, scan, write)
   K16 ``weak_windows``  flat indices of the weak windows of a correction
@@ -56,7 +59,9 @@ to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 ``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
 ``probe_join`` launch two per call, K12-K16 more; ``lookup_directory``,
 K2's first launch, builds the directory that K16 and K17 share, and
-``chain_cut`` counts as a ``chain_links`` launch). K12 and K13 take a
+``chain_cut`` counts as a ``chain_links`` launch; the fixed-capacity and
+deferred modes of K3, K13 and K14, find_overlaps_stacked's, count as
+their kernel's launches and read nothing to the host). K12 and K13 take a
 ``split`` (utils.metrics.DeviceSplit) that marks the end of their sort
 and of their grouping or row build.
 
@@ -107,6 +112,9 @@ _ARGTYPES = {
         "sage2_join_write": [_P, _P, _I64, _I, _P, _I64, _I, _I, _I, _I64,
                              _P, _P, _P, _I, _I, _I, _I, _I64, _P, _P, _P,
                              _P, _P, _P],
+        "sage2_join_count_fixed": [_P, _P, _I64, _P, _I, _I, _P, _P, _P],
+        "sage2_join_write_fixed": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I64, _P, _P, _P, _P, _P],
     },
     "pointer_jump": {
         "sage2_pointer_jump": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
@@ -161,15 +169,18 @@ _ARGTYPES = {
         "sage2_scan_tiles": [_P, _I64, _P, _P],
         "sage2_seed_compact": [_P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P,
                                _P, _P],
+        "sage2_seed_compact_fixed": [_P, _P, _I64, _I, _I, _P, _P, _P, _P,
+                                     _P],
         "sage2_seed_gather": [_P, _P, _I64, _P, _P],
     },
     "longest_edges": {
         "sage2_edge_keys": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
         "sage2_edge_pairs": [_P, _P, _P, _P, _I64, _P, _P],
         "sage2_edge_count": [_P, _I64, _I, _P, _P],
+        "sage2_edge_count_deferred": [_P, _I64, _I, _P, _P, _P],
         "sage2_scan_tiles": [_P, _I64, _P, _P],
         "sage2_edge_write": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P,
-                             _I64, _P, _P, _P, _P],
+                             _I64, _I, _P, _P, _P, _P],
     },
     "prune_table": {
         "sage2_prune_count": [_P, _I64, _I, _P, _P],
@@ -448,6 +459,52 @@ def overlap_join(
             payload.shape[1], n, _ptr(counts), _ptr(ebase), _ptr(starts),
             R, g, trim, min_overlap, n_out, _ptr(ok), *map(_ptr, cand),
             _ptr(contained), _stream())
+    LAUNCHES["overlap_join"] += 1
+    return (ok, *cand, total)
+
+
+def overlap_join_stacked(
+    s_keys: torch.Tensor, s_rows: torch.Tensor, payload: torch.Tensor,
+    n_live: torch.Tensor, R: int, g: int, trim: int, min_overlap: int,
+    capacity: int,
+):
+    """(ok bool, cand_a, cand_b, ovl int32, each (capacity,), total 0-d
+    int64): the fixed-capacity mode of ``overlap_join`` over
+    ``seed_rows_stacked``'s buffer, whose first ``n_live`` (a 0-d int64
+    tensor) rows are live. The count stays on the card: the first
+    min(total, capacity) slots are the candidates, the rest not ok with
+    a, b and ovl 0 (see plain.overlap_join_stacked). Kernel K3, two
+    launches around a torch.cumsum; nothing waits on the host."""
+    if _on_cpu(s_keys, s_rows, payload, n_live):
+        return plain.overlap_join_stacked(s_keys, s_rows, payload, n_live, R,
+                                          g, trim, min_overlap, capacity)
+    _dtype(s_keys, torch.int64, "s_keys")
+    _dtype(s_rows, torch.int32, "s_rows")
+    _dtype(payload, torch.int32, "payload")
+    _dtype(n_live, torch.int64, "n_live")
+    dev = s_keys.device
+    n = s_keys.shape[0]
+    ok = torch.empty(capacity, dtype=torch.bool, device=dev)
+    cand = [torch.empty(capacity, dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    if n == 0:
+        ok.zero_()
+        for c in cand:
+            c.zero_()
+        return (ok, *cand, torch.zeros((), dtype=torch.int64, device=dev))
+    counts = torch.empty(n, dtype=torch.int32, device=dev)
+    ebase = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("overlap_join", "sage2_join_count_fixed", _ptr(s_keys),
+            _ptr(s_rows), n, _ptr(n_live), R, g, _ptr(counts), _ptr(ebase),
+            _stream())
+    LAUNCHES["overlap_join"] += 1
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
+    starts = offsets - counts
+    total = offsets[-1]
+    _launch("overlap_join", "sage2_join_write_fixed", _ptr(s_rows),
+            _ptr(payload), payload.shape[1], n, _ptr(counts), _ptr(ebase),
+            _ptr(starts), _ptr(total), R, g, trim, min_overlap, capacity,
+            _ptr(ok), *map(_ptr, cand), _stream())
     LAUNCHES["overlap_join"] += 1
     return (ok, *cand, total)
 
@@ -972,6 +1029,55 @@ def dedup_reads(
     return uniq, mult, vertex_of_read, int(total), lens_u
 
 
+def _check_seed_rows(L: int, s: int, g: int, n_pos: int, n_ids: int):
+    """K13's checks of the geometry, on either device."""
+    for pos in plain.seed_positions(g, n_pos):
+        if pos + s > L:
+            raise ValueError(f"seed position {pos} + seed length {s} "
+                             f"exceeds read length {L}")
+    if n_ids >= (1 << 31) - 1:
+        raise ValueError(f"seed rows {n_ids} overflow 31-bit row ids")
+
+
+def _seed_rows_scan(reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw,
+                    split=None):
+    """K13's first passes, shared by ``seed_rows`` and
+    ``seed_rows_stacked``: (keys int64 (M Rw,), live uint8 (M Rw,),
+    payload (M, Rw, Wt + 2) int32, tile counts, total) with the keys,
+    live flags and payload rows from one launch and the live rows of each
+    tile counted and scanned (total 0 where there are no rows)."""
+    M, L = reads2.shape
+    _dtype(reads2, torch.int32, "reads2")
+    _dtype(valid2, torch.bool, "valid2")
+    if not 1 <= s <= 32:
+        raise ValueError(f"seed length {s} outside [1, 32]")
+    W = -(-L // 16)
+    if 8 * W * 4 > 48 * 1024:
+        raise ValueError(f"reads of length {L} need more shared memory "
+                         f"than K13 takes")
+    dev = reads2.device
+    Wt = -(-(L - g) // 16) - trim
+    n = M * Rw
+    keys = torch.empty(n, dtype=torch.int64, device=dev)
+    live = torch.empty(n, dtype=torch.uint8, device=dev)
+    payload = torch.empty((M, Rw, Wt + 2), dtype=torch.int32, device=dev)
+    counts, total = _tile_scan(n, dev)
+    if n:
+        _launch("seed_rows", "sage2_seed_rows", _ptr(reads2), _ptr(valid2),
+                _ptr(lengths), M, L, s, g, n_pos, trim, t0, Rw, _ptr(keys),
+                _ptr(live), _ptr(payload), _stream())
+        LAUNCHES["seed_rows"] += 1
+    mark_part(split, "seed_rows")
+    if n:
+        _launch("seed_rows", "sage2_seed_count", _ptr(live), M, g, n_pos, Rw,
+                _ptr(counts), _stream())
+        LAUNCHES["seed_rows"] += 1
+        _scan_tiles("seed_rows", counts, total)
+    else:
+        total.zero_()
+    return keys, live, payload, counts, total
+
+
 def seed_rows(
     reads2: torch.Tensor, valid2: torch.Tensor,
     lengths: Optional[torch.Tensor], s: int, g: int, n_pos: int, trim: int,
@@ -996,47 +1102,29 @@ def seed_rows(
     "queries", ``prior_keys``/``prior_ids`` (a slab's) go before the
     chunk's live rows into the sort."""
     M, L = reads2.shape
-    R = g + n_pos
     if rows not in plain.SEED_ROW_KINDS:
         raise ValueError(f"unknown seed rows {rows!r}")
     if (prior_keys is None) != (prior_ids is None) or (
             prior_keys is not None and rows != "queries"):
         raise ValueError("prior_keys and prior_ids go together, with "
                          "rows='queries'")
-    for pos in plain.seed_positions(g, n_pos):
-        if pos + s > L:
-            raise ValueError(f"seed position {pos} + seed length {s} "
-                             f"exceeds read length {L}")
-    if (id_base + M) * R >= (1 << 31) - 1:
-        raise ValueError(f"seed rows {(id_base + M) * R} overflow 31-bit "
-                         f"row ids")
+    _check_seed_rows(L, s, g, n_pos, (id_base + M) * (g + n_pos))
     tensors = (reads2, valid2) + (() if lengths is None else (lengths,)) + (
         () if prior_keys is None else (prior_keys, prior_ids))
     if _on_cpu(*tensors):
         return plain.seed_rows(reads2, valid2, lengths, s, g, n_pos, trim,
                                id_base, rows, prior_keys, prior_ids,
                                split=split)
-    _dtype(reads2, torch.int32, "reads2")
-    _dtype(valid2, torch.bool, "valid2")
     if lengths is not None:
         _dtype(lengths, torch.int32, "lengths")
     if prior_keys is not None:
         _dtype(prior_keys, torch.int64, "prior_keys")
         _dtype(prior_ids, torch.int32, "prior_ids")
-    if not 1 <= s <= 32:
-        raise ValueError(f"seed length {s} outside [1, 32]")
-    W = -(-L // 16)
-    if 8 * W * 4 > 48 * 1024:
-        raise ValueError(f"reads of length {L} need more shared memory "
-                         f"than K13 takes")
-    dev = reads2.device
-    Wt = -(-(L - g) // 16) - trim
     t0, Rw = plain.seed_row_span(rows, g, n_pos)
-    n = M * Rw
+    keys, live, payload, counts, total = _seed_rows_scan(
+        reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw, split)
+    dev, n = reads2.device, keys.shape[0]
     n_prior = 0 if prior_keys is None else prior_keys.shape[0]
-    keys = torch.empty(n, dtype=torch.int64, device=dev)
-    live = torch.empty(n, dtype=torch.uint8, device=dev)
-    payload = torch.empty((M, Rw, Wt + 2), dtype=torch.int32, device=dev)
     base = torch.empty(n_prior + n, dtype=torch.int32, device=dev)
     ckeys = torch.empty(n_prior + n, dtype=torch.int64, device=dev)
     if n_prior:
@@ -1044,17 +1132,6 @@ def seed_rows(
         base[:n_prior].copy_(prior_ids)
     n_live = 0
     if n:
-        _launch("seed_rows", "sage2_seed_rows", _ptr(reads2), _ptr(valid2),
-                _ptr(lengths), M, L, s, g, n_pos, trim, t0, Rw, _ptr(keys),
-                _ptr(live), _ptr(payload), _stream())
-        LAUNCHES["seed_rows"] += 1
-    mark_part(split, "seed_rows")
-    if n:
-        counts, total = _tile_scan(n, dev)
-        _launch("seed_rows", "sage2_seed_count", _ptr(live), M, g, n_pos, Rw,
-                _ptr(counts), _stream())
-        LAUNCHES["seed_rows"] += 1
-        _scan_tiles("seed_rows", counts, total)
         _launch("seed_rows", "sage2_seed_compact", _ptr(live), _ptr(keys), M,
                 g, n_pos, t0, Rw, id_base, _ptr(counts),
                 base[n_prior:].data_ptr(), ckeys[n_prior:].data_ptr(),
@@ -1077,29 +1154,51 @@ def seed_rows(
     return s_keys, s_rows, payload
 
 
-def longest_edges(
-    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
-    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+def seed_rows_stacked(
+    reads2: torch.Tensor, valid2: torch.Tensor, s: int, g: int, n_pos: int,
+    trim: int,
 ):
-    """(src, dst, ovl int32 (capacity,), n_edges): the longest overlap of
-    each (src, dst) among the ``ok`` candidates, sorted by (src, dst)
-    and padded with (INT32_MAX, INT32_MAX, 0) (see plain.longest_edges;
-    vertex ids below ``n_vertices``, overlaps up to ``read_len``).
-    Kernel K14: a launch builds each candidate's key (the composite
-    (src, dst, ovl) key, or ovl where 2 db + ob > 63; -1 where not ok),
-    torch.sort orders it (the wide order: a stable sort by ovl, a launch
-    gathering the (src, dst) keys, a second stable sort), and two passes
-    around a scan of the tile counts mark the last row of each (src,
-    dst) run, compact those rows and fill the padding (see
-    kernels/csrc/longest_edges.cu). One host read a call (n_edges)."""
+    """(s_keys int64 (M R,), s_rows int32 (M R,), payload (M, R, Wt + 2)
+    int32, n_live 0-d int64): the fixed-capacity mode of ``seed_rows``
+    (every row of each read, ids m * R + t) for find_overlaps_stacked.
+    The live rows in the join's order come first, dead rows (key
+    INT64_MAX, id -1) fill the buffer behind them, and the whole buffer
+    is sorted stably, so the first ``n_live`` rows are ``seed_rows``'
+    and nothing waits on the host (see plain.seed_rows_stacked). Kernel
+    K13, five launches around one torch.sort."""
+    M, L = reads2.shape
+    R = g + n_pos
+    _check_seed_rows(L, s, g, n_pos, M * R)
+    if _on_cpu(reads2, valid2):
+        return plain.seed_rows_stacked(reads2, valid2, s, g, n_pos, trim)
+    keys, live, payload, counts, total = _seed_rows_scan(
+        reads2, valid2, None, s, g, n_pos, trim, 0, R)
+    dev, n = reads2.device, M * R
+    base = torch.empty(n, dtype=torch.int32, device=dev)
+    ckeys = torch.empty(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return ckeys, base, payload, total[0]
+    _launch("seed_rows", "sage2_seed_compact_fixed", _ptr(live), _ptr(keys),
+            M, g, n_pos, _ptr(counts), _ptr(total), _ptr(base), _ptr(ckeys),
+            _stream())
+    LAUNCHES["seed_rows"] += 1
+    del keys, live
+    s_keys, perm = torch.sort(ckeys, stable=True)
+    del ckeys
+    s_rows = torch.empty(n, dtype=torch.int32, device=dev)
+    _launch("seed_rows", "sage2_seed_gather", _ptr(base), _ptr(perm), n,
+            _ptr(s_rows), _stream())
+    LAUNCHES["seed_rows"] += 1
+    return s_keys, s_rows, payload, total[0]
+
+
+def _longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices: int,
+                   read_len: int, capacity: int, deferred: bool, out):
+    """K14's launches (see ``longest_edges``): (src, dst, ovl, written,
+    keepers), ``written`` the 0-d int64 count of the rows written (the
+    keepers, or in the deferred mode the valid rows), ``keepers`` the
+    deferred mode's keeper count (None otherwise)."""
     n = ok.shape[0]
-    if not (cand_a.shape == cand_b.shape == cand_ovl.shape == (n,)):
-        raise ValueError("ok and the candidate arrays must be (n,) alike")
-    if capacity < n:
-        raise ValueError(f"capacity {capacity} below the {n} candidates")
-    if _on_cpu(ok, cand_a, cand_b, cand_ovl):
-        return plain.longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
-                                   read_len, capacity)
     _dtype(ok, torch.bool, "ok")
     for t in (cand_a, cand_b, cand_ovl):
         _dtype(t, torch.int32, "candidate arrays")
@@ -1123,23 +1222,117 @@ def longest_edges(
                     _stream())
             LAUNCHES["longest_edges"] += 1
         keys, perm2 = torch.sort(keys, stable=True)
-    counts, total = _tile_scan(n, dev)
+    tiles = max(1, -(-n // SCAN_TILE))
+    scratch = (torch.zeros if deferred else torch.empty)(
+        tiles + 2, dtype=torch.int64, device=dev)
+    counts, total = scratch[:tiles], scratch[tiles]
+    keepers = scratch[tiles + 1] if deferred else None
     if n:
-        _launch("longest_edges", "sage2_edge_count", _ptr(keys), n,
-                0 if wide else ob, _ptr(counts), _stream())
+        if deferred:
+            _launch("longest_edges", "sage2_edge_count_deferred", _ptr(keys),
+                    n, 0 if wide else ob, _ptr(counts), _ptr(keepers),
+                    _stream())
+        else:
+            _launch("longest_edges", "sage2_edge_count", _ptr(keys), n,
+                    0 if wide else ob, _ptr(counts), _stream())
         LAUNCHES["longest_edges"] += 1
         _scan_tiles("longest_edges", counts, total)
     else:
         total.zero_()
-    src, dst, ovl = (torch.empty(capacity, dtype=torch.int32, device=dev)
-                     for _ in range(3))
+    src, dst, ovl = out if out is not None else (
+        torch.empty(capacity, dtype=torch.int32, device=dev)
+        for _ in range(3))
     if capacity:
         _launch("longest_edges", "sage2_edge_write", _ptr(keys), n, db, ob,
                 int(wide), _ptr(perm1), _ptr(perm2), _ptr(cand_ovl),
-                _ptr(counts), _ptr(total), capacity, _ptr(src), _ptr(dst),
-                _ptr(ovl), _stream())
+                _ptr(counts), _ptr(total), capacity, int(deferred), _ptr(src),
+                _ptr(dst), _ptr(ovl), _stream())
         LAUNCHES["longest_edges"] += 1
+    return src, dst, ovl, total, keepers
+
+
+def _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, out):
+    n = ok.shape[0]
+    if not (cand_a.shape == cand_b.shape == cand_ovl.shape == (n,)):
+        raise ValueError("ok and the candidate arrays must be (n,) alike")
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} below the {n} candidates")
+    if out is not None:
+        for t in out:
+            _dtype(t, torch.int32, "out")
+            if t.shape != (capacity,) or t.device != ok.device or (
+                    not t.is_contiguous()):
+                raise ValueError("out must be three contiguous (capacity,) "
+                                 "tensors on the candidates' device")
+
+
+def longest_edges(
+    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
+    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+):
+    """(src, dst, ovl int32 (capacity,), n_edges int): the longest overlap
+    of each (src, dst) among the ``ok`` candidates, sorted by (src, dst)
+    and padded with (INT32_MAX, INT32_MAX, 0) (see plain.longest_edges;
+    vertex ids below ``n_vertices``, overlaps up to ``read_len``).
+    Kernel K14: a launch builds each candidate's key (the composite
+    (src, dst, ovl) key, or ovl where 2 db + ob > 63; -1 where not ok),
+    torch.sort orders it (the wide order: a stable sort by ovl, a launch
+    gathering the (src, dst) keys, a second stable sort), and two passes
+    around a scan of the tile counts mark the last row of each (src,
+    dst) run, compact those rows and fill the padding (see
+    kernels/csrc/longest_edges.cu). One host read a call (n_edges)."""
+    _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, None)
+    if _on_cpu(ok, cand_a, cand_b, cand_ovl):
+        return plain.longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
+                                   read_len, capacity)
+    src, dst, ovl, total, _ = _longest_edges(
+        ok, cand_a, cand_b, cand_ovl, n_vertices, read_len, capacity, False,
+        None)
     return src, dst, ovl, int(total)
+
+
+def _longest_edges_unread(ok, cand_a, cand_b, cand_ovl, n_vertices: int,
+                          read_len: int, capacity: int, out):
+    """``longest_edges`` written into ``out`` (three (capacity,) int32
+    tensors, or None), its n_edges a 0-d int32 tensor that nothing waits
+    for: the fallback of the deferred reduction (overlap/detect.py
+    _reduce_fused), which must not read the count to the host."""
+    _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, out)
+    if _on_cpu(ok, cand_a, cand_b, cand_ovl):
+        *res, n = plain.longest_edges(ok, cand_a, cand_b, cand_ovl,
+                                      n_vertices, read_len, capacity)
+        if out is not None:
+            res = [o.copy_(x) for o, x in zip(out, res)]
+        return (*res, torch.tensor(n, dtype=torch.int32))
+    src, dst, ovl, total, _ = _longest_edges(
+        ok, cand_a, cand_b, cand_ovl, n_vertices, read_len, capacity, False,
+        out)
+    return src, dst, ovl, total.to(torch.int32)
+
+
+def longest_edges_deferred(
+    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
+    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+    out=None,
+):
+    """(src, dst, ovl int32 (capacity,), n_edges, n_dups 0-d int32): the
+    deferred mode of ``longest_edges`` (find_overlaps_stacked's, the
+    reference's defer_dup_compact): every ok candidate in (src, dst, ovl)
+    order, padded with (INT32_MAX, INT32_MAX, 0); a pair verified at
+    several lengths keeps all of its rows, its longest last. n_edges
+    counts the pairs (the keepers), n_dups the other rows (see
+    plain.longest_edges_deferred). Kernel K14 with the same launches;
+    the counts stay on the card, so nothing waits on the host."""
+    _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, out)
+    if _on_cpu(ok, cand_a, cand_b, cand_ovl):
+        return plain.longest_edges_deferred(ok, cand_a, cand_b, cand_ovl,
+                                            n_vertices, read_len, capacity,
+                                            out)
+    src, dst, ovl, valid, keepers = _longest_edges(
+        ok, cand_a, cand_b, cand_ovl, n_vertices, read_len, capacity, True,
+        out)
+    return (src, dst, ovl, keepers.to(torch.int32),
+            (valid - keepers).to(torch.int32))
 
 
 def prune_table(keys: torch.Tensor, counts: torch.Tensor,

@@ -23,6 +23,14 @@
 //            and the grid fills the slots from n_edges to the capacity
 //            with (INT32_MAX, INT32_MAX, 0).
 //
+// The deferred mode (find_overlaps_stacked's, detect.py:1050-1054) keeps
+// every valid row: the count pass counts a tile's valid rows (key >= 0)
+// for the scan and adds its keepers (the last row of each run) to a
+// device counter; the write pass copies every valid sorted row, so a
+// (src, dst) pair verified at several lengths keeps all of its rows,
+// the longest last. n_edges (the keepers) and n_dups (valid rows less
+// keepers) stay on the card: nothing waits on the host.
+//
 // Bound: bytes. The candidates (13 bytes each) are read once, the padded
 // edges (12 bytes a slot) written once; the sort's passes move the rest.
 
@@ -71,17 +79,34 @@ __device__ __forceinline__ bool last_of_run(const int64_t* __restrict__ keys,
   return k >= 0 && (i + 1 == n || (keys[i + 1] >> shift) != (k >> shift));
 }
 
+// the rows pass 2 writes: the keepers, or in the deferred mode every
+// valid row
+__device__ __forceinline__ bool written(const int64_t* __restrict__ keys,
+                                        int64_t n, int64_t i, int shift,
+                                        bool deferred) {
+  return deferred ? keys[i] >= 0 : last_of_run(keys, n, i, shift);
+}
+
 __global__ void __launch_bounds__(kThreads)
     edge_count_kernel(const int64_t* __restrict__ keys, int64_t n,
-                      int shift, int64_t* __restrict__ tile_counts) {
+                      int shift, int64_t* __restrict__ tile_counts,
+                      unsigned long long* __restrict__ keepers) {
+  const bool deferred = keepers != nullptr;
   const int64_t i0 = scan_first_item();
-  int count = 0;
+  int count = 0, kept = 0;
   for (int k = 0; k < kScanItems && i0 + k < n; ++k) {
-    count += last_of_run(keys, n, i0 + k, shift);
+    count += written(keys, n, i0 + k, shift, deferred);
+    if (deferred) kept += last_of_run(keys, n, i0 + k, shift);
   }
   int total;
   block_exclusive_scan<int>(count, &total);
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
+  if (deferred) {
+    block_exclusive_scan<int>(kept, &total);
+    if (threadIdx.x == 0 && total) {
+      atomicAdd(keepers, static_cast<unsigned long long>(total));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -91,7 +116,7 @@ __global__ void __launch_bounds__(kThreads)
                       const int32_t* __restrict__ ovl,
                       const int64_t* __restrict__ tile_offsets,
                       const int64_t* __restrict__ n_edges, int64_t capacity,
-                      int32_t* __restrict__ src_out,
+                      bool deferred, int32_t* __restrict__ src_out,
                       int32_t* __restrict__ dst_out,
                       int32_t* __restrict__ ovl_out) {
   const int shift = wide ? 0 : ob;
@@ -99,7 +124,7 @@ __global__ void __launch_bounds__(kThreads)
   bool keep[kScanItems];
   int count = 0;
   for (int k = 0; k < kScanItems; ++k) {
-    keep[k] = i0 + k < n && last_of_run(keys, n, i0 + k, shift);
+    keep[k] = i0 + k < n && written(keys, n, i0 + k, shift, deferred);
     count += keep[k];
   }
   int total;
@@ -165,28 +190,42 @@ SAGE2_EXPORT int sage2_edge_count(const void* keys, int64_t n, int shift,
   edge_count_kernel<<<scan_tiles_of(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), n, shift,
-      static_cast<int64_t*>(tile_counts));
+      static_cast<int64_t*>(tile_counts), nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The deferred mode's count pass: tile_counts gets the valid rows of each
+// tile, and keepers (one int64, zeroed by the caller) their keepers.
+SAGE2_EXPORT int sage2_edge_count_deferred(const void* keys, int64_t n,
+                                           int shift, void* tile_counts,
+                                           void* keepers, void* stream) {
+  edge_count_kernel<<<scan_tiles_of(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), n, shift,
+      static_cast<int64_t*>(tile_counts),
+      static_cast<unsigned long long*>(keepers));
   return static_cast<int>(cudaGetLastError());
 }
 
 // tile_offsets: the scanned tile counts; n_edges: the scan's total;
 // perm1, perm2: the wide order's two sort permutations (NULL otherwise),
-// through which ovl is read; src, dst, ovl_out: (capacity,) int32,
+// through which ovl is read; deferred: write every valid row (the counts
+// of sage2_edge_count_deferred); src, dst, ovl_out: (capacity,) int32,
 // capacity >= n.
 SAGE2_EXPORT int sage2_edge_write(const void* keys, int64_t n, int db, int ob,
                                   int wide, const void* perm1,
                                   const void* perm2, const void* ovl,
                                   const void* tile_offsets,
                                   const void* n_edges, int64_t capacity,
-                                  void* src, void* dst, void* ovl_out,
-                                  void* stream) {
+                                  int deferred, void* src, void* dst,
+                                  void* ovl_out, void* stream) {
   edge_write_kernel<<<scan_tiles_of(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), n, db, ob, wide != 0,
       static_cast<const int64_t*>(perm1), static_cast<const int64_t*>(perm2),
       static_cast<const int32_t*>(ovl),
       static_cast<const int64_t*>(tile_offsets),
-      static_cast<const int64_t*>(n_edges), capacity,
+      static_cast<const int64_t*>(n_edges), capacity, deferred != 0,
       static_cast<int32_t*>(src), static_cast<int32_t*>(dst),
       static_cast<int32_t*>(ovl_out));
   return static_cast<int>(cudaGetLastError());

@@ -45,18 +45,37 @@
 // map; the in-core join passes one payload with both bases 0 and both
 // strides R, which is the row id itself.
 //
+// The fixed-capacity mode (find_overlaps_stacked, detect.py:1108) reads
+// no count on the host: the rows come as K13's fixed buffer of M * R,
+// the live rows first and the live count in device memory, and the count
+// pass stops there (a live all-T seed and a dead row share the key
+// INT64_MAX). The write pass reads the total (the last offset) from
+// device memory and writes exactly `capacity` slots: the candidates
+// below min(total, capacity), then not-ok slots (a, b, ovl 0). Nothing
+// waits on the host.
+//
 // Bound: bytes. The count pass reads each key and row id about twice;
 // the write pass reads one payload row per query and one per candidate
 // (Wt + 2 words each) and writes 13 bytes per candidate.
 
 #include "common.cuh"
 
+// n_live: NULL (every row live), or the live rows at the front of the n
+// in device memory; the rows behind them count 0.
 __global__ void join_count_kernel(const int64_t* __restrict__ keys,
                                   const int32_t* __restrict__ rows,
-                                  int64_t n, int R, int g,
+                                  int64_t n_rows,
+                                  const int64_t* __restrict__ n_live,
+                                  int R, int g,
                                   int32_t* __restrict__ counts,
                                   int32_t* __restrict__ ebase) {
-  SAGE2_GRID_STRIDE(i, n) {
+  const int64_t n = n_live == nullptr ? n_rows : *n_live;
+  SAGE2_GRID_STRIDE(i, n_rows) {
+    if (i >= n) {       // a dead row of the fixed buffer
+      counts[i] = 0;
+      ebase[i] = 0;
+      continue;
+    }
     const int64_t key = keys[i];
     if (i > 0 && keys[i - 1] == key) continue;  // not a run head
     int64_t j = i;
@@ -99,10 +118,22 @@ __global__ void join_write_kernel(
     const int32_t* __restrict__ counts,
     const int32_t* __restrict__ ebase, const int64_t* __restrict__ starts,
     int R, int g, int trim, int min_overlap, int64_t slot_limit,
+    const int64_t* __restrict__ total,
     bool* __restrict__ ok, int32_t* __restrict__ cand_a,
     int32_t* __restrict__ cand_b, int32_t* __restrict__ cand_ovl,
     uint8_t* __restrict__ contained) {
   const int Wt = pm.W2 - 2;  // payload row: [Wt words, prev/first word, len]
+  if (total != nullptr) {    // fixed capacity: the slots past the total
+    const int64_t used = *total;
+    SAGE2_GRID_STRIDE(j, slot_limit) {
+      if (j >= used) {
+        ok[j] = false;
+        cand_a[j] = 0;
+        cand_b[j] = 0;
+        cand_ovl[j] = 0;
+      }
+    }
+  }
   SAGE2_GRID_STRIDE(i, n) {
     const int c = counts[i];
     if (c == 0) continue;
@@ -154,7 +185,22 @@ SAGE2_EXPORT int sage2_join_count(const void* keys, const void* rows,
   join_count_kernel<<<sage2_blocks(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(keys), static_cast<const int32_t*>(rows),
-      n, R, g, static_cast<int32_t*>(counts), static_cast<int32_t*>(ebase));
+      n, nullptr, R, g, static_cast<int32_t*>(counts),
+      static_cast<int32_t*>(ebase));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fixed-capacity mode: n rows, of which the first *n_live (int64 in
+// device memory) are live.
+SAGE2_EXPORT int sage2_join_count_fixed(const void* keys, const void* rows,
+                                        int64_t n, const void* n_live, int R,
+                                        int g, void* counts, void* ebase,
+                                        void* stream) {
+  join_count_kernel<<<sage2_blocks(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), static_cast<const int32_t*>(rows),
+      n, static_cast<const int64_t*>(n_live), R, g,
+      static_cast<int32_t*>(counts), static_cast<int32_t*>(ebase));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -182,8 +228,36 @@ SAGE2_EXPORT int sage2_join_write(const void* rows, const void* ent_payload,
       static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(ebase),
       static_cast<const int64_t*>(starts), R, g, trim, min_overlap,
-      slot_limit, static_cast<bool*>(ok), static_cast<int32_t*>(cand_a),
-      static_cast<int32_t*>(cand_b), static_cast<int32_t*>(cand_ovl),
-      static_cast<uint8_t*>(contained));
+      slot_limit, nullptr, static_cast<bool*>(ok),
+      static_cast<int32_t*>(cand_a), static_cast<int32_t*>(cand_b),
+      static_cast<int32_t*>(cand_ovl), static_cast<uint8_t*>(contained));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fixed-capacity mode of the in-core join (one payload at the row
+// ids, no containment marks): total (int64 in device memory, the last
+// offset) candidates, of which the first min(total, capacity) slots are
+// written; the slots behind them up to capacity are not ok, with a, b
+// and ovl 0.
+SAGE2_EXPORT int sage2_join_write_fixed(const void* rows, const void* payload,
+                                        int W2, int64_t n, const void* counts,
+                                        const void* ebase, const void* starts,
+                                        const void* total, int R, int g,
+                                        int trim, int min_overlap,
+                                        int64_t capacity, void* ok,
+                                        void* cand_a, void* cand_b,
+                                        void* cand_ovl, void* stream) {
+  const PayloadMap pm{static_cast<const uint32_t*>(payload), 0, R,
+                      static_cast<const uint32_t*>(payload), 0, R, 0, W2};
+  const int64_t grid = n > capacity ? n : capacity;
+  join_write_kernel<<<sage2_blocks(grid), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rows), pm, n,
+      static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(ebase),
+      static_cast<const int64_t*>(starts), R, g, trim, min_overlap, capacity,
+      static_cast<const int64_t*>(total), static_cast<bool*>(ok),
+      static_cast<int32_t*>(cand_a), static_cast<int32_t*>(cand_b),
+      static_cast<int32_t*>(cand_ovl), nullptr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,14 @@
 // sort of [slab + the chunk's queries] keeps the reference's (key,
 // tag | id) order.
 //
+// The fixed-capacity mode (find_overlaps_stacked, detect.py:1108) keeps
+// the live count on the card: the compaction also fills the slots from
+// the live count to M * R with dead rows (key INT64_MAX, id -1), and the
+// stable sort takes the whole buffer. A live all-T seed has the key
+// INT64_MAX too, but it lies before every dead row before the sort, so
+// the live rows stay in front; K3 stops at the live count, not at the
+// first INT64_MAX key.
+//
 // Bound: bytes. The codes are read once; the payload (Wt + 2 words a
 // row), the keys and the compacted ids and keys are written once; the
 // sort moves the rest.
@@ -43,6 +51,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kRowWarps = kThreads / kWarp;
+constexpr int64_t kDeadKey = 0x7FFFFFFFFFFFFFFFll;  // INT64_MAX
 
 // bases [q, q + 16) of a read's words (W uint32), zero past the last word
 __device__ __forceinline__ uint32_t word_at_u32(const uint32_t* w, int W,
@@ -159,6 +168,7 @@ __global__ void __launch_bounds__(kThreads)
                         const int64_t* __restrict__ keys, int64_t M, int g,
                         int n_pos, int t0, int Rw, int64_t id_base,
                         const int64_t* __restrict__ tile_offsets,
+                        const int64_t* __restrict__ n_live,
                         int32_t* __restrict__ base,
                         int64_t* __restrict__ ckeys) {
   const int64_t R = g + n_pos;
@@ -186,6 +196,14 @@ __global__ void __launch_bounds__(kThreads)
                                       rows[k] % Rw);
     ckeys[slot] = keys[rows[k]];
     ++slot;
+  }
+  if (n_live == nullptr) return;
+  const int64_t live_rows = *n_live;  // the scan's total: no slot below
+  SAGE2_GRID_STRIDE(j, n) {           // it is written by this fill
+    if (j >= live_rows) {
+      base[j] = -1;
+      ckeys[j] = kDeadKey;
+    }
   }
 }
 
@@ -244,8 +262,26 @@ SAGE2_EXPORT int sage2_seed_compact(const void* live, const void* keys,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(live), static_cast<const int64_t*>(keys),
       M, g, n_pos, t0, Rw, id_base,
-      static_cast<const int64_t*>(tile_offsets),
+      static_cast<const int64_t*>(tile_offsets), nullptr,
       static_cast<int32_t*>(base), static_cast<int64_t*>(ckeys));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fixed-capacity mode of every row of each read (t0 0, Rw R, id_base
+// 0): as sage2_seed_compact, then the slots from n_live (the scan's
+// total) to M * R get dead rows, id -1 and key INT64_MAX.
+SAGE2_EXPORT int sage2_seed_compact_fixed(const void* live, const void* keys,
+                                          int64_t M, int g, int n_pos,
+                                          const void* tile_offsets,
+                                          const void* n_live, void* base,
+                                          void* ckeys, void* stream) {
+  const int R = g + n_pos;
+  seed_compact_kernel<<<scan_tiles_of(M * R), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(live), static_cast<const int64_t*>(keys),
+      M, g, n_pos, 0, R, 0, static_cast<const int64_t*>(tile_offsets),
+      static_cast<const int64_t*>(n_live), static_cast<int32_t*>(base),
+      static_cast<int64_t*>(ckeys));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,7 @@ from sage2_tpu_torch.ops.sort import I32_MAX, unique_sorted_pairs, words_less
 from sage2_tpu_torch.utils.metrics import mark_part
 
 _U32 = 0xFFFFFFFF
+I64_MAX = (1 << 63) - 1
 
 
 def _forward_keys(reads: torch.Tensor, k: int) -> torch.Tensor:
@@ -188,6 +189,29 @@ def overlap_join(
         for out, x in zip(cand, (cand_a, cand_b, ovl)):
             out[sl] = x.to(i32)
     return (ok, *cand, total)
+
+
+def overlap_join_stacked(
+    s_keys: torch.Tensor, s_rows: torch.Tensor, payload: torch.Tensor,
+    n_live: torch.Tensor, R: int, g: int, trim: int, min_overlap: int,
+    capacity: int,
+):
+    """(ok, cand_a, cand_b, ovl, total) of ``overlap_join`` over the first
+    ``n_live`` rows (0-d int64) of a fixed row buffer
+    (``seed_rows_stacked``), with exactly ``capacity`` slots: the first
+    min(total, capacity) candidates, then not-ok slots with a, b and ovl
+    0; ``total`` a 0-d int64 tensor (detect.py:1108, the arrays of
+    find_overlaps at a fixed capacity)."""
+    n = int(n_live)
+    ok, a, b, ovl, total = overlap_join(s_keys[:n], s_rows[:n], payload, R,
+                                        g, trim, min_overlap, None, capacity)
+    dev = s_keys.device
+    out = [torch.zeros(capacity, dtype=torch.bool, device=dev)] + [
+        torch.zeros(capacity, dtype=torch.int32, device=dev)
+        for _ in range(3)]
+    for o, x in zip(out, (ok, a, b, ovl)):
+        o[:x.shape[0]] = x
+    return (*out, torch.tensor(total, dtype=torch.int64, device=dev))
 
 
 def pointer_jump(
@@ -648,6 +672,25 @@ def seed_rows(
     return s_keys, ids[perm], payload
 
 
+def seed_rows_stacked(reads2: torch.Tensor, valid2: torch.Tensor, s: int,
+                      g: int, n_pos: int, trim: int):
+    """(s_keys, s_rows, payload, n_live): every row of each read in a
+    buffer of M * R rows, ``seed_rows``' live rows in the join's order
+    first and dead rows (key INT64_MAX, id -1) behind them, sorted
+    stably as one buffer (a live all-T seed's key is INT64_MAX too, and
+    it stays before the dead rows); ``n_live`` a 0-d int64 tensor."""
+    s_keys, s_rows, payload = seed_rows(reads2, valid2, None, s, g, n_pos,
+                                        trim)
+    n = reads2.shape[0] * (g + n_pos)
+    n_live = s_keys.shape[0]
+    keys = torch.full((n,), I64_MAX, dtype=torch.int64, device=s_keys.device)
+    rows = torch.full((n,), -1, dtype=torch.int32, device=s_keys.device)
+    keys[:n_live] = s_keys
+    rows[:n_live] = s_rows
+    return keys, rows, payload, torch.tensor(n_live, dtype=torch.int64,
+                                             device=s_keys.device)
+
+
 def edge_key_bits(n_vertices: int, read_len: int) -> Tuple[int, int]:
     """(db, ob): the bits of a vertex id below ``n_vertices`` and of an
     overlap length up to ``read_len``; K14 packs (src, dst, ovl) into one
@@ -655,20 +698,9 @@ def edge_key_bits(n_vertices: int, read_len: int) -> Tuple[int, int]:
     return max(n_vertices - 1, 0).bit_length(), int(read_len).bit_length()
 
 
-def longest_edges(
-    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
-    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
-):
-    """(src, dst, ovl, n_edges): the longest overlap of each (src, dst)
-    pair among the ``ok`` candidates (sage2_tpu/overlap/detect.py:1015
-    _reduce_fused), sorted by (src, dst) and padded to ``capacity`` rows
-    with (INT32_MAX, INT32_MAX, 0).
-
-    With (db, ob) = ``edge_key_bits(n_vertices, read_len)`` and 2 db +
-    ob <= 63 one sort orders the key src << (db + ob) | dst << ob | ovl;
-    otherwise two stable sorts, by ovl and then by src << 32 | dst.
-    Rows that are not ok take the key -1 and sort first. The last row of
-    each (src, dst) run holds its longest overlap."""
+def _sorted_edges(ok, cand_a, cand_b, cand_ovl, n_vertices, read_len):
+    """(pair, src, dst, ovl) of the candidates sorted by (src, dst, ovl),
+    the rows that are not ok first with pair -1 (see longest_edges)."""
     db, ob = edge_key_bits(n_vertices, read_len)
     a, b, v = (x.to(torch.int64) for x in (cand_a, cand_b, cand_ovl))
     neg = torch.full_like(a, -1)
@@ -684,16 +716,65 @@ def longest_edges(
             ok[o1], (a[o1] << 32) | b[o1], neg[o1]), stable=True)
         s_src, s_dst = pair >> 32, pair & _U32
         s_ovl = v[o1[o2]]
+    return pair, s_src, s_dst, s_ovl
+
+
+def _padded_edges(cols, rows, capacity: int, out):
+    """The ``rows`` of the three sorted columns, padded to ``capacity``
+    with (INT32_MAX, INT32_MAX, 0), in ``out`` where given."""
+    n = int(rows.sum())
+    res = []
+    for i, (x, fill) in enumerate(zip(cols, (I32_MAX, I32_MAX, 0))):
+        col = torch.full((capacity,), fill, dtype=torch.int32,
+                         device=x.device)
+        col[:n] = x[rows].to(torch.int32)
+        if out is not None:
+            col = out[i].copy_(col)
+        res.append(col)
+    return res
+
+
+def longest_edges(
+    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
+    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+):
+    """(src, dst, ovl, n_edges): the longest overlap of each (src, dst)
+    pair among the ``ok`` candidates (sage2_tpu/overlap/detect.py:1015
+    _reduce_fused), sorted by (src, dst) and padded to ``capacity`` rows
+    with (INT32_MAX, INT32_MAX, 0).
+
+    With (db, ob) = ``edge_key_bits(n_vertices, read_len)`` and 2 db +
+    ob <= 63 one sort orders the key src << (db + ob) | dst << ob | ovl;
+    otherwise two stable sorts, by ovl and then by src << 32 | dst.
+    Rows that are not ok take the key -1 and sort first. The last row of
+    each (src, dst) run holds its longest overlap; ``n_edges`` an int."""
+    pair, *cols = _sorted_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
+                                read_len)
     is_last = pair >= 0
     is_last[:-1] &= pair[1:] != pair[:-1]
     n_edges = int(is_last.sum())
-    dev = ok.device
-    out = []
-    for x, fill in ((s_src, I32_MAX), (s_dst, I32_MAX), (s_ovl, 0)):
-        col = torch.full((capacity,), fill, dtype=torch.int32, device=dev)
-        col[:n_edges] = x[is_last].to(torch.int32)
-        out.append(col)
-    return (*out, n_edges)
+    return (*_padded_edges(cols, is_last, capacity, None), n_edges)
+
+
+def longest_edges_deferred(
+    ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
+    cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+    out=None,
+):
+    """(src, dst, ovl, n_edges, n_dups): every ok candidate sorted by
+    (src, dst, ovl) and padded to ``capacity`` with (INT32_MAX,
+    INT32_MAX, 0), the reference's defer_dup_compact rows
+    (detect.py:1050-1054): a pair's last row is its longest. n_edges
+    (the pairs) and n_dups (the other ok rows) are 0-d int32 tensors."""
+    pair, *cols = _sorted_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
+                                read_len)
+    valid = pair >= 0
+    is_last = valid.clone()
+    is_last[:-1] &= pair[1:] != pair[:-1]
+    res = _padded_edges(cols, valid, capacity, out)
+    n_edges = is_last.sum()
+    return (*res, n_edges.to(torch.int32),
+            (valid.sum() - n_edges).to(torch.int32))
 
 
 def prune_table(keys: torch.Tensor, counts: torch.Tensor,

@@ -28,10 +28,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from sage2_tpu_torch import kernels
 from sage2_tpu_torch.ops import bitpack
+from sage2_tpu_torch.ops.sort import I32_MAX
 from sage2_tpu_torch.utils.metrics import mark_part
 
 # find_overlaps_auto's last good candidate capacity per problem shape
@@ -58,7 +60,10 @@ class OverlapResult(NamedTuple):
     overflow: candidates exceeded the capacity (an explicit ``capacity``
     to find_overlaps, or a memoized one taken unchecked); contained:
     (M,) bool, the read lies whole inside a longer one (ragged reads;
-    all False for fixed-length reads); n_contained: its count.
+    all False for fixed-length reads); n_contained: its count; n_dups:
+    0, except with ``defer_dup_compact`` the rows of the edge arrays that
+    are not the last of their (src, dst) pair (compact_reduced_edges
+    drops them).
     """
 
     src: torch.Tensor
@@ -70,6 +75,7 @@ class OverlapResult(NamedTuple):
     overflow: bool
     contained: torch.Tensor
     n_contained: int
+    n_dups: int = 0
 
 
 def auto_stride(min_overlap: int, seed_len: int, pa: int) -> int:
@@ -319,14 +325,35 @@ def build_seed_rows(
 
 
 def _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len: int,
-                  capacity: int, n_vertices: int):
+                  capacity: int, n_vertices: int,
+                  defer_dup_compact: bool = False, out=None):
     """Longest overlap per (src, dst), sorted by (src, dst), padded to
     ``capacity`` rows (INT32_MAX, INT32_MAX, 0); vertex ids below
     ``n_vertices``, overlaps up to ``read_len`` (kernel K14, which packs
     (src, dst, ovl) into one sort key where they fit). Returns (src, dst,
-    ovl, n_edges)."""
-    return kernels.longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
-                                 read_len, capacity)
+    ovl, n_edges, n_dups), the counts ints.
+
+    ``defer_dup_compact`` (:1015-1079): every ok row stays, sorted by
+    (src, dst, ovl); a pair verified at several lengths keeps all of its
+    rows, its last the longest; n_edges counts the pairs and n_dups the
+    other rows, both 0-d int32 tensors that nothing waits for. Where
+    ``n_vertices`` >= 2^(31 - bit_length(read_len)) the reference's
+    packing does not fit and it returns the compacted list with n_dups 0
+    (:1042-1048): so does this. ``out`` (deferred only): three
+    (capacity,) int32 tensors to write into."""
+    if not defer_dup_compact:
+        if out is not None:
+            raise ValueError("out is taken only with defer_dup_compact")
+        return (*kernels.longest_edges(ok, cand_a, cand_b, cand_ovl,
+                                       n_vertices, read_len, capacity), 0)
+    if n_vertices >= 1 << (31 - int(read_len).bit_length()):
+        src, dst, ovl, n_edges = kernels._longest_edges_unread(
+            ok, cand_a, cand_b, cand_ovl, n_vertices, read_len, capacity,
+            out)
+        return src, dst, ovl, n_edges, torch.zeros_like(n_edges)
+    return kernels.longest_edges_deferred(ok, cand_a, cand_b, cand_ovl,
+                                          n_vertices, read_len, capacity,
+                                          out=out)
 
 
 def reduce_edge_candidates(ok, cand_a, cand_b, cand_ovl, read_len: int,
@@ -335,11 +362,11 @@ def reduce_edge_candidates(ok, cand_a, cand_b, cand_ovl, read_len: int,
     (src, dst) and padded to the candidate count (:488). Returns (src,
     dst, ovl, n_edges); the first n_edges rows are the reference's."""
     return _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len,
-                         ok.shape[0], n_vertices)
+                         ok.shape[0], n_vertices)[:4]
 
 
 def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,
-            lengths=None, split=None):
+            lengths=None, split=None, defer_dup_compact=False):
     M, L = reads2.shape
     s = min(seed_len, min_overlap, 32)
     geo = join_geometry(L, min_overlap, s, stride)
@@ -361,8 +388,8 @@ def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,
     del s_keys, s_rows, payload
     mark_part(split, "join")
     C = caps[0]
-    src, dst, e_ovl, n_edges = _reduce_fused(ok, cand_a, cand_b, ovl, L, C,
-                                             M)
+    src, dst, e_ovl, n_edges, n_dups = _reduce_fused(
+        ok, cand_a, cand_b, ovl, L, C, M, defer_dup_compact)
     mark_part(split, "reduce")
     if cont is None:
         contained, n_contained = torch.zeros(
@@ -370,8 +397,9 @@ def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,
     else:
         contained = cont.bool()
         n_contained = int(contained.sum())
-    return OverlapResult(src, dst, e_ovl, n_edges, total, int(ok.sum()),
-                         total > C, contained, n_contained)
+    return OverlapResult(src, dst, e_ovl, int(n_edges), total,
+                         int(ok.sum()), total > C, contained, n_contained,
+                         int(n_dups))
 
 
 def find_overlaps(
@@ -382,14 +410,18 @@ def find_overlaps(
     capacity: int = 1 << 20,
     stride: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
+    defer_dup_compact: bool = False,
 ) -> OverlapResult:
     """All maximal proper exact suffix-prefix overlaps >= min_overlap of
     the valid rows of (M, L) int32 ``reads2``, with a fixed candidate
     ``capacity`` (``overflow`` set when exceeded). ``lengths``: (M,)
     per-read lengths of ragged (0-padded) reads; containments are then
-    marked in ``contained``."""
+    marked in ``contained``. ``defer_dup_compact``: the edge arrays keep
+    the rows of a pair verified at several lengths, counted in
+    ``n_dups`` (see _reduce_fused; compact_reduced_edges drops them)."""
     return _detect(reads2, valid2, min_overlap, seed_len, stride,
-                   lambda total: capacity, lengths)
+                   lambda total: capacity, lengths,
+                   defer_dup_compact=defer_dup_compact)
 
 
 def find_overlaps_auto(
@@ -449,3 +481,85 @@ def find_overlaps_auto(
 
     return _detect(reads2, valid2, min_overlap, seed_len, stride,
                    capacity_of, lengths, split)
+
+
+def compact_reduced_edges(src, dst, ovl, read_len: int):
+    """Host numpy fix-up of a deferred edge list with n_dups > 0 (:1082):
+    drop every row but the last of each (src, dst) pair (the last holds
+    the longest overlap); (src, dst, ovl) int32 arrays padded alike."""
+    src, dst, ovl = (np.asarray(x) for x in (src, dst, ovl))
+    keep = np.ones(src.shape[0], bool)
+    keep[:-1] = (src[:-1] != src[1:]) | (dst[:-1] != dst[1:])
+    keep &= src != I32_MAX
+    kept = int(keep.sum())
+    out = (np.full(src.shape[0], I32_MAX, np.int32),
+           np.full(src.shape[0], I32_MAX, np.int32),
+           np.zeros(src.shape[0], np.int32))
+    for o, x in zip(out, (src, dst, ovl)):
+        o[:kept] = x[keep]
+    return out
+
+
+def find_overlaps_stacked(
+    reads3, valid3, min_overlap: int, seed_len: int = 32,
+    capacity: int = 1 << 20, stride: Optional[int] = None, device="cuda",
+):
+    """K independent read shards (``reads3`` (K, M, L) int codes,
+    ``valid3`` (K, M) bool, tensors or arrays; placed on ``device``)
+    through the join at a fixed candidate ``capacity`` C, one shard after
+    another on the current stream: the reference's
+    find_overlaps_stacked (sage2_tpu/overlap/detect.py:1108-1156).
+
+    Returns (src, dst, ovl (K, C) int32, n_edges, n_candidates,
+    n_verified, n_dups (K,) int32, overflow (K,) bool), each shard's row
+    as ``find_overlaps(..., capacity=C, defer_dup_compact=True)`` gives
+    it. Between its first launch and its return nothing waits on the
+    host: K13 and K3 run in their fixed-capacity modes (the live rows
+    and the candidate total stay on the card) and K14 in its deferred
+    mode, so a shard with n_dups > 0 still holds its duplicate rows
+    (compact_stacked_result drops them). That is the GPU's counterpart
+    of the reference's one dispatch for K shards: the host enqueues all
+    K shards while the card works."""
+    dev = torch.device(device)
+    reads3 = torch.as_tensor(reads3, device=dev).to(torch.int32)
+    valid3 = torch.as_tensor(valid3, device=dev).to(torch.bool)
+    K, M, L = reads3.shape
+    s = min(seed_len, min_overlap, 32)
+    geo = join_geometry(L, min_overlap, s, stride)
+    C = capacity
+    src3, dst3, ovl3 = (torch.empty((K, C), dtype=torch.int32, device=dev)
+                        for _ in range(3))
+    counts = torch.empty((4, K), dtype=torch.int32, device=dev)
+    overflow3 = torch.empty(K, dtype=torch.bool, device=dev)
+    for k in range(K):
+        s_keys, s_rows, payload, n_live = kernels.seed_rows_stacked(
+            reads3[k], valid3[k], s, geo.g, geo.n_pos, geo.trim)
+        ok, cand_a, cand_b, ovl, total = kernels.overlap_join_stacked(
+            s_keys, s_rows, payload.reshape(-1, geo.Wt + 2), n_live, geo.R,
+            geo.g, geo.trim, min_overlap, C)
+        del s_keys, s_rows, payload
+        _, _, _, n_edges, n_dups = _reduce_fused(
+            ok, cand_a, cand_b, ovl, L, C, M, defer_dup_compact=True,
+            out=(src3[k], dst3[k], ovl3[k]))
+        counts[0, k] = n_edges
+        counts[1, k] = total
+        counts[2, k] = ok.sum()
+        counts[3, k] = n_dups
+        overflow3[k] = total > C
+    return (src3, dst3, ovl3, counts[0], counts[1], counts[2], overflow3,
+            counts[3])
+
+
+def compact_stacked_result(out, read_len: int):
+    """Host fix-up of find_overlaps_stacked's result (:1159): every shard
+    with n_dups > 0 compacted (compact_reduced_edges). Returns (src, dst,
+    ovl) (K, C) int32 numpy arrays."""
+    src, dst, ovl = (_to_numpy(x).copy() for x in out[:3])
+    for k in np.flatnonzero(_to_numpy(out[7])):
+        src[k], dst[k], ovl[k] = compact_reduced_edges(src[k], dst[k],
+                                                       ovl[k], read_len)
+    return src, dst, ovl
+
+
+def _to_numpy(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

@@ -1,11 +1,13 @@
-"""Build shared libraries from the checkout's sources into the port's
-own build folder (``sage2_tpu_torch/_build``, listed in .gitignore).
+"""Build shared libraries and programs from the checkout's sources into
+the port's own build folder (``sage2_tpu_torch/_build``, listed in
+.gitignore).
 
-A library's file name carries a hash of its sources and of the full
+An output's file name carries a hash of its sources and of the full
 compiler command, so a build is reused only when both are unchanged: a
-``.so`` left over from other sources or other flags is never loaded
-(the reference's wrappers reuse any ``.so`` newer than its source). No
-``-march=native``: a library must run on any host of the same kind.
+``.so`` or program left over from other sources or other flags is never
+loaded or run (the reference's wrappers reuse any build newer than its
+source). No ``-march=native``: a build must run on any host of the same
+kind.
 
 Builds go to a private temporary name and are renamed into place, so a
 concurrent process never loads a partly written file. Several libraries
@@ -25,13 +27,17 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 
 
 class LibSpec(NamedTuple):
-    """One shared library: ``command`` is the compiler and its flags;
-    ``sources`` are compiled, ``depends`` (headers) only hashed."""
+    """One shared library, or with ``executable`` one program:
+    ``command`` is the compiler and its flags; ``sources`` are compiled,
+    ``depends`` (headers) only hashed; ``link`` (libraries, ``-lz``)
+    follows the sources on the command line."""
 
     name: str
     command: Sequence[str]
     sources: Sequence[str]
     depends: Sequence[str] = ()
+    link: Sequence[str] = ()
+    executable: bool = False
 
 
 class BuildError(RuntimeError):
@@ -44,12 +50,15 @@ def library_path(spec: LibSpec) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
         h.update(b"\0")
-    h.update("\0".join(spec.command).encode())
-    return os.path.join(BUILD_DIR, f"lib{spec.name}-{h.hexdigest()[:16]}.so")
+    link = ["--", *spec.link] if spec.link else []
+    h.update("\0".join(list(spec.command) + link).encode())
+    tag = h.hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{spec.name}-{tag}" if spec.executable
+                        else f"lib{spec.name}-{tag}.so")
 
 
 def build_all(specs: Sequence[LibSpec], timeout: float = 600.0) -> List[str]:
-    """Paths of the libraries, compiling the missing ones concurrently.
+    """Paths of the builds, compiling the missing ones concurrently.
 
     Raises BuildError with the compiler's output when a build fails.
     """
@@ -60,7 +69,8 @@ def build_all(specs: Sequence[LibSpec], timeout: float = 600.0) -> List[str]:
         if os.path.exists(out):
             continue
         tmp = f"{out}.tmp.{os.getpid()}"
-        cmd = list(spec.command) + list(spec.sources) + ["-o", tmp]
+        cmd = (list(spec.command) + list(spec.sources) + list(spec.link)
+               + ["-o", tmp])
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((spec, out, tmp, cmd, proc))

@@ -1,5 +1,6 @@
-"""sage2_tpu_torch and chip_smoke.py stand alone: no JAX, no sage2_tpu,
-and no silent fall back to the CPU."""
+"""sage2_tpu_torch, chip_smoke.py and the benches bench_gpu.py and
+bench_e2e_gpu.py stand alone: no JAX, no sage2_tpu, and no silent fall
+back to the CPU."""
 
 import ast
 import glob
@@ -16,7 +17,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _port_files():
     files = sorted(glob.glob(os.path.join(ROOT, "sage2_tpu_torch", "**",
                                           "*.py"), recursive=True))
-    return files + [os.path.join(ROOT, "chip_smoke.py")]
+    return files + [os.path.join(ROOT, name) for name in (
+        "chip_smoke.py", "bench_gpu.py", "bench_e2e_gpu.py")]
 
 
 def _imported_modules(path):

@@ -34,8 +34,10 @@ from sage2_tpu_torch.ops.bitpack import pack_read_words
 from sage2_tpu_torch.utils import native_build
 from sage2_tpu_torch.ops.sort import sort_by_pair
 from sage2_tpu_torch.overlap import (
+    compact_stacked_result,
     find_overlaps,
     find_overlaps_auto,
+    find_overlaps_stacked,
     prepare_reads,
 )
 from sage2_tpu_torch.overlap.detect import build_seed_rows, join_geometry
@@ -922,3 +924,182 @@ def test_wrapper_raises_when_its_build_fails(cuda, monkeypatch):
     src = torch.zeros(3, dtype=torch.int32, device=cuda)
     with pytest.raises(native_build.BuildError):
         kernels.chain_links(src, src, src, 2)
+
+
+# --- the stacked path: K13 and K3 at a fixed capacity, K14 deferred ----------
+
+def _stacked_rows_inputs(cuda, case):
+    """(reads2, valid2, s, geo, min_overlap) of a fixed-capacity K13/K3
+    case: seed_case's (a poly-T read among two invalid ones, whose dead
+    rows share its INT64_MAX key), or simulated reads with every 7th
+    invalid."""
+    if case == "sim":
+        r = _reads()
+        valid = torch.ones(r.shape[0], dtype=torch.bool)
+        valid[::7] = False
+    else:
+        r, valid, _ = (None if a is None else torch.from_numpy(a)
+                       for a in seed_case(False))
+    s = 32
+    geo = join_geometry(r.shape[1], 40, s)
+    return r.to(cuda), valid.to(cuda), s, geo, 40
+
+
+@pytest.mark.parametrize("case", ["seed_case", "sim"])
+def test_seed_rows_stacked_kernel(cuda, case):
+    r, valid, s, geo, _ = _stacked_rows_inputs(cuda, case)
+    args = (r, valid, s, geo.g, geo.n_pos, geo.trim)
+    before = kernels.LAUNCHES["seed_rows"]
+    got = kernels.seed_rows_stacked(*args)
+    assert kernels.LAUNCHES["seed_rows"] == before + 5
+    _equal(got, plain.seed_rows_stacked(*args))
+    n = int(got[3])
+    assert 0 < n < got[0].numel()
+    if case == "seed_case":     # a live all-T row before the dead rows
+        assert bool((got[0][:n] == plain.I64_MAX).any())
+
+
+@pytest.mark.parametrize("capacity", ["below", "equal", "above"])
+@pytest.mark.parametrize("case", ["seed_case", "sim"])
+def test_overlap_join_stacked_kernel(cuda, case, capacity):
+    r, valid, s, geo, min_overlap = _stacked_rows_inputs(cuda, case)
+    keys, rows, payload, n_live = kernels.seed_rows_stacked(
+        r, valid, s, geo.g, geo.n_pos, geo.trim)
+    flat = payload.reshape(-1, geo.Wt + 2)
+    total = plain.overlap_join_stacked(keys, rows, flat, n_live, geo.R,
+                                       geo.g, geo.trim, min_overlap, 1)[4]
+    C = {"below": int(total) // 2, "equal": int(total),
+         "above": int(total) + 999}[capacity]
+    args = (keys, rows, flat, n_live, geo.R, geo.g, geo.trim, min_overlap,
+            C)
+    before = kernels.LAUNCHES["overlap_join"]
+    got = kernels.overlap_join_stacked(*args)
+    assert kernels.LAUNCHES["overlap_join"] == before + 2
+    _equal(got, plain.overlap_join_stacked(*args))
+    assert got[4].device.type == cuda.type and int(got[4]) == int(total) > 0
+
+
+@pytest.mark.parametrize("case", REDUCE_CASES + ("join", "join_dups",
+                                                 "join_wide"))
+def test_longest_edges_deferred_kernel(cuda, case):
+    if case.startswith("join"):
+        ok, a, b, ovl, V, L = _join_candidates(cuda)
+        cap = ok.shape[0] + 777
+        if case == "join_dups":     # 1% of the ok rows again, shorter
+            pick = torch.nonzero(ok).flatten()[::100]
+            ok, a, b = (torch.cat([x, x[pick]]) for x in (ok, a, b))
+            ovl = torch.cat([ovl, ovl[pick] - 1])
+            cap = ok.shape[0]
+        if case == "join_wide":     # the same pairs at ids near 2^30
+            V += 1 << 30
+            a, b = a + (1 << 30), b + (1 << 30)
+    else:
+        ok, a, b, ovl, L, V, cap = reduce_case(case)
+        ok, a, b, ovl = (torch.from_numpy(x).to(cuda)
+                         for x in (ok, a, b, ovl))
+    db, ob = plain.edge_key_bits(V, L)
+    wide = 2 * db + ob > 63
+    assert wide == case.endswith("wide")
+    args = (ok, a, b, ovl, V, L, cap)
+    before = kernels.LAUNCHES["longest_edges"]
+    got = kernels.longest_edges_deferred(*args)
+    assert kernels.LAUNCHES["longest_edges"] - before == (5 if wide else 4)
+    _equal(got, plain.longest_edges_deferred(*args))
+    assert got[3].device.type == got[4].device.type == cuda.type
+    if case in ("periodic", "join_dups"):
+        assert int(got[4]) > 0
+    assert int(got[3]) + int(got[4]) == int(ok.sum())
+    # the keepers are longest_edges' edges
+    want = kernels.longest_edges(*args)
+    assert int(got[3]) == want[3]
+    out = tuple(torch.empty(cap, dtype=torch.int32, device=cuda)
+                for _ in range(3))
+    again = kernels.longest_edges_deferred(*args, out=out)
+    assert all(x is y for x, y in zip(again[:3], out))
+    _equal(again, got)
+
+
+def test_reduce_fused_deferred_fallback_is_sync_free(cuda):
+    """Where the reference's packing does not fit (ids near 2^30 at read
+    length 100), the deferred reduction returns longest_edges' compacted
+    list with n_dups 0, its counts on the card and nothing read to the
+    host."""
+    from sage2_tpu_torch.overlap.detect import _reduce_fused
+
+    ok, a, b, ovl, V, L = _join_candidates(cuda)
+    V += 1 << 30
+    a, b = a + (1 << 30), b + (1 << 30)
+    cap = ok.shape[0] + 777
+    assert V >= 1 << (31 - L.bit_length())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _reduce_fused(ok, a, b, ovl, L, cap, V, defer_dup_compact=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = kernels.longest_edges(ok, a, b, ovl, V, L, cap)
+    _equal(got[:3], want[:3])
+    assert got[3].device.type == cuda.type and int(got[3]) == want[3]
+    assert int(got[4]) == 0
+
+
+def _stacked_shards(cuda, K=3, n=20_000):
+    reads = []
+    for k in range(K):
+        g = simulate_genome(n * 100 // 45, seed=7 + 1000 * k)
+        r, _ = simulate_reads(g, read_len=100, coverage=45,
+                              error_rate=0.005, seed=8 + 1000 * k)
+        reads.append(r[:n].astype(np.int32))
+    reads3 = torch.from_numpy(np.stack(reads)).to(cuda)
+    valid3 = torch.ones(reads3.shape[:2], dtype=torch.bool, device=cuda)
+    valid3[1, ::5] = False
+    return reads3, valid3
+
+
+def test_find_overlaps_stacked_is_sync_free(cuda):
+    """No host synchronisation from the first launch to the return
+    (set_sync_debug_mode("error") raises on one), every shard's row
+    equal to find_overlaps on the card at that capacity and to the
+    plain versions on the CPU."""
+    reads3, valid3 = _stacked_shards(cuda)
+    cap = 1 << 20
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = find_overlaps_stacked(reads3, valid3, 40, capacity=cap,
+                                    device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = find_overlaps_stacked(reads3.cpu(), valid3.cpu(), 40, capacity=cap,
+                                device="cpu")
+    _equal(out, cpu)
+    assert not bool(out[6].any()) and not bool(out[7].any())
+    for k in range(reads3.shape[0]):
+        res = find_overlaps(reads3[k], valid3[k], 40, capacity=cap,
+                            defer_dup_compact=True)
+        for i, name in enumerate(("src", "dst", "ovl", "n_edges",
+                                  "n_candidates", "n_verified", "overflow",
+                                  "n_dups")):
+            want = getattr(res, name)
+            if isinstance(want, torch.Tensor):
+                assert torch.equal(out[i][k], want)
+            else:
+                assert out[i][k].item() == want
+    src, dst, ovl = compact_stacked_result(out, 100)
+    assert np.array_equal(src, out[0].cpu().numpy())
+
+
+def test_find_overlaps_stacked_periodic_duplicates(cuda):
+    """Poly-T reads verify pairs at several lengths: their duplicate rows
+    stay, counted in n_dups, on the card as in the plain versions."""
+    r, valid, _ = seed_case(False)
+    r[5:] = 3
+    reads3 = torch.from_numpy(np.stack([r, r])).to(cuda)
+    valid3 = torch.from_numpy(np.stack([valid, np.ones_like(valid)])).to(
+        cuda)
+    out = find_overlaps_stacked(reads3, valid3, 30, capacity=4096,
+                                device=cuda)
+    cpu = find_overlaps_stacked(reads3.cpu(), valid3.cpu(), 30,
+                                capacity=4096, device="cpu")
+    _equal(out, cpu)
+    assert bool((out[7] > 0).all())
