@@ -6,7 +6,7 @@
 Phases (one flushed line each, with its seconds):
 
   0  the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  1  build the nineteen CUDA kernels (nvcc, sm_90a, one process per
+  1  build the twenty-three CUDA kernels (nvcc, sm_90a, one process per
      source, all at once) and the host libraries;
   11 the benches, before anything is kept on the card: bench_gpu.py
      (the overlap join of 16 shards of 100,000 reads against the C++
@@ -30,6 +30,17 @@ Phases (one flushed line each, with its seconds):
      reference's 1,044,016 candidates and 680,790 verified overlaps; the
      same reads again as ragged reads of length 100 each: arrays and
      counts bit-equal to the fixed call's, no containment;
+  12 phase 4's reads and config on a device mesh of four shards, all on
+     this card (AssemblyConfig(mesh_shape=(4,)), outdir=None): the
+     sharded count, correction, overlap, reduction and unitig labeling
+     (K19 route_rows, K20 routed_gather, K21 reduce_requests, K22
+     window_variants, with K1, K2, K3, K11, K13 and K14 on each shard's
+     work and K8/K12 for the dedup); stage seconds, peak device memory,
+     the collective ledger's bytes by stage, every retry and the
+     capacities; genome_fraction >= 0.99, N50 and contig count equal to
+     bench_e2e_gpu.py's (asserted here), contigs and stats equal to
+     phase 4's (asserted after phase 4); it runs before phase 4, while
+     few kernel inputs are kept on the card;
   4  reads to contigs at E. coli scale (4.6 Mbp genome, 50x, 100 bp,
      error 0.005, seeds 7/8, default AssemblyConfig: single_window
      corrector, host-native reduction) through
@@ -118,7 +129,9 @@ Phases (one flushed line each, with its seconds):
 
 Each path runs with the launch counts set to 0 just before it and read
 just after it: phase 11 for K13, K3 and K14 in the stacked path's
-modes (the sync-checked call), phase 4 for K1-K4, K8 and K11-K18,
+modes (the sync-checked call), phase 12 for the mesh (K19-K22, with
+K1, K2, K3 (its payload-permutation mode), K8, K11-K14; the ":12"
+rows), phase 4 for K1-K4, K8 and K11-K18,
 phase 5 for K5-K7,
 K12-K15 and K18, phase 7 for P1, phases 8a and 8b for the ragged path
 (K12 to K18 too), 10a and 10b for the streamed path (K9-K11 with K1,
@@ -170,6 +183,8 @@ ECOLI_RAGGED = dict(lo=75, hi=150, coverage=50.0, error_rate=0.005,
                     contained_frac=0.1, seed=8)
 # phase 10: the reference README's streaming flags (README.md:66-72)
 STREAM_CHUNK = 1_000_000
+# phase 12: shards of the device mesh, all on the one card
+MESH_SHARDS = 4
 ENTRY_BLOCK = 3_000_000
 # the reference (sage2_tpu) on the same input, BASELINE.md round 4:
 # printed as a guide, not a gate
@@ -258,13 +273,34 @@ KERNEL_INFO = {
                              "sage2_tpu/overlap/detect.py:1108", "11"),
     "longest_edges:deferred": (_CSRC + "longest_edges.cu",
                                "sage2_tpu/overlap/detect.py:1015", "11"),
+    "route_rows": (_CSRC + "route_rows.cu",
+                   "sage2_tpu/parallel/sharded.py:73", "12"),
+    "routed_gather": (_CSRC + "routed_gather.cu",
+                      "sage2_tpu/parallel/sharded.py:120", "12"),
+    "routed_gather:heads": (_CSRC + "routed_gather.cu",
+                            "sage2_tpu/parallel/sharded.py:575", "12"),
+    "routed_gather:gather": (_CSRC + "routed_gather.cu",
+                             "sage2_tpu/parallel/sharded.py:607", "12"),
+    "reduce_requests": (_CSRC + "reduce_requests.cu",
+                        "sage2_tpu/parallel/sharded.py:493", "12"),
+    "reduce_requests:probe": (_CSRC + "reduce_requests.cu",
+                              "sage2_tpu/parallel/sharded.py:518", "12"),
+    "window_variants": (_CSRC + "window_variants.cu",
+                        "sage2_tpu/kmer/correct.py:36", "12"),
+    "window_variants:verdicts": (_CSRC + "window_variants.cu",
+                                 "sage2_tpu/kmer/correct.py:86", "12"),
 }
 # the wrapper of each row whose kernel is called through another wrapper
 # than its own name
 WRAPPER = {"chain_links:cut": "chain_cut",
            "seed_rows:stacked": "seed_rows_stacked",
            "overlap_join:stacked": "overlap_join_stacked",
-           "longest_edges:deferred": "longest_edges_deferred"}
+           "longest_edges:deferred": "longest_edges_deferred",
+           "routed_gather": "route_back",
+           "routed_gather:heads": "dedup_heads",
+           "routed_gather:gather": "gather_rows",
+           "reduce_requests:probe": "reduce_probe",
+           "window_variants:verdicts": "apply_verdicts"}
 for _n, _w, _a in PROBE_SHAPES:
     KERNEL_INFO[f"gather_along:{_a}:{_n}x{_w}"] = (
         _CSRC + "gather_along.cu", "scripts/probe_pallas_gather.py:73", "7")
@@ -307,6 +343,11 @@ PATHS = {
             "reduce_marks:ragged"],
     "11": ["seed_rows:stacked", "overlap_join:stacked",
            "longest_edges:deferred"],
+    "12": ["kmer_keys", "merge_runs", "lookup_counts", "canonical_reads",
+           *_DEDUP_JOIN, "overlap_join", "route_rows", "routed_gather",
+           "routed_gather:heads", "routed_gather:gather", "reduce_requests",
+           "reduce_requests:probe", "window_variants",
+           "window_variants:verdicts"],
 }
 # every kernel of a path is held against its plain version at that
 # path's shapes: a second row "<key>:<path>" where its first row comes
@@ -478,7 +519,8 @@ class Capture:
     def __init__(self, kernels):
         self.kernels = kernels
         self.originals = {n: getattr(kernels, n)
-                          for n in (*kernels.KERNELS, *self.EXTRA)}
+                          for n in (*kernels.KERNELS, *self.EXTRA)
+                          if hasattr(kernels, n)}
         self.copies = RawDeviceCopies()
         self.args: dict = {}
         self.phase = None
@@ -531,6 +573,8 @@ class Capture:
                 key = f"{name}:{args[2]}:{args[0].shape[0]}x{args[0].shape[1]}"
             elif name == "reduce_marks":
                 size += args[-1] - args[-2]      # the slot range
+            elif key == "reduce_requests":
+                size += args[3]     # the candidate capacity: a retry's pass
             elif name == "seed_rows" and len(args) > 8 and args[8] != "all":
                 key = f"{name}:{args[8]}"        # the streamed join's rows
             elif name == "overlap_join" and len(args) > 9 and isinstance(
@@ -672,6 +716,61 @@ def work(key: str, args: tuple, total=0):
         # `capacity` slots (13 bytes) out
         return (n * 12 + payload.numel() * 4 + capacity * 13,
                 n * 8 + total * (6 * (W - 2) + 22))
+    if name == "route_rows":
+        rows, _, _, owner, _, _, valid = args
+        Q, K = rows.shape
+        src = (4 if owner is not None else 8) + (0 if valid is None else 1)
+        # the owner source (and flags) read by the count and the write
+        # pass, each row read once; dest, rank, sent_ok out, and each
+        # accepted row once; a hash and a rank an input
+        return Q * (2 * src + K * 4 + 9) + total * K * 4, Q * 24
+    if key == "routed_gather":
+        back, dest, _, _, offsets, pos, valid = args
+        Q0 = dest.numel()
+        Q = Q0 if pos is None else pos.numel()
+        A, K = back.shape
+        # pos and valid in, the inputs' dest/rank/sent_ok and the answer
+        # rows each at most once, the answers out
+        return (Q * (4 if pos is not None else 0) + (
+            Q if valid is not None else 0) + min(Q, Q0) * 9
+            + min(Q, A) * K * 4 + offsets.numel() * 8 + Q * K * 4, Q * 8)
+    if key == "routed_gather:heads":
+        s_key = args[0]
+        Q = s_key.numel()
+        # sorted keys and positions in, uniq and pos_of_orig out; a binary
+        # search a request for its run's head
+        return Q * 20, Q * max(1, math.ceil(math.log2(Q + 1))) * 4
+    if key == "routed_gather:gather":
+        idx, _, *tables = args
+        R, K = idx.numel(), len(tables)
+        v_d = tables[0].numel()
+        # the requests in, each table row at most once, the answers out
+        return R * 4 + min(R, v_d) * K * 4 + R * K * 4, R * 4
+    if key == "reduce_requests":
+        ss_key, _, req, cand_cap = args
+        R, E = req.shape[0], ss_key.numel()
+        C = min(total, cand_cap)
+        steps = max(1, math.ceil(math.log2(E + 1)))
+        # the requests in, the adjacency rows the candidates read (12
+        # bytes each, at most the adjacency), the candidates and flags
+        # out; two binary searches a request
+        return (R * 16 + min(C, E) * 12 + C * 13,
+                R * 2 * steps * 4 + C * 6)
+    if key == "reduce_requests:probe":
+        src, _, _, cand = args[:4]
+        E, C = src.numel(), cand.shape[0]
+        steps = max(1, math.ceil(math.log2(E + 1)))
+        # the candidates in, the probed edge rows (at most the edges),
+        # the marks out; a lexicographic binary search a candidate
+        return C * 12 + min(C, E) * 12 + E, C * steps * 6
+    if key == "window_variants":
+        reads, k = args[:2]
+        N, L = reads.shape
+        NP = N * (L - k + 1)
+        return reads.numel() * 4 + NP * 32, NP * (6 * k + 24)
+    if key == "window_variants:verdicts":
+        reads, counts = args[:2]
+        return reads.numel() * 8 + counts.numel() * 4, counts.numel() * 6
     if key == "kmer_keys":
         reads, k = args
         N, L = reads.shape
@@ -690,7 +789,9 @@ def work(key: str, args: tuple, total=0):
         n = s_keys.numel()
         marks = 0 if contained is None else contained.numel()
         pay = payload.numel() + (0 if entries is None else entries.numel())
-        return (n * 12 + pay * 4 + total * 13 + marks,
+        perm = args[12] if len(args) > 12 else None     # the meshed join's
+        return (n * 12 + pay * 4 + total * 13 + marks
+                + (0 if perm is None else perm.numel() * 8),
                 n * 8 + total * (6 * (W - 2) + 22))
     if key.startswith("pointer_jump"):
         p, val, op, steps = args
@@ -917,7 +1018,10 @@ def max_abs_err(a, b) -> float:
         a, b = (a,), (b,)
     worst = 0.0
     for x, y in zip(a, b):
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, tuple):
+            if x != y:
+                return float("inf")
+        elif isinstance(x, torch.Tensor):
             if x.shape != y.shape:
                 return float("inf")
             # the float64 difference only where they differ: it takes
@@ -1057,6 +1161,36 @@ def main() -> int:
           n_contained=rag.n_contained)
     del r0, v0, res, rag, full
 
+    # --- phase 12: the device mesh, four shards on this card ------------
+    t0 = time.perf_counter()
+    log = MetricsLog(None, echo=False)
+    torch.cuda.reset_peak_memory_stats()
+    capture.reset_launch_counts("12")
+    mesh_contigs, mesh_stats = assemble(
+        reads, AssemblyConfig(mesh_shape=(MESH_SHARDS,)), outdir=None,
+        metrics=log, device="cuda")
+    launches = dict(kernels.LAUNCHES)
+    launches_by_key["12"] = capture.path_launches("12")
+    report_assembly(f"12 ecoli mesh{MESH_SHARDS}", t0,
+                    time.perf_counter() - t0, log, launches, mesh_contigs,
+                    mesh_stats, genome, genome_fraction)
+    peaks = {"12": peak_gib()}
+    say(f"  peak device memory {peaks['12']} GiB ({MESH_SHARDS} shards on "
+        f"one card)")
+    ledger = next(r for r in log.records if r["stage"] == "comm")
+    say("  collective bytes by stage (summed over its dispatches): "
+        + json.dumps({name: e["total_bytes"]
+                      for name, e in ledger["programs"].items()}))
+    for r in log.records:
+        if r["stage"].endswith(("_retry", "_device_memory")):
+            say(f"  {r['stage']}: " + json.dumps(
+                {k: v for k, v in r.items() if k != "stage"}))
+    got = {k: e2e["detail"][k] for k in ("n50", "n_contigs")}
+    if got != {k: mesh_stats[k] for k in got}:
+        raise AssertionError(f"phase 12: n50 {mesh_stats['n50']}, n_contigs "
+                             f"{mesh_stats['n_contigs']} differ from "
+                             f"bench_e2e_gpu.py's {got}")
+
     # --- phase 4: E. coli scale, reads to contigs -----------------------
     t0 = time.perf_counter()
     log = MetricsLog(None, echo=False)
@@ -1075,8 +1209,14 @@ def main() -> int:
             n_vertices = z["valid2"].shape[0]
     report_assembly("4 ecoli", t0, t_asm, log, launches, contigs, stats,
                     genome, genome_fraction)
-    peaks = {"4": peak_gib()}
+    peaks["4"] = peak_gib()
     incore = {"4": (contigs, stats)}
+    if mesh_stats != stats or len(mesh_contigs) != len(contigs) or any(
+            not np.array_equal(a, b) for a, b in zip(mesh_contigs, contigs)):
+        raise AssertionError("phase 12: the meshed assembly differs from "
+                             "phase 4's")
+    say("  phase 12's meshed assembly equals phase 4's: contigs and stats")
+    del mesh_contigs, mesh_stats
     got = {k: e2e["detail"][k] for k in ("n50", "n_contigs")}
     if got != {k: stats[k] for k in got}:
         raise AssertionError(f"bench_e2e_gpu.py: {got} differs from phase "
@@ -1286,7 +1426,9 @@ def main() -> int:
         t1 = time.perf_counter()
         key = base_key(row)
         name = key.split(":")[0]
-        if name == "lookup_counts":
+        # K2 on a path whose lookups K16/K17 make: only its directory ran
+        k2_dir = name == "lookup_counts" and path != "12"
+        if k2_dir:
             args = k2_inputs(capture, path)
         else:
             args = capture.inputs(row)      # freed after its row
@@ -1331,6 +1473,10 @@ def main() -> int:
             total = got[0].numel()
         elif name == "weak_windows":            # weak windows
             total = got.numel()
+        elif name == "route_rows":              # rows accepted
+            total = sum(got.counts)
+        elif key == "reduce_requests":          # candidates expanded
+            total = got[2]
         else:
             total = 0
         heavy = name in ("vote_windows", "weak_windows")
@@ -1352,8 +1498,8 @@ def main() -> int:
         shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
         per_step = ""
         if name == "lookup_counts":         # K2's first launch alone
-            # the path's K2 launches are all directory launches
-            rows[-1]["launches_of"] = "bucket directory"
+            if k2_dir:      # the path's K2 launches: directory launches
+                rows[-1]["launches_of"] = "bucket directory"
             rows[-1]["index_ms"] = time_ms(
                 lambda: kernels.lookup_directory(args[0], args[1]))
             per_step = (f", of which the bucket directory "
@@ -1408,13 +1554,15 @@ def main() -> int:
             + f"), bound {max(t_bytes, t_ops):.3f} ms, launches "
             f"{n_launches}"
             + (" (bucket directory only; the search is built from the "
-               "weak_windows row's inputs)" if name == "lookup_counts"
-               else "")
+               "weak_windows row's inputs)" if k2_dir else "")
             + f" (phase {path}), inputs {shape}" + per_step
             + (f", {total} candidates" if name in ("overlap_join",
                                                    "probe_join") else "")
             + (f", {int(got[4])} duplicate rows" if key ==
                "longest_edges:deferred" else "")
+            + (f", {total} rows accepted" if name == "route_rows" else "")
+            + (f", {total} candidates expanded" if key == "reduce_requests"
+               else "")
             + ({"dedup_reads": f", {total} unique reads",
                 "seed_rows": f", {total} live rows",
                 "longest_edges": f", {total} edges",
@@ -1632,6 +1780,17 @@ def library_time(key: str, args: tuple):
         table, _, queries = args
         return time_ms(lambda: torch.searchsorted(table, queries)), \
             "searchsorted"
+    if key == "route_rows":
+        # the slot order alone: a stable sort of the owners (invalid rows
+        # last), the reference's sort_by_keys of _route
+        from sage2_tpu_torch.kernels import plain
+
+        _, n, _, owner, keys, flip, valid = args
+        if owner is None:
+            owner = plain.owner_hash(keys, n, flip).to(torch.int32)
+        own = owner if valid is None else torch.where(valid, owner, n)
+        return time_ms(lambda: torch.sort(own, stable=True)), \
+            "sort(owner, stable=True)"
     if key == "pointer_jump:none":         # the whole loop, step by step
         p, steps = args[0], args[3]
 

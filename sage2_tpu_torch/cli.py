@@ -14,9 +14,10 @@ the plain PyTorch versions. ``--length-policy pad`` keeps every read at
 its own length (ragged reads; a file whose reads all have one length
 takes the fixed-length path). ``--max-device-reads N`` streams the
 assembly in chunks of N reads (``--entry-block-reads``, ``--spill-dir``:
-the streamed join's entry blocks and the host spill store); ``correct``
-and ``overlap`` take these flags and run in core, as the reference's
-do. ``correct`` and ``overlap`` write what the
+the streamed join's entry blocks and the host spill store); ``--mesh N``
+shards the in-core assembly of fixed-length reads over N shards;
+``correct`` and ``overlap`` take these flags and run in core on one
+device, as the reference's do. ``correct`` and ``overlap`` write what the
 reference's subcommands write, quirks included: both correct with the
 single_window rule whatever ``--correction-rule`` says, and ``overlap``
 reduces in core with ``--reduce-capacity`` and writes the result
@@ -62,6 +63,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="how to handle mixed read lengths at ingest;"
                         " 'pad' keeps every read at its own length"
                         " (lossless ragged mode)")
+    p.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="shard stages over an N-shard mesh (assemble; shard"
+                        " d on device d % the device count, so N shards"
+                        " may share one card)")
     p.add_argument("--max-device-reads", type=int, default=None,
                    metavar="N",
                    help="stream count/correct/dedup/overlap in chunks of"
@@ -101,6 +106,7 @@ def _config(args):
         candidate_capacity=args.candidate_capacity,
         reduce_capacity=args.reduce_capacity,
         reduce_backend=args.reduce_backend,
+        mesh_shape=(args.mesh,) if args.mesh else None,
         max_device_reads=args.max_device_reads,
         spill_dir=args.spill_dir,
         entry_block_reads=args.entry_block_reads,

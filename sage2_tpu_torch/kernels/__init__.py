@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
-Nineteen kernels (sources in ``kernels/csrc``):
+Twenty-three kernels (sources in ``kernels/csrc``):
 
   K1 ``kmer_keys``      forward, RC and canonical k-mer keys
   K2 ``lookup_counts``  count of each query key in a count table: bucket
@@ -49,6 +49,21 @@ Nineteen kernels (sources in ``kernels/csrc``):
                         initial parents of unitig labeling (one
                         cooperative launch); ``chain_cut`` the cycle cut
                         after K4's first two loops (one launch)
+  K19 ``route_rows``   the owner shard of each row, its stable rank
+                        among the rows bound there, and the accepted rows
+                        written destination-major (count, scan, write;
+                        the send side of every exchange of the mesh)
+  K20 ``routed_gather`` the request dedup around one torch.sort
+                        (``dedup_heads``), the owner's row gather
+                        (``gather_rows``) and the answers' way back to the
+                        asker (``route_back``)
+  K21 ``reduce_requests`` the meshed reduction's adjacency ranges and
+                        candidate expansion (ranges, expand around a
+                        torch.cumsum) and membership probe
+                        (``reduce_probe``)
+  K22 ``window_variants`` the canonical keys of the 4 variants of every
+                        window's last or first base, and the verdicts from
+                        their routed counts (``apply_verdicts``)
   P1 ``gather_along``   gather along one axis of an (N, W) table (the
                         Pallas probe's kernel; on no path of the package)
 
@@ -61,7 +76,11 @@ to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 K2's first launch, builds the directory that K16 and K17 share, and
 ``chain_cut`` counts as a ``chain_links`` launch; the fixed-capacity and
 deferred modes of K3, K13 and K14, find_overlaps_stacked's, count as
-their kernel's launches and read nothing to the host). K12 and K13 take a
+their kernel's launches and read nothing to the host; K19 launches three
+a call, K21's ``reduce_requests`` two, and the other wrappers of K20,
+K21 and K22 (``route_back``, ``dedup_heads``, ``gather_rows``,
+``reduce_probe``, ``apply_verdicts``) one each under their kernel's
+name). K12 and K13 take a
 ``split`` (utils.metrics.DeviceSplit) that marks the end of their sort
 and of their grouping or row build.
 
@@ -76,6 +95,7 @@ libraries.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import threading
@@ -92,7 +112,8 @@ KERNELS = ("kmer_keys", "lookup_counts", "overlap_join", "pointer_jump",
            "vote_windows", "reduce_counts", "reduce_marks", "canonical_reads",
            "seed_table", "probe_join", "merge_runs", "gather_along",
            "dedup_reads", "seed_rows", "longest_edges", "prune_table",
-           "weak_windows", "fix_windows", "chain_links")
+           "weak_windows", "fix_windows", "chain_links", "route_rows",
+           "routed_gather", "reduce_requests", "window_variants")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -111,7 +132,7 @@ _ARGTYPES = {
         "sage2_join_count": [_P, _P, _I64, _I, _I, _P, _P, _P],
         "sage2_join_write": [_P, _P, _I64, _I, _P, _I64, _I, _I, _I, _I64,
                              _P, _P, _P, _I, _I, _I, _I, _I64, _P, _P, _P,
-                             _P, _P, _P],
+                             _P, _P, _P, _P],
         "sage2_join_count_fixed": [_P, _P, _I64, _P, _I, _I, _P, _P, _P],
         "sage2_join_write_fixed": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I64, _P, _P, _P, _P, _P],
@@ -202,6 +223,27 @@ _ARGTYPES = {
                               _P, _P, _P, _P],
         "sage2_chain_cut": [_P, _P, _P, _I64, _P, _P, _P, _P, _P],
     },
+    "route_rows": {
+        "sage2_route_count": [_P, _P, _I, _P, _I64, _I, _P, _P],
+        "sage2_scan_tiles": [_P, _I64, _P, _P],
+        "sage2_route_write": [_P, _P, _I, _P, _I64, _I, _I, _P, _I, _P, _P,
+                              _P, _P, _P, _P, _P],
+    },
+    "routed_gather": {
+        "sage2_dedup_heads": [_P, _P, _I64, _P, _P, _P],
+        "sage2_gather_rows": [_P, _P, _I64, _P, _I64, _I, _P, _P],
+        "sage2_route_back": [_P, _I, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
+    },
+    "reduce_requests": {
+        "sage2_reduce_ranges": [_P, _I64, _P, _I64, _P, _P, _P],
+        "sage2_reduce_expand": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
+                                _P],
+        "sage2_reduce_probe": [_P, _P, _P, _I64, _P, _I64, _I, _P, _P],
+    },
+    "window_variants": {
+        "sage2_window_variants": [_P, _I64, _I, _I, _I, _P, _P],
+        "sage2_apply_verdicts": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],
+    },
 }
 
 # dynamic shared memory a block may use on the card (sm_90)
@@ -230,7 +272,8 @@ HEADERS = {"lookup_counts": ("bucket_search.cuh",),
            "dedup_reads": ("scan.cuh",), "seed_rows": ("scan.cuh",),
            "longest_edges": ("scan.cuh",), "prune_table": ("scan.cuh",),
            "weak_windows": ("bucket_search.cuh", "scan.cuh"),
-           "fix_windows": ("bucket_search.cuh",)}
+           "fix_windows": ("bucket_search.cuh",),
+           "route_rows": ("scan.cuh",)}
 
 
 def _specs():
@@ -272,12 +315,17 @@ def _launch(name: str, fn: str, *args) -> None:
 
 
 def _on_cpu(*tensors) -> bool:
-    """True for CPU tensors; checks CUDA tensors are contiguous."""
-    types = {t.device.type for t in tensors}
+    """True for CPU tensors; checks CUDA tensors are contiguous and on
+    one card."""
+    devices = {t.device for t in tensors}
+    types = {d.type for d in devices}
     if types == {"cpu"}:
         return True
     if types != {"cuda"}:
         raise ValueError(f"tensors on mixed or unsupported devices: {types}")
+    if len(devices) > 1:
+        raise ValueError(f"kernel inputs on several cards: "
+                         f"{sorted(str(d) for d in devices)}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
@@ -297,6 +345,33 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _first_tensor(args) -> Optional[torch.Tensor]:
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            a = _first_tensor(a)
+        if isinstance(a, torch.Tensor):
+            return a
+    return None
+
+
+def _on_device(fn):
+    """Runs a wrapper with the current CUDA device set to its tensors'
+    card, so that its launches, its ``_stream()`` and the CUDA runtime
+    calls of its kernels go to the card that holds its data (a mesh puts
+    its shards on several cards); on the current card or the CPU it
+    calls ``fn`` as it is."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t = _first_tensor((*args, *kwargs.values()))
+        if (t is None or not t.is_cuda
+                or t.device.index == torch.cuda.current_device()):
+            return fn(*args, **kwargs)
+        with torch.cuda.device(t.device):
+            return fn(*args, **kwargs)
+    return run
+
+
+@_on_device
 def kmer_keys(
     reads: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -333,6 +408,7 @@ _DIRECTORY = {"lookup_counts": "sage2_lookup_directory",
               "vote_windows": "sage2_vote_directory"}
 
 
+@_on_device
 def lookup_directory(table: torch.Tensor, counts: torch.Tensor,
                      kernel: str = "lookup_counts") -> torch.Tensor:
     """The first launch of K2 (or of K5, ``kernel="vote_windows"``, whose
@@ -355,6 +431,7 @@ def lookup_directory(table: torch.Tensor, counts: torch.Tensor,
     return scratch
 
 
+@_on_device
 def lookup_counts(
     table: torch.Tensor, counts: torch.Tensor, queries: torch.Tensor
 ) -> torch.Tensor:
@@ -378,6 +455,7 @@ def lookup_counts(
     return out
 
 
+@_on_device
 def overlap_join(
     s_keys: torch.Tensor,
     s_rows: torch.Tensor,
@@ -391,6 +469,7 @@ def overlap_join(
     entry_payload: Optional[torch.Tensor] = None,
     entry_base: int = 0,
     query_base: int = 0,
+    payload_perm: Optional[torch.Tensor] = None,
 ):
     """(ok bool, cand_a, cand_b, ovl int32, total) over the sorted live
     seed rows: ``s_keys`` int64 and ``s_rows`` int32 row ids, sorted by
@@ -411,19 +490,27 @@ def overlap_join(
     entry row t of read b at (b - entry_base) * g + t) and ``payload``
     (one query chunk's rows, the query row t of read a at (a -
     query_base) * (R - g) + t - g). Without ``entry_payload``
-    ``payload`` holds every row at its row id."""
+    ``payload`` holds every row at its row id. ``payload_perm`` (the
+    meshed join, an owner's rows from every shard): (n,) int64, the
+    payload row of each sorted row (``payload`` in received order)."""
+    if payload_perm is not None and entry_payload is not None:
+        raise ValueError("payload_perm and entry_payload exclude each other")
     tensors = (s_keys, s_rows, payload) + (
         () if contained is None else (contained,)) + (
-        () if entry_payload is None else (entry_payload,))
+        () if entry_payload is None else (entry_payload,)) + (
+        () if payload_perm is None else (payload_perm,))
     if _on_cpu(*tensors):
         return plain.overlap_join(s_keys, s_rows, payload, R, g, trim,
                                   min_overlap, contained, slot_limit,
-                                  entry_payload, entry_base, query_base)
+                                  entry_payload, entry_base, query_base,
+                                  payload_perm)
     _dtype(s_keys, torch.int64, "s_keys")
     _dtype(s_rows, torch.int32, "s_rows")
     _dtype(payload, torch.int32, "payload")
     if contained is not None:
         _dtype(contained, torch.uint8, "contained")
+    if payload_perm is not None:
+        _dtype(payload_perm, torch.int64, "payload_perm")
     if entry_payload is None:       # one payload at the row ids
         segments = (payload, 0, R, payload, 0, R, 0)
     else:
@@ -458,11 +545,12 @@ def overlap_join(
             e_base, e_stride, _ptr(qry), q_base, q_stride, q_off,
             payload.shape[1], n, _ptr(counts), _ptr(ebase), _ptr(starts),
             R, g, trim, min_overlap, n_out, _ptr(ok), *map(_ptr, cand),
-            _ptr(contained), _stream())
+            _ptr(contained), _ptr(payload_perm), _stream())
     LAUNCHES["overlap_join"] += 1
     return (ok, *cand, total)
 
 
+@_on_device
 def overlap_join_stacked(
     s_keys: torch.Tensor, s_rows: torch.Tensor, payload: torch.Tensor,
     n_live: torch.Tensor, R: int, g: int, trim: int, min_overlap: int,
@@ -512,6 +600,7 @@ def overlap_join_stacked(
 _JUMP_OPS = {"none": 0, "min": 1, "add": 2}
 
 
+@_on_device
 def pointer_jump(
     p: torch.Tensor, val: Optional[torch.Tensor] = None, op: str = "none",
     steps: int = 1,
@@ -557,6 +646,7 @@ def _vote_smem(L: int, k: int) -> int:
     return -(-(16 * P + 4 * (P + 1) + 4 * (L + 1) + 4 * L + L) // 8) * 8
 
 
+@_on_device
 def vote_windows(
     reads: torch.Tensor, table: torch.Tensor, counts: torch.Tensor,
     k: int, threshold: int, lengths: Optional[torch.Tensor] = None,
@@ -606,6 +696,7 @@ def _lens(read_len):
     return int(read_len), None
 
 
+@_on_device
 def reduce_counts(
     keys: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     ovl: torch.Tensor, n_vertices: int, read_len,
@@ -659,6 +750,7 @@ def _slot_total(offsets: torch.Tensor) -> int:
     return seen[1]
 
 
+@_on_device
 def reduce_marks(
     removed: torch.Tensor, offsets: torch.Tensor, src: torch.Tensor,
     dst: torch.Tensor, ovl: torch.Tensor, ss_sl: torch.Tensor,
@@ -694,6 +786,7 @@ def reduce_marks(
     return removed
 
 
+@_on_device
 def canonical_reads(
     reads: torch.Tensor, lengths: Optional[torch.Tensor] = None,
     rc_only: bool = False,
@@ -743,6 +836,7 @@ def _entry_geometry(words0: torch.Tensor, L: int, s: int, g: int,
                              f"read length {L}")
 
 
+@_on_device
 def seed_table(
     words0: torch.Tensor, valid: torch.Tensor, L: int, s: int, g: int,
     bucket_bits: int, base: int = 0,
@@ -787,6 +881,7 @@ def seed_table(
     return table, slab
 
 
+@_on_device
 def probe_join(
     words0: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,
     slab: torch.Tensor, L: int, s: int, g: int, pa: int, base: int = 0,
@@ -844,6 +939,7 @@ def probe_join(
     return (ok, *cand, total)
 
 
+@_on_device
 def merge_runs(
     keys: torch.Tensor, weights: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -879,6 +975,7 @@ def merge_runs(
     return out_keys[:n_unique], out_sums[:n_unique]
 
 
+@_on_device
 def gather_along(tbl: torch.Tensor, idx: torch.Tensor,
                  axis: int) -> torch.Tensor:
     """take_along_axis of an (N, W) int32 table with an (N, W) int32
@@ -921,6 +1018,7 @@ def _range_flag() -> torch.Tensor:
     return flag
 
 
+@_on_device
 def gather_along_launch(tbl: torch.Tensor, idx: torch.Tensor, axis: int,
                         out: torch.Tensor, flag: torch.Tensor) -> None:
     """P1's bare launch on checked, non-empty CUDA tensors: ``out``
@@ -951,6 +1049,7 @@ def _scan_tiles(name: str, counts: torch.Tensor, total: torch.Tensor):
     LAUNCHES[name] += 1
 
 
+@_on_device
 def dedup_reads(
     reads: torch.Tensor, lengths: Optional[torch.Tensor], rc: torch.Tensor,
     fwd_w: torch.Tensor, rc_w: torch.Tensor, take_rc: torch.Tensor, *,
@@ -1078,6 +1177,7 @@ def _seed_rows_scan(reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw,
     return keys, live, payload, counts, total
 
 
+@_on_device
 def seed_rows(
     reads2: torch.Tensor, valid2: torch.Tensor,
     lengths: Optional[torch.Tensor], s: int, g: int, n_pos: int, trim: int,
@@ -1154,6 +1254,7 @@ def seed_rows(
     return s_keys, s_rows, payload
 
 
+@_on_device
 def seed_rows_stacked(
     reads2: torch.Tensor, valid2: torch.Tensor, s: int, g: int, n_pos: int,
     trim: int,
@@ -1192,6 +1293,7 @@ def seed_rows_stacked(
     return s_keys, s_rows, payload, total[0]
 
 
+@_on_device
 def _longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices: int,
                    read_len: int, capacity: int, deferred: bool, out):
     """K14's launches (see ``longest_edges``): (src, dst, ovl, written,
@@ -1335,6 +1437,7 @@ def longest_edges_deferred(
             (valid - keepers).to(torch.int32))
 
 
+@_on_device
 def prune_table(keys: torch.Tensor, counts: torch.Tensor,
                 threshold: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(keys, counts) of the entries of the sorted int64 ``keys`` whose
@@ -1403,6 +1506,7 @@ def _directory_checked(directory: Optional[torch.Tensor]) -> torch.Tensor:
     return directory
 
 
+@_on_device
 def weak_windows(
     reads: torch.Tensor, lengths: Optional[torch.Tensor],
     table: torch.Tensor, counts: torch.Tensor,
@@ -1455,6 +1559,7 @@ def weak_windows(
 WEAK_TILE_READS = 32
 
 
+@_on_device
 def fix_windows(
     reads: torch.Tensor, widx: torch.Tensor, table: torch.Tensor,
     counts: torch.Tensor, directory: Optional[torch.Tensor], k: int,
@@ -1492,6 +1597,7 @@ def fix_windows(
     return out
 
 
+@_on_device
 def chain_links(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
                 n_vertices: int):
     """(outdeg, indeg, nxt, ovl_next, p), int32 (V,), of the padded int32
@@ -1521,6 +1627,7 @@ def chain_links(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
     return outdeg, indeg, nxt, ovl_next, p
 
 
+@_on_device
 def chain_cut(p: torch.Tensor, pf: torch.Tensor, m: torch.Tensor,
               nxt: torch.Tensor, ovl_next: torch.Tensor):
     """(p', d0), int32 (V,): the cycle cut of unitig labeling
@@ -1545,3 +1652,276 @@ def chain_cut(p: torch.Tensor, pf: torch.Tensor, m: torch.Tensor,
                 _stream())
         LAUNCHES["chain_links"] += 1
     return p_out, d0
+
+
+Route = plain.Route
+# most shards a K19 route takes (two packed words of 5 bins a tile)
+MAX_ROUTE_SHARDS = 8
+
+
+@_on_device
+def route_rows(rows: torch.Tensor, n: int, cap: int,
+               owner: Optional[torch.Tensor] = None,
+               keys: Optional[torch.Tensor] = None, flip: bool = False,
+               valid: Optional[torch.Tensor] = None) -> Route:
+    """Route the (Q, K) int32 ``rows`` to their owners among n shards
+    (see plain.route_rows): the owner is ``owner`` (Q,) int32, or the
+    hash of the int64 ``keys`` (Q,) (``flip``: 32-base seed keys);
+    ``valid`` (Q,) bool or None. Returns a ``Route``: the accepted rows
+    destination-major (rank < cap), each input's dest, rank and sent_ok,
+    the accepted rows per destination and the overflow flag (host
+    values) and the destinations' first rows in ``send``. Kernel K19:
+    count, scan, one host read of the n + 1 owner starts, write (see
+    kernels/csrc/route_rows.cu)."""
+    if (owner is None) == (keys is None):
+        raise ValueError("route_rows takes one of owner and keys")
+    if rows.dim() != 2:
+        raise ValueError("rows must be (Q, K)")
+    Q, K = rows.shape
+    src = owner if owner is not None else keys
+    if src.shape != (Q,) or (valid is not None and valid.shape != (Q,)):
+        raise ValueError("owner/keys and valid must be (Q,) beside rows")
+    if _on_cpu(*(t for t in (rows, src, valid) if t is not None)):
+        return plain.route_rows(rows, n, cap, owner, keys, flip, valid)
+    if not 1 <= n <= MAX_ROUTE_SHARDS:
+        raise ValueError(f"K19 routes to 1..{MAX_ROUTE_SHARDS} shards, "
+                         f"not {n}")
+    _dtype(rows, torch.int32, "rows")
+    if owner is not None:
+        _dtype(owner, torch.int32, "owner")
+    else:
+        _dtype(keys, torch.int64, "keys")
+    if valid is not None:
+        _dtype(valid, torch.bool, "valid")
+    if Q >= 1 << 31:
+        raise ValueError(f"{Q} rows overflow K19's int32 ranks")
+    dev = rows.device
+    # every rank is below Q, so a cap past Q drops and flags nothing (and
+    # the launch's int32 cap cannot wrap)
+    cap = min(int(cap), Q)
+    tiles = max(1, -(-Q // SCAN_TILE))
+    scratch = torch.empty((n + 1) * tiles + 1, dtype=torch.int64,
+                          device=dev)
+    tile_counts, total = scratch[:-1], scratch[-1:]
+    args = (_ptr(owner), _ptr(keys), int(flip), _ptr(valid), Q, n)
+    _launch("route_rows", "sage2_route_count", *args, _ptr(tile_counts),
+            _stream())
+    LAUNCHES["route_rows"] += 1
+    _scan_tiles("route_rows", tile_counts, total)
+    # the bins' starts: the rows of every earlier owner (bin n: invalid)
+    starts = tile_counts.view(n + 1, tiles)[:, 0].tolist() + [Q]
+    per = [starts[d + 1] - starts[d] for d in range(n)]
+    counts = tuple(min(c, cap) for c in per)
+    dest = torch.empty(Q, dtype=torch.int32, device=dev)
+    rank = torch.empty(Q, dtype=torch.int32, device=dev)
+    sent_ok = torch.empty(Q, dtype=torch.bool, device=dev)
+    send = torch.empty((sum(counts), K), dtype=torch.int32, device=dev)
+    offsets = torch.empty(n, dtype=torch.int64, device=dev)
+    _launch("route_rows", "sage2_route_write", *args, cap, _ptr(rows), K,
+            _ptr(tile_counts), _ptr(dest), _ptr(rank), _ptr(sent_ok),
+            _ptr(send), _ptr(offsets), _stream())
+    LAUNCHES["route_rows"] += 1
+    return Route(send, dest, rank, sent_ok, counts,
+                 any(c > cap for c in per), offsets)
+
+
+@_on_device
+def route_back(back: torch.Tensor, dest: torch.Tensor, rank: torch.Tensor,
+               sent_ok: torch.Tensor, offsets: torch.Tensor,
+               pos: Optional[torch.Tensor] = None,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Q', K) int32: the owners' answers ``back`` (A, K) int32, laid out
+    as the asker's send buffer was, at the asker's inputs, 0 where an
+    input was not sent (see plain.route_back); ``dest``, ``rank``,
+    ``sent_ok`` and ``offsets`` are the asker's ``Route``'s, ``pos``
+    (Q',) int32 picks the input of each entry, ``valid`` (Q',) bool
+    zeroes entries. Kernel K20's ``back`` launch
+    (kernels/csrc/routed_gather.cu)."""
+    tensors = (back, dest, rank, sent_ok, offsets) + (
+        () if pos is None else (pos,)) + (() if valid is None else (valid,))
+    if back.dim() != 2 or not (dest.shape == rank.shape == sent_ok.shape):
+        raise ValueError("back must be (A, K); dest, rank and sent_ok (Q,)")
+    if _on_cpu(*tensors):
+        return plain.route_back(back, dest, rank, sent_ok, offsets, pos,
+                                valid)
+    _dtype(back, torch.int32, "back")
+    if pos is not None:
+        _dtype(pos, torch.int32, "pos")
+    if valid is not None:
+        _dtype(valid, torch.bool, "valid")
+    _dtype(dest, torch.int32, "dest")
+    _dtype(rank, torch.int32, "rank")
+    _dtype(sent_ok, torch.bool, "sent_ok")
+    _dtype(offsets, torch.int64, "offsets")
+    Q = dest.shape[0] if pos is None else pos.shape[0]
+    K = back.shape[1]
+    out = torch.empty((Q, K), dtype=torch.int32, device=back.device)
+    if Q:
+        _launch("routed_gather", "sage2_route_back", _ptr(back), K,
+                _ptr(dest), _ptr(rank), _ptr(sent_ok), _ptr(offsets),
+                _ptr(pos), _ptr(valid), Q, _ptr(out), _stream())
+        LAUNCHES["routed_gather"] += 1
+    return out
+
+
+@_on_device
+def dedup_heads(s_key: torch.Tensor, s_ord: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(uniq, pos_of_orig) (Q,) int32 of the request dedup over the
+    sorted int32 requests ``s_key`` and their int64 input positions
+    ``s_ord`` (see plain.dedup_heads). Kernel K20's ``heads`` launch."""
+    if s_key.shape != s_ord.shape or s_key.dim() != 1:
+        raise ValueError("s_key and s_ord must be (Q,) alike")
+    if _on_cpu(s_key, s_ord):
+        return plain.dedup_heads(s_key, s_ord)
+    _dtype(s_key, torch.int32, "s_key")
+    _dtype(s_ord, torch.int64, "s_ord")
+    Q = s_key.shape[0]
+    uniq = torch.empty_like(s_key)
+    pos_of_orig = torch.empty_like(s_key)
+    if Q:
+        _launch("routed_gather", "sage2_dedup_heads", _ptr(s_key),
+                _ptr(s_ord), Q, _ptr(uniq), _ptr(pos_of_orig), _stream())
+        LAUNCHES["routed_gather"] += 1
+    return uniq, pos_of_orig
+
+
+@_on_device
+def gather_rows(idx: torch.Tensor, n: int, *tables: torch.Tensor
+                ) -> torch.Tensor:
+    """(R, len(tables)) int32 rows t[idx // n] (clipped) of one or two
+    (v_d,) int32 cyclically partitioned tables at the int32 vertex ids
+    ``idx`` (see plain.gather_rows). Kernel K20's ``gather`` launch."""
+    if not 1 <= len(tables) <= 2:
+        raise ValueError("gather_rows takes one or two tables")
+    if _on_cpu(*tables, idx):
+        return plain.gather_rows(idx, n, *tables)
+    for t in tables:
+        _dtype(t, torch.int32, "tables")
+    _dtype(idx, torch.int32, "idx")
+    R = idx.shape[0]
+    out = torch.empty((R, len(tables)), dtype=torch.int32, device=idx.device)
+    if R:
+        t1 = tables[1] if len(tables) > 1 else None
+        _launch("routed_gather", "sage2_gather_rows", _ptr(tables[0]),
+                _ptr(t1), tables[0].shape[0], _ptr(idx), R, n, _ptr(out),
+                _stream())
+        LAUNCHES["routed_gather"] += 1
+    return out
+
+
+@_on_device
+def reduce_requests(ss_key: torch.Tensor, ss_dst: torch.Tensor,
+                    req: torch.Tensor, cand_cap: int):
+    """(cand (C, 3) int32, ok (C,) bool, total) of the meshed
+    reduction's phase 2 at w's owner (see plain.reduce_requests):
+    ``ss_key`` (E,) int64 the local adjacency sorted by src << 32 | sl,
+    ``ss_dst`` (E,) int32, ``req`` (R, 4) int32 received requests; C =
+    min(total, cand_cap). Kernel K21: ranges, a torch.cumsum and one
+    host read of the total, expand (kernels/csrc/reduce_requests.cu)."""
+    if req.dim() != 2 or req.shape[1] != 4:
+        raise ValueError("req must be (R, 4)")
+    if _on_cpu(ss_key, ss_dst, req):
+        return plain.reduce_requests(ss_key, ss_dst, req, cand_cap)
+    _dtype(ss_key, torch.int64, "ss_key")
+    _dtype(ss_dst, torch.int32, "ss_dst")
+    _dtype(req, torch.int32, "req")
+    dev = req.device
+    R, E = req.shape[0], ss_key.shape[0]
+    if R == 0:
+        return (torch.empty((0, 3), dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.bool, device=dev), 0)
+    start = torch.empty(R, dtype=torch.int64, device=dev)
+    counts = torch.empty(R, dtype=torch.int64, device=dev)
+    _launch("reduce_requests", "sage2_reduce_ranges", _ptr(ss_key), E,
+            _ptr(req), R, _ptr(start), _ptr(counts), _stream())
+    LAUNCHES["reduce_requests"] += 1
+    ends = torch.cumsum(counts, 0)
+    total = int(ends[-1])
+    C = min(total, cand_cap)
+    cand = torch.empty((C, 3), dtype=torch.int32, device=dev)
+    ok = torch.empty(C, dtype=torch.bool, device=dev)
+    if C:
+        _launch("reduce_requests", "sage2_reduce_expand", _ptr(ss_key),
+                _ptr(ss_dst), _ptr(req), R, _ptr(start), _ptr(counts),
+                _ptr(ends), C, _ptr(cand), _ptr(ok), _stream())
+        LAUNCHES["reduce_requests"] += 1
+    return cand, ok, total
+
+
+@_on_device
+def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
+                 cand: torch.Tensor, read_len: int) -> torch.Tensor:
+    """(E,) bool removal marks of the meshed reduction's phase 4 at v's
+    owner (see plain.reduce_probe): the received candidates (C, 3) int32
+    against the local (src, dst)-sorted int32 edges. Kernel K21's
+    ``probe`` launch."""
+    if cand.dim() != 2 or cand.shape[1] != 3:
+        raise ValueError("cand must be (C, 3)")
+    if _on_cpu(src, dst, ovl, cand):
+        return plain.reduce_probe(src, dst, ovl, cand, read_len)
+    for t in (src, dst, ovl, cand):
+        _dtype(t, torch.int32, "edges and candidates")
+    E, C = src.shape[0], cand.shape[0]
+    removed = torch.zeros(E, dtype=torch.uint8, device=src.device)
+    if E and C:
+        _launch("reduce_requests", "sage2_reduce_probe", _ptr(src),
+                _ptr(dst), _ptr(ovl), E, _ptr(cand), C, int(read_len),
+                _ptr(removed), _stream())
+        LAUNCHES["reduce_requests"] += 1
+    return removed.bool()
+
+
+def _variant_checks(reads: torch.Tensor, k: int, which: str) -> int:
+    if which not in plain.WHICH:
+        raise ValueError(f"which must be one of {plain.WHICH}, not {which!r}")
+    if not 1 < k <= 31:
+        raise ValueError(f"k must be in (1, 31], got {k}")
+    P = reads.shape[1] - k + 1
+    if P < 1:
+        raise ValueError(f"k ({k}) exceeds read length ({reads.shape[1]})")
+    return P
+
+
+@_on_device
+def window_variants(reads: torch.Tensor, k: int, which: str
+                    ) -> torch.Tensor:
+    """(N, P, 4) int64 canonical keys of the 4 variants of each window's
+    last or first base (``which``) of the (N, L) int32 ``reads`` (see
+    plain.window_variants). Kernel K22's ``variants`` launch
+    (kernels/csrc/window_variants.cu)."""
+    P = _variant_checks(reads, k, which)
+    if _on_cpu(reads):
+        return plain.window_variants(reads, k, which)
+    _dtype(reads, torch.int32, "reads")
+    N, L = reads.shape
+    keys = torch.empty((N, P, 4), dtype=torch.int64, device=reads.device)
+    if N:
+        _launch("window_variants", "sage2_window_variants", _ptr(reads), N,
+                L, k, int(which == "last"), _ptr(keys), _stream())
+        LAUNCHES["window_variants"] += 1
+    return keys
+
+
+@_on_device
+def apply_verdicts(reads: torch.Tensor, counts: torch.Tensor, k: int,
+                   which: str, threshold: int) -> torch.Tensor:
+    """(N, L) int32 reads after the single_window rule at each window's
+    last or first base, from the (N, P, 4) int32 ``counts`` of
+    ``window_variants``' keys (see plain.apply_verdicts). Kernel K22's
+    ``verdicts`` launch."""
+    P = _variant_checks(reads, k, which)
+    if counts.shape != (reads.shape[0], P, 4):
+        raise ValueError("counts must be (N, P, 4) for these reads")
+    if _on_cpu(reads, counts):
+        return plain.apply_verdicts(reads, counts, k, which, threshold)
+    _dtype(reads, torch.int32, "reads")
+    _dtype(counts, torch.int32, "counts")
+    N, L = reads.shape
+    out = torch.empty_like(reads)
+    if N:
+        _launch("window_variants", "sage2_apply_verdicts", _ptr(reads),
+                _ptr(counts), N, L, k, int(which == "last"), threshold,
+                _ptr(out), _stream())
+        LAUNCHES["window_variants"] += 1
+    return out

@@ -45,6 +45,11 @@
 // map; the in-core join passes one payload with both bases 0 and both
 // strides R, which is the row id itself.
 //
+// The meshed join (parallel/sharded.py:921-929) joins the rows a hash
+// owner received from every shard: their ids are global and their
+// payload rows lie in received order, so the wrapper passes the sort's
+// permutation and the payload row of sorted row i is perm[i].
+//
 // The fixed-capacity mode (find_overlaps_stacked, detect.py:1108) reads
 // no count on the host: the rows come as K13's fixed buffer of M * R,
 // the live rows first and the live count in device memory, and the count
@@ -93,7 +98,8 @@ __global__ void join_count_kernel(const int64_t* __restrict__ keys,
 
 // Where the payload row of a seed row lies: entry rows (t < g) in `ent`
 // at (read - ent_base) * ent_stride + t, query rows in `qry` at (read -
-// qry_base) * qry_stride + t - qry_off; W2 int32 words a row.
+// qry_base) * qry_stride + t - qry_off; W2 int32 words a row. With `perm`
+// the row of sorted row `pos` is qry's row perm[pos].
 struct PayloadMap {
   const uint32_t* ent;
   int64_t ent_base;
@@ -103,9 +109,11 @@ struct PayloadMap {
   int qry_stride;
   int qry_off;
   int W2;
+  const int64_t* perm;
 
-  __device__ __forceinline__ const uint32_t* row(int32_t id, int R,
-                                                 int g) const {
+  __device__ __forceinline__ const uint32_t* row(int32_t id, int64_t pos,
+                                                 int R, int g) const {
+    if (perm != nullptr) return qry + perm[pos] * W2;
     const int64_t read = id / R;
     const int t = id % R;
     if (t < g) return ent + ((read - ent_base) * ent_stride + t) * W2;
@@ -140,7 +148,7 @@ __global__ void join_write_kernel(
     const int32_t qid = rows[i];
     const int32_t a = qid / R;
     const int p = (qid % R - g + 1) * g;  // query probe position in read a
-    const uint32_t* pa = pm.row(qid, R, g);
+    const uint32_t* pa = pm.row(qid, i, R, g);
     const int len_a = static_cast<int>(pa[Wt + 1]);
     const uint32_t apw = pa[Wt];  // bases [p-16, p) of a, right-aligned
     const int64_t slot0 = starts[i];
@@ -151,7 +159,7 @@ __global__ void join_write_kernel(
       const int32_t eid = rows[e0 + r];
       const int32_t b = eid / R;
       const int o = eid % R;  // entry offset inside read b's prefix
-      const uint32_t* pb = pm.row(eid, R, g);
+      const uint32_t* pb = pm.row(eid, e0 + r, R, g);
       const int len_b = static_cast<int>(pb[Wt + 1]);
       const int ovl = len_a - (p - o);
       bool match = a != b;
@@ -206,7 +214,9 @@ SAGE2_EXPORT int sage2_join_count_fixed(const void* keys, const void* rows,
 
 // ent_payload, qry_payload: (rows, W2) int32 payload words, a row's at
 // PayloadMap::row (in core: one payload indexed by row id, bases 0,
-// strides R, qry_off 0); starts: (n,) int64 first slot of each query;
+// strides R, qry_off 0; meshed: `perm` (n,) int64, the payload row of
+// each sorted row in qry_payload, else NULL); starts: (n,) int64 first
+// slot of each query;
 // ok/cand_*: (min(total, slot_limit),) outputs; contained: (reads,)
 // uint8 marks, or NULL.
 SAGE2_EXPORT int sage2_join_write(const void* rows, const void* ent_payload,
@@ -218,10 +228,12 @@ SAGE2_EXPORT int sage2_join_write(const void* rows, const void* ent_payload,
                                   int R, int g, int trim, int min_overlap,
                                   int64_t slot_limit, void* ok, void* cand_a,
                                   void* cand_b, void* cand_ovl,
-                                  void* contained, void* stream) {
+                                  void* contained, const void* perm,
+                                  void* stream) {
   const PayloadMap pm{static_cast<const uint32_t*>(ent_payload), ent_base,
                       ent_stride, static_cast<const uint32_t*>(qry_payload),
-                      qry_base, qry_stride, qry_off, W2};
+                      qry_base, qry_stride, qry_off, W2,
+                      static_cast<const int64_t*>(perm)};
   join_write_kernel<<<sage2_blocks(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rows), pm, n,
@@ -248,7 +260,8 @@ SAGE2_EXPORT int sage2_join_write_fixed(const void* rows, const void* payload,
                                         void* cand_a, void* cand_b,
                                         void* cand_ovl, void* stream) {
   const PayloadMap pm{static_cast<const uint32_t*>(payload), 0, R,
-                      static_cast<const uint32_t*>(payload), 0, R, 0, W2};
+                      static_cast<const uint32_t*>(payload), 0, R, 0, W2,
+                      nullptr};
   const int64_t grid = n > capacity ? n : capacity;
   join_write_kernel<<<sage2_blocks(grid), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(

@@ -11,7 +11,7 @@ whole-tensor ops and are no yardstick of speed.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -113,6 +113,7 @@ def overlap_join(
     entry_payload: Optional[torch.Tensor] = None,
     entry_base: int = 0,
     query_base: int = 0,
+    payload_perm: Optional[torch.Tensor] = None,
     block: int = 1 << 22,
 ):
     """(ok, cand_a, cand_b, ovl, total) of the sorted seed rows.
@@ -127,8 +128,10 @@ def overlap_join(
     scattered (detect.py:836-843). With ``entry_payload`` (the streamed
     join) the entry row t of read b is its row (b - entry_base) * g + t
     and ``payload`` holds the query rows, the query row t of read a at
-    (a - query_base) * (R - g) + t - g. The slots are computed ``block``
-    at a time.
+    (a - query_base) * (R - g) + t - g. With ``payload_perm`` (the
+    meshed join, whose owner holds rows of any read) the payload row of
+    sorted row i is ``payload[payload_perm[i]]``. The slots are computed
+    ``block`` at a time.
     """
     dev = s_keys.device
     n = s_keys.shape[0]
@@ -157,7 +160,10 @@ def overlap_join(
         ei = run_start[run[qi]] + rank
         qid = s_rows[qi].to(torch.int64)
         eid = s_rows[ei].to(torch.int64)
-        if entry_payload is None:
+        if payload_perm is not None:
+            pa = payload[payload_perm[qi]].to(torch.int64) & _U32
+            pb = payload[payload_perm[ei]].to(torch.int64) & _U32
+        elif entry_payload is None:
             pa = payload[qid].to(torch.int64) & _U32
             pb = payload[eid].to(torch.int64) & _U32
         else:
@@ -906,3 +912,238 @@ def chain_cut(p: torch.Tensor, pf: torch.Tensor, m: torch.Tensor,
     ovl_next[bpred] = 0
     p_out = torch.where(breaker, ids, p)
     return p_out, (p_out != ids).to(p.dtype)
+
+
+# --- the device mesh (parallel/sharded.py): K19-K22 -------------------------
+
+_MIX_A, _MIX_B, _MIX_C = 0x9E3779B1, 0x85EBCA77, 0x7FEB352D
+
+
+def owner_hash(keys: torch.Tensor, n: int, flip: bool = False
+               ) -> torch.Tensor:
+    """int64 owner in [0, n) of each int64 key: the uint32 mix of its
+    (hi, lo) words (sage2_tpu/parallel/sharded.py:49 ``_owner``, the same
+    function as overlap/detect.py:551 ``_mix32``) modulo n. ``flip``: the
+    key is a 32-base seed key stored with its top bit flipped
+    (ops/bitpack.py), unflipped before it is split."""
+    hi = (keys >> 32) & _U32
+    if flip:
+        hi = hi ^ 0x80000000
+    lo = keys & _U32
+    h = (hi * _MIX_A + lo * _MIX_B) & _U32
+    h = h ^ (h >> 16)
+    h = (h * _MIX_C) & _U32
+    h = h ^ (h >> 15)
+    return h % n
+
+
+class Route(NamedTuple):
+    """One shard's side of a routed exchange (K19 ``route_rows``).
+
+    send: (A, K) int32, the accepted rows, destination-major and by rank
+    within a destination (what each destination receives from this
+    shard); dest, rank: (Q,) int32 each input's destination and stable
+    rank among the inputs bound there (the reference's ``_Routed.dest``
+    and ``.rank``: an invalid input has dest n - 1 and a rank past that
+    destination's valid ones); sent_ok: (Q,) bool, the input is in
+    ``send``; counts: the accepted rows per destination (host ints);
+    overflow: some destination was given more than ``cap`` valid rows
+    (host bool); offsets: (n,) int64, each destination's first row in
+    ``send``."""
+
+    send: torch.Tensor
+    dest: torch.Tensor
+    rank: torch.Tensor
+    sent_ok: torch.Tensor
+    counts: Tuple[int, ...]
+    overflow: bool
+    offsets: torch.Tensor
+
+
+def route_rows(rows: torch.Tensor, n: int, cap: int,
+               owner: Optional[torch.Tensor] = None,
+               keys: Optional[torch.Tensor] = None, flip: bool = False,
+               valid: Optional[torch.Tensor] = None) -> Route:
+    """Route the (Q, K) int32 ``rows`` to their owners among n shards
+    (sage2_tpu/parallel/sharded.py:73 ``_route``, :128 ``_route_rows``):
+    the owner is ``owner`` (Q,) int32, or ``owner_hash(keys, n, flip)``;
+    invalid rows (``valid`` False) go nowhere. The rows are ranked
+    stably within their owner in input order (the reference's stable
+    sort by owner), and those of rank >= cap are dropped and flagged.
+    Only the accepted rows are written (``Route.send``)."""
+    dev = rows.device
+    Q = rows.shape[0]
+    if owner is None:
+        own = owner_hash(keys.reshape(-1), n, flip)
+    else:
+        own = owner.to(torch.int64)
+    if valid is not None:
+        own = torch.where(valid, own, n)
+    s_own, s_idx = torch.sort(own, stable=True)
+    start = torch.searchsorted(s_own, torch.arange(n, device=dev))
+    rank_sorted = torch.arange(Q, device=dev) - start[s_own.clamp(max=n - 1)]
+    ok_sorted = (s_own < n) & (rank_sorted < cap)
+    dest = torch.empty(Q, dtype=torch.int32, device=dev)
+    rank = torch.empty(Q, dtype=torch.int32, device=dev)
+    sent_ok = torch.empty(Q, dtype=torch.bool, device=dev)
+    dest[s_idx] = s_own.clamp(max=n - 1).to(torch.int32)
+    rank[s_idx] = rank_sorted.to(torch.int32)
+    sent_ok[s_idx] = ok_sorted
+    per = torch.bincount(own, minlength=n + 1)[:n]
+    accepted = per.clamp(max=cap)
+    offsets = torch.cumsum(accepted, 0) - accepted
+    return Route(rows[s_idx[ok_sorted]], dest, rank, sent_ok,
+                 tuple(int(c) for c in accepted), bool((per > cap).any()),
+                 offsets)
+
+
+def route_back(back: torch.Tensor, dest: torch.Tensor, rank: torch.Tensor,
+               sent_ok: torch.Tensor, offsets: torch.Tensor,
+               pos: Optional[torch.Tensor] = None,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(Q', K) int32: the owners' answers ``back`` (A, K) int32, laid out
+    as the asker's send buffer, returned to the asker's inputs
+    (sharded.py:120 ``_route_back``, :564 ``_route_back_rows``), 0 where
+    an input was not sent; ``dest``, ``rank``, ``sent_ok`` and
+    ``offsets`` are the asker's ``Route``'s. With ``pos`` (Q',) int32 the
+    answer of entry i is input pos[i]'s (the request dedup's
+    ``pos_of_orig``); with ``valid`` entries where it is False get 0."""
+    dest = dest.to(torch.int64)
+    slot = offsets[dest] + rank.to(torch.int64)
+    K = back.shape[1]
+    if back.shape[0] == 0:
+        ans = torch.zeros((dest.shape[0], K), dtype=torch.int32,
+                          device=back.device)
+    else:
+        ans = back[slot.clamp(0, back.shape[0] - 1)]
+        ans = torch.where(sent_ok[:, None], ans, 0).to(torch.int32)
+    if pos is not None:
+        ans = ans[pos.to(torch.int64)]
+    if valid is not None:
+        ans = torch.where(valid[:, None], ans, 0).to(torch.int32)
+    return ans
+
+
+def dedup_heads(s_key: torch.Tensor, s_ord: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(uniq, pos_of_orig) int32 of the request dedup of
+    sharded.py:575 ``_dedup_routed_gather`` over ``s_key`` (Q,) int32,
+    the requests sorted (invalid ones INT32_MAX, at the end), and
+    ``s_ord`` (Q,) int64 their input positions: uniq[j] the key at the
+    head of each run (INT32_MAX elsewhere), pos_of_orig[s_ord[j]] the
+    head of j's run (the cummax of head positions)."""
+    Q = s_key.shape[0]
+    dev = s_key.device
+    prev = torch.cat([torch.full((1,), -1, dtype=s_key.dtype, device=dev),
+                      s_key[:-1]])
+    is_head = (s_key != prev) & (s_key != I32_MAX)
+    uniq = torch.where(is_head, s_key, I32_MAX).to(torch.int32)
+    iota = torch.arange(Q, dtype=torch.int64, device=dev)
+    head_pos = torch.cummax(torch.where(is_head, iota, 0), 0).values
+    pos_of_orig = torch.empty(Q, dtype=torch.int32, device=dev)
+    pos_of_orig[s_ord] = head_pos.to(torch.int32)
+    return uniq, pos_of_orig
+
+
+def gather_rows(idx: torch.Tensor, n: int, *tables: torch.Tensor
+                ) -> torch.Tensor:
+    """(R, len(tables)) int32: row j holds t[clip(idx[j] // n, 0, v_d -
+    1)] of each cyclically partitioned (v_d,) int32 table (the owner's
+    side of ``_dedup_routed_gather``, sharded.py:607-611)."""
+    v_d = tables[0].shape[0]
+    slot = torch.div(idx.to(torch.int64), n, rounding_mode="floor")
+    slot = slot.clamp(0, max(v_d - 1, 0))
+    if v_d == 0:
+        return torch.zeros((idx.shape[0], len(tables)), dtype=torch.int32,
+                           device=idx.device)
+    return torch.stack([t[slot] for t in tables], dim=1).to(torch.int32)
+
+
+def reduce_requests(ss_key: torch.Tensor, ss_dst: torch.Tensor,
+                    req: torch.Tensor, cand_cap: int):
+    """(cand (C, 3) int32, ok (C,) bool, total) of phase 2 of
+    sharded.py:394 ``sharded_transitive_reduction`` (:493-508) at w's
+    owner: ``ss_key`` (E,) int64 the local adjacency sorted by src << 32
+    | sl (padding INT32_MAX, INT32_MAX), ``ss_dst`` (E,) int32 beside
+    it, ``req`` (R, 4) int32 the received requests [v, w, sl_vw,
+    bound]. Each request's adjacency range (src == w, sl <= bound), the
+    total of their sizes, and the first C = min(total, cand_cap)
+    candidates [v, x, sl_vw + sl_wx] in request order, rank order within
+    a request (``expand_by_counts``); ok where x != v."""
+    dev = req.device
+    R = req.shape[0]
+    rv, rw, rsl, rbound = (req[:, c].to(torch.int64) for c in range(4))
+    start = torch.searchsorted(ss_key, rw << 32)
+    upto = torch.searchsorted(ss_key, (rw << 32) | rbound, right=True)
+    counts = upto - start
+    total = int(counts.sum()) if R else 0
+    C = min(total, cand_cap)
+    group = torch.repeat_interleave(torch.arange(R, device=dev), counts)[:C]
+    firsts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(C, device=dev) - firsts[group]
+    e2 = start[group] + rank
+    cv = rv[group]
+    cx = ss_dst[e2].to(torch.int64)
+    csl = rsl[group] + (ss_key[e2] & _U32)
+    cand = torch.stack([cv, cx, csl], dim=1).to(torch.int32)
+    return cand, cx != cv, total
+
+
+def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
+                 cand: torch.Tensor, read_len: int) -> torch.Tensor:
+    """(E,) bool removal marks of phase 4 of
+    ``sharded_transitive_reduction`` (:518-537) at v's owner: each
+    received candidate (C, 3) int32 [v, x, sl] is looked up in the
+    local (src, dst)-sorted edges (padding INT32_MAX); an edge v -> x of
+    offset read_len - ovl == sl is marked."""
+    E = src.shape[0]
+    removed = torch.zeros(E, dtype=torch.bool, device=src.device)
+    if E == 0 or cand.shape[0] == 0:
+        return removed
+    key = (src.to(torch.int64) << 32) | dst.to(torch.int64)
+    q = (cand[:, 0].to(torch.int64) << 32) | cand[:, 1].to(torch.int64)
+    pos = torch.searchsorted(key, q).clamp(max=E - 1)
+    hit = (key[pos] == q) & (read_len - ovl[pos] == cand[:, 2])
+    removed[pos[hit]] = True
+    return removed
+
+
+WHICH = ("last", "first")
+
+
+def window_variants(reads: torch.Tensor, k: int, which: str
+                    ) -> torch.Tensor:
+    """(N, P, 4) int64 canonical keys of the 4 variants of every window's
+    last (``which="last"``) or first base (sage2_tpu/kmer/correct.py:36
+    ``variant_keys_last``, :58 ``variant_keys_first``; the reference
+    stacks the variants first, (4, N, P))."""
+    fwd, rc, _ = kmer_keys(reads, k)
+    P = fwd.shape[-1]
+    off = k - 1 if which == "last" else 0
+    cur = reads[:, off:off + P].to(torch.int64)[..., None]
+    b = torch.arange(4, dtype=torch.int64, device=reads.device)
+    hi_w = 1 << (2 * (k - 1))
+    w_fwd, w_rc = (1, hi_w) if which == "last" else (hi_w, 1)
+    vf = fwd[..., None] + (b - cur) * w_fwd
+    vr = rc[..., None] + (cur - b) * w_rc
+    return torch.minimum(vf, vr)
+
+
+def apply_verdicts(reads: torch.Tensor, counts: torch.Tensor, k: int,
+                   which: str, threshold: int) -> torch.Tensor:
+    """(N, L) int32 reads after the replacement rule of
+    sage2_tpu/kmer/correct.py:86 ``apply_verdicts`` at each window's
+    last or first base, from ``counts`` (N, P, 4) int32, the counts of
+    ``window_variants``' keys: the base becomes the unique best variant
+    when its own count is below threshold and the best reaches it."""
+    P = counts.shape[1]
+    off = k - 1 if which == "last" else 0
+    cur = reads[:, off:off + P].to(torch.int64)
+    m = counts.max(dim=-1).values
+    n_at_max = (counts == m[..., None]).sum(dim=-1)
+    cur_cnt = counts.gather(-1, cur[..., None])[..., 0]
+    best = torch.argmax(counts, dim=-1)
+    replace = (cur_cnt < threshold) & (m >= threshold) & (n_at_max == 1)
+    out = reads.clone()
+    out[:, off:off + P] = torch.where(replace, best, cur).to(reads.dtype)
+    return out

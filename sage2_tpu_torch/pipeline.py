@@ -20,6 +20,13 @@ the big host arrays (corrected reads, the read store, the edge lists)
 become memmaps of a spill store there (``utils.spill``), and the native
 reduction marks and compacts through it.
 
+A device mesh (``config.mesh_shape``, in core, fixed-length reads, the
+single_window rule): count, correct, overlap, reduction and unitig
+labeling run sharded over ``n`` shard slots (``parallel``; shard d on
+device d % the device count, so four shards may share one card), the
+dedup and the host finish as on one device; the result equals the
+single-device run's.
+
 Stage artifacts are the reference's: corrected.npz, edges.npz,
 reduced.npz, labels.npz, contigs.fasta, stats.json and manifest.json
 under ``outdir`` (a spilled run keeps its big arrays in the spill store
@@ -149,7 +156,12 @@ def _unsupported(config: AssemblyConfig, n_reads: int, mate_of,
                  lengths) -> Optional[str]:
     """The ROADMAP item a request needs, or None on the ported path."""
     if config.mesh_shape is not None:
-        return "a device mesh (ROADMAP Queue 1 item 12)"
+        from sage2_tpu_torch.parallel import sharded
+
+        if _stream_chunk(config, n_reads) is not None:
+            return sharded.MESH_STREAMED
+        if lengths is not None or config.correction_rule != "single_window":
+            return sharded.MESH_RAGGED_VOTING
     if mate_of is not None:
         return "paired reads and scaffolding (ROADMAP Queue 1 item 14)"
     return None
@@ -173,7 +185,11 @@ def assemble(
     ``config.max_device_reads`` below the read count streams the device
     stages (fixed-length and ragged reads), ``config.entry_block_reads``
     and ``config.spill_dir`` with them; a spilled run resumes only with
-    its spill dir. ``mate_of`` exists for the reference's signature; paired
+    its spill dir. ``config.mesh_shape`` shards the in-core stages of
+    fixed-length reads under the single_window rule over a mesh of
+    prod(mesh_shape) shards on ``device`` ("cuda": the visible cards,
+    shard d on card d % their count, at most 8 shards; "cpu": all on the
+    CPU). ``mate_of`` exists for the reference's signature; paired
     inputs raise NotImplementedError, as does any configuration off the
     ported path.
     """
@@ -236,6 +252,11 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _sync_mesh(mesh) -> None:
+    for dev in set(mesh.devices):
+        _sync(dev)
+
+
 def _drop_vertices(edges, gone: np.ndarray):
     """The edges touching no vertex of the mask ``gone``, re-padded to
     the input length with (INT32_MAX, INT32_MAX, 0); and their count."""
@@ -252,9 +273,177 @@ def _drop_vertices(edges, gone: np.ndarray):
     return tuple(out), n_keep
 
 
+def _mesh_of(config: AssemblyConfig, dev: torch.device, log):
+    """The run's mesh, or None: prod(mesh_shape) shards on ``dev`` (for
+    "cuda" without an index, on every visible card); its collective
+    ledger starts empty."""
+    if config.mesh_shape is None:
+        return None
+    from sage2_tpu_torch.parallel import comm, make_mesh
+
+    devices = None if dev.type == "cuda" and dev.index is None else dev
+    mesh = make_mesh(int(np.prod(config.mesh_shape)), devices=devices)
+    comm.reset()
+    log.log("mesh", n_devices=mesh.size)
+    return mesh
+
+
+def _pad_rows(arr: np.ndarray, multiple: int) -> np.ndarray:
+    """Rows padded to a multiple of the mesh size with copies of the last
+    (sage2_tpu/pipeline.py:123; the copies are masked as invalid)."""
+    pad = (-arr.shape[0]) % multiple
+    if not pad:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
+
+
+def _mesh_correct(mesh, reads, config, log, dev):
+    """The meshed count + correct stage (sage2_tpu/pipeline.py:251-277):
+    (N, L) int8 corrected reads on ``dev``."""
+    from sage2_tpu_torch.parallel import sharded_correct_reads
+
+    N, L = reads.shape
+    nd = mesh.size
+    padded = _pad_rows(reads.astype(np.int32), nd)
+    pvalid = np.arange(padded.shape[0]) < N
+    cap = max(4096, 4 * padded.shape[0] * (L - config.k + 1) // nd)
+    with log.timed("correct", rounds=config.correction_rounds,
+                   sharded=True):
+        corrected, ovf = sharded_correct_reads(
+            mesh, padded, config.k, config.solid_threshold,
+            config.correction_rounds, route_cap=cap, query_cap=cap,
+            valid=pvalid, rule=config.correction_rule)
+        _sync_mesh(mesh)
+    if ovf:
+        raise RuntimeError("sharded correction routing overflow")
+    return corrected[:N].to(dev, torch.int8)
+
+
+def _mesh_overlap(mesh, rs, config, log, outdir):
+    """The meshed overlap stage (sage2_tpu/pipeline.py:561-620): the
+    deduplicated reads padded to the mesh, routed join, capacities
+    doubled until nothing overflows. Returns (per-shard edge slices,
+    n_edges, the host edge list or None without ``outdir``)."""
+    from sage2_tpu_torch.overlap.detect import join_geometry
+    from sage2_tpu_torch.parallel import (
+        gather_edge_shards,
+        sharded_find_overlaps,
+    )
+
+    nd = mesh.size
+    M2, L = rs.reads2.shape
+    padm = (-M2) % nd
+    dev = rs.reads2.device
+    reads2 = torch.cat([rs.reads2, torch.zeros((padm, L), dtype=torch.int32,
+                                               device=dev)])
+    valid2 = torch.cat([rs.valid2, torch.zeros(padm, dtype=torch.bool,
+                                               device=dev)])
+    Mp = M2 + padm
+    geo = join_geometry(L, config.min_overlap, config.effective_seed_len)
+    row_cap = max(4096, 2 * (Mp // nd) * geo.R // nd)
+    join_cap = max(1 << 16, 32 * Mp // nd)
+    edge_cap = join_cap
+    while True:
+        with log.timed("overlap", sharded=True):
+            src_sh, dst_sh, ovl_sh, n_edges, ovf = sharded_find_overlaps(
+                mesh, reads2, valid2, config.min_overlap,
+                config.effective_seed_len, row_cap=row_cap,
+                join_cap=join_cap, edge_cap=edge_cap)
+            _sync_mesh(mesh)
+        if not ovf:
+            break
+        row_cap *= 2
+        join_cap *= 2
+        edge_cap *= 2
+        log.log("overlap_retry", row_cap=row_cap, join_cap=join_cap,
+                edge_cap=edge_cap)
+    log.log("overlap_device_memory", reads_per_device=Mp // nd,
+            seed_rows_per_device=(Mp // nd) * geo.R, row_cap=row_cap,
+            join_cap=join_cap, edge_cap=edge_cap, global_reads=Mp)
+    edges = (gather_edge_shards(src_sh, dst_sh, ovl_sh, n_edges)
+             if outdir else None)
+    return (src_sh, dst_sh, ovl_sh), n_edges, edges
+
+
+def _mesh_reduce(mesh, edges_dev, edges, n_edges, V, L, config, log):
+    """The meshed transitive reduction (sage2_tpu/pipeline.py:755-830):
+    the overlap stage's slices, or the host edges partitioned by src
+    range; the reference's capacity retries. Returns (reduced slices,
+    host reduced edges, n_edges, n_expansions)."""
+    from sage2_tpu_torch.parallel import (
+        gather_edge_shards,
+        partition_edges_by_src,
+        sharded_transitive_reduction,
+    )
+
+    nd = mesh.size
+    if edges_dev is not None:
+        s_sh, d_sh, o_sh = edges_dev
+        n_edges_glob = n_edges
+    else:
+        s_sh, d_sh, o_sh, _ = partition_edges_by_src(
+            edges[0], edges[1], edges[2], V, nd)
+        n_edges_glob = int(np.sum(s_sh != I32_MAX))
+    e_d = int(s_sh[0].shape[0])
+    cap = config.reduce_capacity
+    reqc = max(4096, 2 * e_d // nd)
+    while True:
+        cap_dev = -(-cap // nd)
+        with log.timed("reduce", capacity=cap, sharded=True):
+            r_src, r_dst, r_ovl, r_n, r_exp, r_ovf = (
+                sharded_transitive_reduction(
+                    mesh, s_sh, d_sh, o_sh, V, L, req_cap=reqc,
+                    cand_cap=cap_dev))
+        if not r_ovf:
+            break
+        grain = 1 << 16
+        cap = max(cap + grain, 2 * cap,
+                  -(-int(r_exp * 1.05) // grain) * grain)
+        reqc *= 2
+        log.log("reduce_retry", new_capacity=cap)
+    log.log("reduce_device_memory", edges_per_device=e_d, req_cap=reqc,
+            cand_cap=cap_dev, global_edges=n_edges_glob)
+    red = gather_edge_shards(r_src, r_dst, r_ovl, r_n)
+    return (r_src, r_dst, r_ovl), red, r_n, r_exp
+
+
+def _mesh_traverse(mesh, reduced_dev, redges, V, log, dev):
+    """The meshed unitig labeling (sage2_tpu/pipeline.py:877-915):
+    labels gathered to host arrays."""
+    from sage2_tpu_torch.parallel import (
+        gather_cyclic_shards,
+        partition_edges_by_src,
+        sharded_contract_unitigs,
+    )
+
+    nd = mesh.size
+    if reduced_dev is not None:
+        s_sh, d_sh, o_sh = reduced_dev
+    else:
+        s_sh, d_sh, o_sh, _ = partition_edges_by_src(
+            redges[0], redges[1], redges[2], V, nd)
+    e_d = int(s_sh[0].shape[0])
+    rcap = max(4096, 2 * max(e_d, -(-V // nd)) // nd)
+    while True:
+        with log.timed("traverse", sharded=True):
+            shards, t_ovf = sharded_contract_unitigs(mesh, s_sh, d_sh, o_sh,
+                                                     V, route_cap=rcap)
+            _sync_mesh(mesh)
+        if not t_ovf:
+            break
+        rcap *= 2
+        log.log("traverse_retry", route_cap=rcap)
+    names = ["head", "dist", "nxt", "ovl_next", "outdeg", "indeg"]
+    log.log("traverse_device_memory", vertices_per_device=-(-V // nd),
+            edges_per_device=e_d, route_cap=rcap, global_vertices=V)
+    return {k: gather_cyclic_shards(sh, V) for k, sh in zip(names, shards)}
+
+
 def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     N, L = reads.shape
     start = STAGES.index(resume_from) if resume_from else 0
+    mesh = _mesh_of(config, dev, log)
+    edges_dev = reduced_dev = None      # meshed: per-shard edge slices
     stream_chunk = _stream_chunk(config, N)
     if stream_chunk is not None:
         log.log("streaming", chunk_reads=stream_chunk, n_reads=N)
@@ -285,6 +474,10 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                          if spilled else None),
                     device=dev, lengths=lengths,
                 )
+        elif mesh is not None:
+            # kept on the card for the in-core dedup
+            corrected8 = _mesh_correct(mesh, reads, config, log, dev)
+            corrected_np = corrected8.cpu().numpy()
         else:
             r = torch.from_numpy(reads.astype(np.int32)).to(dev)
             with log.timed("count", n_reads=N, read_len=L, k=config.k):
@@ -402,33 +595,41 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
             del corrected
             _sync(dev)
         log.log("dedup_split", **split.ms())
-        with log.timed("overlap"):
-            split = DeviceSplit(dev)
-            res = find_overlaps_auto(
-                rs.reads2, rs.valid2, config.min_overlap,
-                config.effective_seed_len, lengths=rs.lengths2, split=split,
-            )
-            _sync(dev)
-        log.log("overlap_split", **split.ms())
-        if res.overflow:
-            raise RuntimeError("find_overlaps_auto returned an overflowed "
-                               "candidate capacity")
-        edges = (res.src.cpu().numpy(), res.dst.cpu().numpy(),
-                 res.ovl.cpu().numpy())
-        n_edges = res.n_edges
+        if mesh is not None:
+            edges_dev, n_edges, edges = _mesh_overlap(mesh, rs, config, log,
+                                                      outdir)
+            n_candidates = n_edges
+        else:
+            with log.timed("overlap"):
+                split = DeviceSplit(dev)
+                res = find_overlaps_auto(
+                    rs.reads2, rs.valid2, config.min_overlap,
+                    config.effective_seed_len, lengths=rs.lengths2,
+                    split=split,
+                )
+                _sync(dev)
+            log.log("overlap_split", **split.ms())
+            if res.overflow:
+                raise RuntimeError("find_overlaps_auto returned an "
+                                   "overflowed candidate capacity")
+            edges = (res.src.cpu().numpy(), res.dst.cpu().numpy(),
+                     res.ovl.cpu().numpy())
+            n_edges, n_candidates = res.n_edges, res.n_candidates
+            contained = res.contained
+            del res
         valid2_np = rs.valid2.cpu().numpy()
         if lengths is not None:
             # SAGE containment removal (sage2_tpu/pipeline.py:670-696): a
             # read contained in either orientation leaves the graph with
             # its edges
-            cont = res.contained.cpu().numpy()
+            cont = contained.cpu().numpy()
             cont = cont | np.roll(cont, cont.shape[0] // 2)
             log.log("containment", n_contained=int(cont.sum()))
             if cont.any():
                 edges, n_edges = _drop_vertices(edges, cont)
                 valid2_np = valid2_np & ~cont
         log.log("overlap_result", n_edges=n_edges,
-                n_candidates=res.n_candidates,
+                n_candidates=n_candidates,
                 n_unique_reads=int(rs.n_unique))
         reads2_np = rs.reads2.to(torch.int8).cpu().numpy()
         mult_np = rs.multiplicity.cpu().numpy()
@@ -437,11 +638,12 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
         if rs.lengths2 is not None:
             lengths2_np = rs.lengths2.cpu().numpy()
             extra["lengths2"] = lengths2_np
-        del rs, res
-        _save(outdir, log, "edges", src=edges[0], dst=edges[1],
-              ovl=edges[2], n_edges=n_edges, reads2=reads2_np,
-              valid2=valid2_np, multiplicity=mult_np, **extra)
-        _manifest(outdir, config, "overlap")
+        del rs
+        if edges is not None:       # a meshed run gathers them for outdir
+            _save(outdir, log, "edges", src=edges[0], dst=edges[1],
+                  ovl=edges[2], n_edges=n_edges, reads2=reads2_np,
+                  valid2=valid2_np, multiplicity=mult_np, **extra)
+            _manifest(outdir, config, "overlap")
     else:
         z = stage_input("edges")
         if "mate_pairs" in z:
@@ -466,7 +668,16 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     # host arrays: "auto" and "native" reduce them on the host (through
     # the spill store when there is one), "device" uploads them once and
     # reduces on ``dev``
-    if start <= STAGES.index("reduce"):
+    if start <= STAGES.index("reduce") and mesh is not None:
+        reduced_dev, redges, red_n, red_exp = _mesh_reduce(
+            mesh, edges_dev, edges, n_edges if edges_dev else None, V, L,
+            config, log)
+        edges_dev = None
+        log.log("reduce_result", n_edges=red_n, n_expansions=red_exp)
+        _save(outdir, log, "reduced", src=redges[0], dst=redges[1],
+              ovl=redges[2])
+        _manifest(outdir, config, "reduce")
+    elif start <= STAGES.index("reduce"):
         with log.timed("reduce", backend=config.reduce_backend):
             if spilled and config.reduce_backend in ("auto", "native"):
                 red = transitive_reduction_spill(
@@ -492,7 +703,12 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
         redges = (z["src"], z["dst"], z["ovl"])
 
     # --- stage 5: unitig labeling --------------------------------------
-    if start <= STAGES.index("traverse"):
+    if start <= STAGES.index("traverse") and mesh is not None:
+        lab = _mesh_traverse(mesh, reduced_dev, redges, V, log, dev)
+        reduced_dev = None
+        _save(outdir, log, "labels", **lab)
+        _manifest(outdir, config, "traverse")
+    elif start <= STAGES.index("traverse"):
         with log.timed("traverse"):
             labels = contract_unitigs(
                 *(torch.from_numpy(_writable(np.ascontiguousarray(a)))
@@ -547,4 +763,10 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
         with open(os.path.join(outdir, "stats.json"), "w") as f:
             json.dump(stats, f, indent=1)
         _manifest(outdir, config, "finish")
+    if mesh is not None:
+        # the collective ledger: per sharded stage, its dispatches and the
+        # bytes its exchanges moved
+        from sage2_tpu_torch.parallel import comm
+
+        log.log("comm", programs=comm.summary())
     return contigs, stats

@@ -1103,3 +1103,308 @@ def test_find_overlaps_stacked_periodic_duplicates(cuda):
                                 capacity=4096, device="cpu")
     _equal(out, cpu)
     assert bool((out[7] > 0).all())
+
+
+# --- the device mesh: K19-K22 and K3's payload permutation ----------------
+
+
+def _route_equal(a, b):
+    for name in ("send", "dest", "rank", "sent_ok", "offsets"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()), (
+            name)
+    assert a.counts == b.counts and a.overflow == b.overflow
+
+
+def _route_case(n, Q, K, seed, hot=False):
+    rng = np.random.default_rng(seed)
+    owner = rng.integers(0, n, size=Q).astype(np.int32)
+    if hot and n > 1:
+        owner[: Q // 2] = n - 1
+        owner[owner == 0] = 1       # owner 0 gets no rows
+    valid = rng.random(Q) < 0.9
+    rows = rng.integers(-2**31, 2**31, size=(Q, K)).astype(np.int32)
+    return (torch.from_numpy(rows), torch.from_numpy(owner),
+            torch.from_numpy(valid))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("Q,K", [(0, 1), (1, 2), (1023, 3), (5000, 9)])
+def test_route_rows_kernel(cuda, n, Q, K):
+    rows, owner, valid = _route_case(n, Q, K, seed=n * 31 + Q)
+    want = plain.route_rows(rows, n, Q + 1, owner=owner, valid=valid)
+    got = kernels.route_rows(rows.to(cuda), n, Q + 1, owner=owner.to(cuda),
+                             valid=valid.to(cuda))
+    _route_equal(got, want)
+    assert not got.overflow
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_route_rows_kernel_caps(cuda, n):
+    """Capacities at the busiest owner's count, one below and one above
+    it (ranks cap - 1 and cap), an owner with no rows, no valid mask."""
+    rows, owner, _ = _route_case(n, 3000, 3, seed=n, hot=True)
+    busiest = int(torch.bincount(owner.long(), minlength=n).max())
+    for cap in (busiest - 1, busiest, busiest + 1, 1):
+        want = plain.route_rows(rows, n, cap, owner=owner)
+        got = kernels.route_rows(rows.to(cuda), n, cap, owner=owner.to(cuda))
+        _route_equal(got, want)
+        assert got.overflow == (cap < busiest)
+        if n > 1:
+            assert got.counts[0] == 0
+
+
+def test_route_rows_kernel_cap_past_int32(cuda):
+    """A capacity of 2^31 or more (the correction's 4 N P / n at tens of
+    millions of reads) routes every row, as the plain version does: the
+    launch's int32 cap must not wrap."""
+    rows, owner, valid = _route_case(4, 3000, 3, seed=11, hot=True)
+    for cap in (2**31 - 1, 2**31 + 5, 2**32 + 1):
+        want = plain.route_rows(rows, 4, cap, owner=owner, valid=valid)
+        got = kernels.route_rows(rows.to(cuda), 4, cap, owner=owner.to(cuda),
+                                 valid=valid.to(cuda))
+        _route_equal(got, want)
+        assert not got.overflow and sum(got.counts) == int(valid.sum())
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_route_rows_kernel_hash(cuda, n, flip):
+    """Owners from the hash of int64 keys (k-mer keys, or 32-base seed
+    keys with their top bit flipped), at keys near the extremes."""
+    rng = np.random.default_rng(n)
+    keys = rng.integers(-2**63, 2**63 - 1, size=4100, dtype=np.int64)
+    keys[:4] = [-2**63, 2**63 - 1, 0, -1]
+    keys = torch.from_numpy(keys)
+    valid = torch.from_numpy(rng.random(4100) < 0.7)
+    rows = keys.view(torch.int32).reshape(-1, 2)
+    want = plain.route_rows(rows, n, 700, keys=keys, flip=flip, valid=valid)
+    got = kernels.route_rows(rows.to(cuda), n, 700, keys=keys.to(cuda),
+                             flip=flip, valid=valid.to(cuda))
+    _route_equal(got, want)
+
+
+def test_routed_gather_kernels(cuda):
+    """K20: the way back (with and without pos and valid), the request
+    dedup's heads, and the owner's gather of one and two tables."""
+    rows, owner, valid = _route_case(4, 2000, 1, seed=3, hot=True)
+    route = plain.route_rows(rows, 4, 300, owner=owner, valid=valid)
+    groute = kernels.route_rows(rows.to(cuda), 4, 300, owner=owner.to(cuda),
+                                valid=valid.to(cuda))
+    back = torch.arange(sum(route.counts) * 2, dtype=torch.int32).reshape(
+        -1, 2)
+    pos = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2000, size=777).astype(np.int32))
+    pvalid = torch.rand(777, generator=torch.Generator().manual_seed(2)) < .6
+    for p, v in ((None, None), (pos, pvalid), (pos, None)):
+        want = plain.route_back(back, route.dest, route.rank, route.sent_ok,
+                                route.offsets, p, v)
+        got = kernels.route_back(back.to(cuda), groute.dest, groute.rank,
+                                 groute.sent_ok, groute.offsets,
+                                 None if p is None else p.to(cuda),
+                                 None if v is None else v.to(cuda))
+        assert torch.equal(got.cpu(), want)
+    for keys in ([3, 3, 5, 9, 9, 9, 2**31 - 1, 2**31 - 1], [2**31 - 1] * 5,
+                 sorted(np.random.default_rng(4).integers(0, 50, 3000))):
+        key = torch.tensor(keys, dtype=torch.int32)
+        order = torch.randperm(len(keys),
+                               generator=torch.Generator().manual_seed(5))
+        want = plain.dedup_heads(key, order)
+        got = kernels.dedup_heads(key.to(cuda), order.to(cuda))
+        _equal(got, want)
+    t1 = torch.arange(100, dtype=torch.int32) * 7
+    t2 = -torch.arange(100, dtype=torch.int32)
+    idx = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 800, size=999).astype(np.int32))
+    for tables in ((t1,), (t1, t2)):
+        want = plain.gather_rows(idx, 8, *tables)
+        got = kernels.gather_rows(idx.to(cuda), 8,
+                                  *(t.to(cuda) for t in tables))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cand_cap", [10, 1000, 1 << 20])
+def test_reduce_requests_kernels(cuda, cand_cap):
+    """K21 on a dense random graph: requests that expand past cand_cap,
+    then the membership probe of every candidate."""
+    rng = np.random.default_rng(cand_cap)
+    V, E, L = 300, 4000, 100
+    pairs = np.unique(rng.integers(0, V, size=(E, 2)), axis=0)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    ovl = rng.integers(40, 99, size=pairs.shape[0]).astype(np.int32)
+    pad = 64
+    src = np.concatenate([pairs[:, 0], np.full(pad, 2**31 - 1)]).astype(
+        np.int32)
+    dst = np.concatenate([pairs[:, 1], np.full(pad, 2**31 - 1)]).astype(
+        np.int32)
+    ovl = np.concatenate([ovl, np.zeros(pad, np.int32)])
+    sl = np.where(src != 2**31 - 1, L - ovl, 2**31 - 1)
+    t = torch.from_numpy
+    ss_key, order = torch.sort((t(src).long() << 32) | t(sl).long(),
+                               stable=True)
+    ss_dst = t(dst)[order].contiguous()
+    n_e = pairs.shape[0]
+    bound = rng.integers(0, 60, size=n_e)
+    req = torch.from_numpy(np.stack([src[:n_e], dst[:n_e], sl[:n_e], bound],
+                                    1).astype(np.int32))
+    want = plain.reduce_requests(ss_key, ss_dst, req, cand_cap)
+    got = kernels.reduce_requests(ss_key.to(cuda), ss_dst.to(cuda),
+                                  req.to(cuda), cand_cap)
+    _equal(got, want)
+    assert want[2] > 10
+    cand = want[0][want[1]]
+    removed = plain.reduce_probe(t(src), t(dst), t(ovl), cand, L)
+    got = kernels.reduce_probe(t(src).to(cuda), t(dst).to(cuda),
+                               t(ovl).to(cuda), cand.to(cuda), L)
+    assert torch.equal(got.cpu(), removed)
+
+
+@pytest.mark.parametrize("which", ["last", "first"])
+@pytest.mark.parametrize("k", [11, 25, 31])
+def test_window_variants_kernels(cuda, k, which):
+    reads = _reads(n_genome=5000)[:300]
+    want = plain.window_variants(reads, k, which)
+    got = kernels.window_variants(reads.to(cuda), k, which)
+    assert torch.equal(got.cpu(), want)
+    counts = torch.from_numpy(np.random.default_rng(k).choice(
+        [0, 1, 2, 3, 7], size=tuple(want.shape)).astype(np.int32))
+    for thr in (2, 3):
+        want = plain.apply_verdicts(reads, counts, k, which, thr)
+        got = kernels.apply_verdicts(reads.to(cuda), counts.to(cuda), k,
+                                     which, thr)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_overlap_join_payload_perm_kernel(cuda):
+    """K3's meshed mode: the payload in a shuffled order with the sort's
+    permutation gives the in-core join's candidates."""
+    r, valid, _ = seed_case(False)
+    reads2, valid2 = torch.from_numpy(r), torch.from_numpy(valid)
+    geo = join_geometry(reads2.shape[1], 30, 30)
+    s_keys, s_rows, payload = build_seed_rows(reads2, valid2, 30, geo)
+    flat = payload.reshape(-1, geo.Wt + 2)
+    want = kernels.overlap_join(s_keys, s_rows, flat, geo.R, geo.g,
+                                geo.trim, 30)
+    shuffle = torch.randperm(s_rows.shape[0],
+                             generator=torch.Generator().manual_seed(3))
+    received = flat[s_rows.long()][shuffle]
+    perm = torch.argsort(shuffle)
+    args = (s_keys, s_rows, received, geo.R, geo.g, geo.trim, 30, None, None)
+    plain_out = kernels.overlap_join(*args, payload_perm=perm)
+    _equal(plain_out, want)
+    got = kernels.overlap_join(*(a.to(cuda) if isinstance(a, torch.Tensor)
+                                 else a for a in args),
+                               payload_perm=perm.to(cuda))
+    _equal(got, want)
+
+
+def test_sharded_stages_on_one_card(cuda):
+    """The meshed stages with 4 shards on one card against the same
+    stages on a CPU mesh (the plain versions), down to the labels."""
+    _sharded_stages_match_cpu(cuda)
+
+
+@pytest.fixture
+def cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more GPUs")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def test_sharded_stages_on_several_cards(cards):
+    """The same with the 4 shards spread over every visible card (shard d
+    on card d % their count)."""
+    _sharded_stages_match_cpu(None)
+
+
+def _sharded_stages_match_cpu(devices):
+    from sage2_tpu_torch.parallel import (
+        gather_cyclic_shards,
+        gather_edge_shards,
+        make_mesh,
+        partition_edges_by_src,
+        sharded_contract_unitigs,
+        sharded_correct_reads,
+        sharded_find_overlaps,
+        sharded_transitive_reduction,
+    )
+
+    reads = _reads(n_genome=20_000).numpy()[:4000]
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", devices)):
+        mesh = make_mesh(4, devices=dev)
+        if dev is None:
+            assert len({mesh.device_of(d) for d in range(4)}) > 1
+        corrected, ovf = sharded_correct_reads(mesh, reads, 25, 2, 2,
+                                               1 << 20, 1 << 20)
+        assert not ovf
+        rs = prepare_reads(corrected)
+        M = rs.reads2.shape[0] + (-rs.reads2.shape[0]) % 4
+        pad = M - rs.reads2.shape[0]
+        reads2 = torch.cat([rs.reads2, rs.reads2.new_zeros((pad, 100))])
+        valid2 = torch.cat([rs.valid2, rs.valid2.new_zeros(pad)])
+        src, dst, ovl, n_edges, ovf = sharded_find_overlaps(
+            mesh, reads2, valid2, 40, 32, row_cap=1 << 17, join_cap=1 << 18)
+        assert not ovf
+        V = rs.reads2.shape[0]
+        red = sharded_transitive_reduction(mesh, src, dst, ovl, V, 100,
+                                           req_cap=1 << 17,
+                                           cand_cap=1 << 20)
+        assert not red[5]
+        edges = gather_edge_shards(*red[:3], red[3])
+        s_sh, d_sh, o_sh, _ = partition_edges_by_src(*edges, V, 4)
+        labels, ovf = sharded_contract_unitigs(mesh, s_sh, d_sh, o_sh, V,
+                                               route_cap=1 << 16)
+        assert not ovf
+        out[name] = (corrected.cpu(), n_edges, red[3:5],
+                     [gather_cyclic_shards(x, V) for x in labels])
+    a, b = out["cpu"], out["cuda"]
+    assert torch.equal(a[0], b[0]) and a[1] == b[1] and a[2] == b[2]
+    for x, y in zip(a[3], b[3]):
+        assert np.array_equal(x, y)
+
+
+def test_kernels_on_another_card(cards):
+    """Wrappers called with their tensors on a card other than the
+    current one launch there (on that card's stream) and leave the
+    current card as it was; inputs on two cards are refused."""
+    other = cards[1]
+    assert torch.cuda.current_device() == 0
+    reads = _reads(n_genome=5_000)[:500]
+    keys = plain.kmer_keys(reads, 25)[2]
+    got = kernels.kmer_keys(reads.to(other), 25)[2]
+    assert got.device == other and torch.equal(got.cpu(), keys)
+    table = count_kmers(reads.to(other), 25)
+    assert table.keys.device == other
+    ref = count_kmers(reads, 25)
+    assert torch.equal(table.keys.cpu(), ref.keys)
+    assert torch.equal(table.count.cpu(), ref.count)
+    variants = kernels.window_variants(reads.to(other), 25, "last")
+    want = plain.lookup_counts(ref.keys, ref.count, variants.cpu())
+    got = kernels.lookup_counts(table.keys, table.count, variants)
+    assert torch.equal(got.cpu(), want)
+    rows, owner, valid = _route_case(4, 3000, 3, seed=5)
+    _route_equal(kernels.route_rows(rows.to(other), 4, 700,
+                                    owner=owner.to(other),
+                                    valid=valid.to(other)),
+                 plain.route_rows(rows, 4, 700, owner=owner, valid=valid))
+    assert torch.cuda.current_device() == 0
+    with pytest.raises(ValueError):
+        kernels.route_rows(rows.to(cards[0]), 4, 700, owner=owner.to(other))
+
+
+def test_meshed_assembly_on_several_cards(cards):
+    """assemble(mesh_shape=(4,)) with the shards spread over every visible
+    card gives the single-device run's contigs and stats."""
+    from dataclasses import replace
+
+    from sage2_tpu_torch import AssemblyConfig
+    from sage2_tpu_torch.pipeline import assemble
+
+    reads = _reads(n_genome=20_000).numpy()[:4001]     # padded to the mesh
+    cfg = AssemblyConfig(min_contig_len=500)
+    contigs, stats = assemble(reads, cfg, device="cuda:0")
+    m_contigs, m_stats = assemble(reads, replace(cfg, mesh_shape=(4,)),
+                                  device="cuda")
+    assert m_stats == stats and len(m_contigs) == len(contigs) >= 1
+    for a, b in zip(m_contigs, contigs):
+        np.testing.assert_array_equal(a, b)
