@@ -41,6 +41,18 @@ Phases (one flushed line each, with its seconds):
      bench_e2e_gpu.py's (asserted here), contigs and stats equal to
      phase 4's (asserted after phase 4); it runs before phase 4, while
      few kernel inputs are kept on the card;
+  13 phase 8's ragged reads (simulated here) on the same four-shard mesh,
+     right after phase 12 for the same reason: 13a phase 8a's config
+     (ragged single_window correction: K22's verdicts with lengths; the
+     ragged routed join: K13 with lengths, K3 with containment marks and
+     the owners' permutation at once; the meshed containment removal; the
+     ragged sharded reduction: K21's probe with each shard's lengths),
+     13b phase 8b's (the voting rule on the mesh: K22 at every window
+     position, K5's routed vote_add and vote_apply); each prints its
+     stage seconds, peak device memory, collective bytes by stage,
+     retries and capacities and its containment count, and asserts
+     genome_fraction >= 0.99; contigs, stats and containment counts
+     asserted equal to 8a's and 8b's after phase 8;
   4  reads to contigs at E. coli scale (4.6 Mbp genome, 50x, 100 bp,
      error 0.005, seeds 7/8, default AssemblyConfig: single_window
      corrector, host-native reduction) through
@@ -59,8 +71,9 @@ Phases (one flushed line each, with its seconds):
      (2048, 2048) on axis 1, through kernels.gather_along;
   8  ragged reads at E. coli scale (the same genome; lengths uniform in
      [75, 150], either strand, error 0.005 on real bases, 50x of real
-     bases, plus 10% contained reads of 47-72 bp; zero-padded to 150)
-     through pipeline.assemble(lengths=..., outdir=None): 8a the
+     bases, plus 10% contained reads of 47-72 bp; zero-padded to 150;
+     simulated before phase 13) through
+     pipeline.assemble(lengths=..., outdir=None): 8a the
      default config (native reduction with per-vertex lengths), 8b
      vote_all_windows + the device reduction; each prints the split and
      asserts genome_fraction >= 0.99 and containments removed;
@@ -84,9 +97,13 @@ Phases (one flushed line each, with its seconds):
      (torch.cuda.max_memory_allocated after a reset), 10a-10d the host
      split of their streamed dedup (K8's words, the host sort and
      grouping, the representative rows);
+  2a right after phase 13: phase 2's rows of paths 11, 12, 13a and 13b,
+     so that their kept inputs leave the card before phases 4-10 keep
+     theirs (else those phases' copies go to the host inside their timed
+     stages);
   2  (the card's clocks, power, temperature and throttle reasons
-     printed before and after it) each kernel against its plain
-     PyTorch version on the inputs that
+     printed before and after it, and before and after 2a) each kernel
+     against its plain PyTorch version on the inputs that
      its path's run gave it (captured during that run, so phase 2 comes
      last): one row for each kernel of each path (PATHS), "name" on its
      first path and "name:<path>" on every other (phases 4, 5, 7, 8a,
@@ -131,7 +148,13 @@ Each path runs with the launch counts set to 0 just before it and read
 just after it: phase 11 for K13, K3 and K14 in the stacked path's
 modes (the sync-checked call), phase 12 for the mesh (K19-K22, with
 K1, K2, K3 (its payload-permutation mode), K8, K11-K14; the ":12"
-rows), phase 4 for K1-K4, K8 and K11-K18,
+rows), 13a and 13b for the ragged and voting mesh (the same with
+lengths: "window_variants:ragged", "reduce_requests:probe_ragged",
+"overlap_join:ragged_perm"; 13b K22 at a window position,
+"window_variants:position", the one nearest the window's middle, and
+K5's routed mode, "vote_windows:routed" (the last position's call) and
+"vote_windows:apply"; the ":13a"/":13b" rows), phase 4 for K1-K4, K8
+and K11-K18,
 phase 5 for K5-K7,
 K12-K15 and K18, phase 7 for P1, phases 8a and 8b for the ragged path
 (K12 to K18 too), 10a and 10b for the streamed path (K9-K11 with K1,
@@ -289,6 +312,22 @@ KERNEL_INFO = {
                         "sage2_tpu/kmer/correct.py:36", "12"),
     "window_variants:verdicts": (_CSRC + "window_variants.cu",
                                  "sage2_tpu/kmer/correct.py:86", "12"),
+    # the ragged and voting mesh (phases 13a, 13b): K5's routed mode, K22
+    # at any window position and with lengths, K21's probe with lengths,
+    # K3 with containment marks and the owners' permutation at once
+    "vote_windows:routed": (_CSRC + "vote_windows.cu",
+                            "sage2_tpu/kmer/correct.py:171", "13b"),
+    "vote_windows:apply": (_CSRC + "vote_windows.cu",
+                           "sage2_tpu/kmer/correct.py:174", "13b"),
+    "window_variants:position": (_CSRC + "window_variants.cu",
+                                 "sage2_tpu/kmer/correct.py:161", "13b"),
+    "window_variants:ragged": (_CSRC + "window_variants.cu",
+                               "sage2_tpu/parallel/sharded.py:334", "13a"),
+    "reduce_requests:probe_ragged": (_CSRC + "reduce_requests.cu",
+                                     "sage2_tpu/parallel/sharded.py:524",
+                                     "13a"),
+    "overlap_join:ragged_perm": (_CSRC + "overlap_join.cu",
+                                 "sage2_tpu/parallel/sharded.py:957", "13a"),
 }
 # the wrapper of each row whose kernel is called through another wrapper
 # than its own name
@@ -300,7 +339,29 @@ WRAPPER = {"chain_links:cut": "chain_cut",
            "routed_gather:heads": "dedup_heads",
            "routed_gather:gather": "gather_rows",
            "reduce_requests:probe": "reduce_probe",
-           "window_variants:verdicts": "apply_verdicts"}
+           "window_variants:verdicts": "apply_verdicts",
+           "vote_windows:routed": "vote_add",
+           "vote_windows:apply": "vote_apply",
+           "window_variants:ragged": "apply_verdicts",
+           "reduce_requests:probe_ragged": "reduce_probe"}
+# the wrappers with a branch that takes tensors where their other calls
+# pass None (lengths; K11's weights; K3's marks and the owners'
+# permutation): a call given tensors at all of a branch's positions is
+# counted under its row, the first that matches
+BRANCH_AT = {"canonical_reads": [((1,), "canonical_reads:ragged")],
+             "dedup_reads": [((1,), "dedup_reads:ragged")],
+             "weak_windows": [((1,), "weak_windows:ragged")],
+             "seed_rows": [((2,), "seed_rows:ragged")],
+             "overlap_join": [((7, 12), "overlap_join:ragged_perm"),
+                              ((7,), "overlap_join:ragged")],
+             "vote_windows": [((5,), "vote_windows:ragged")],
+             "reduce_counts": [((5,), "reduce_counts:ragged")],
+             "reduce_marks": [((9,), "reduce_marks:ragged")],
+             "merge_runs": [((1,), "merge_runs:weighted")],
+             "apply_verdicts": [((5,), "window_variants:ragged")],
+             "reduce_probe": [((4,), "reduce_requests:probe_ragged")]}
+# K5's routed mode: no bucket directory, no skip
+_ROUTED_VOTE = ("vote_windows:routed", "vote_windows:apply")
 for _n, _w, _a in PROBE_SHAPES:
     KERNEL_INFO[f"gather_along:{_a}:{_n}x{_w}"] = (
         _CSRC + "gather_along.cu", "scripts/probe_pallas_gather.py:73", "7")
@@ -322,6 +383,16 @@ _STREAMED_RAGGED = ["seed_rows:entries", "seed_rows:queries",
 _DEDUP_JOIN = ["dedup_reads", "seed_rows", "longest_edges"]
 _RAGGED_DEDUP_JOIN = ["dedup_reads:ragged", "seed_rows:ragged",
                       "longest_edges"]
+# the meshed ragged path's kernels under either rule
+_MESH_RAGGED = ["kmer_keys", "merge_runs", "lookup_counts",
+                "canonical_reads:ragged", *_RAGGED_DEDUP_JOIN,
+                "overlap_join:ragged_perm", "route_rows", "routed_gather",
+                "routed_gather:heads", "routed_gather:gather",
+                "reduce_requests", "reduce_requests:probe_ragged"]
+# the mesh's paths: K2 makes real lookups at the k-mer owners there
+MESH_PATHS = ("12", "13a", "13b")
+# the paths that run before phase 4, whose rows phase 2a checks
+EARLY_PATHS = ("11", *MESH_PATHS)
 PATHS = {
     "4": ["kmer_keys", *_TWOPHASE, "canonical_reads", "overlap_join",
           "merge_runs", *_JUMPS, *_DEDUP_JOIN, *_CHAIN],
@@ -348,6 +419,8 @@ PATHS = {
            "routed_gather:heads", "routed_gather:gather", "reduce_requests",
            "reduce_requests:probe", "window_variants",
            "window_variants:verdicts"],
+    "13a": [*_MESH_RAGGED, "window_variants", "window_variants:ragged"],
+    "13b": [*_MESH_RAGGED, "window_variants:position", *_ROUTED_VOTE],
 }
 # every kernel of a path is held against its plain version at that
 # path's shapes: a second row "<key>:<path>" where its first row comes
@@ -514,7 +587,9 @@ class Capture:
     EXTRA = {"lookup_directory": "lookup_counts", "chain_cut": "chain_links",
              **{w: k.split(":")[0] for k, w in WRAPPER.items()}}
     # the row key of a wrapper's calls where it is not the kernel's name
-    KEY_OF = {w: k for k, w in WRAPPER.items()}
+    # (a call in a branch of BRANCH_AT gets that row's key in ``counted``)
+    KEY_OF = {w: k for k, w in WRAPPER.items()
+              if k not in {row for b in BRANCH_AT.values() for _, row in b}}
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -536,18 +611,7 @@ class Capture:
         import torch
 
         name = self.EXTRA.get(attr, attr)
-
-        # where each kernel with a ragged branch takes its lengths, and
-        # K11 its weights: a call given one gets the key suffix
-        branch_at = {"canonical_reads": (1, "ragged"),
-                     "dedup_reads": (1, "ragged"),
-                     "weak_windows": (1, "ragged"),
-                     "seed_rows": (2, "ragged"),
-                     "overlap_join": (7, "ragged"),
-                     "vote_windows": (5, "ragged"),
-                     "reduce_counts": (5, "ragged"),
-                     "reduce_marks": (9, "ragged"),
-                     "merge_runs": (1, "weighted")}
+        default = self.KEY_OF.get(attr, name)
 
         def call(*args, **kw):
             # a wrapper called by another (K2's and K5's directory) is
@@ -562,7 +626,7 @@ class Capture:
 
         def counted(*args, **kw):
             # keyword arguments (a stage's DeviceSplit) are not kept
-            key = self.KEY_OF.get(attr, name)
+            key = default
             size = sum(a.numel() for a in args
                        if isinstance(a, torch.Tensor))
             if key != name:
@@ -580,20 +644,28 @@ class Capture:
             elif name == "overlap_join" and len(args) > 9 and isinstance(
                     args[9], torch.Tensor):
                 key = f"{name}:streamed"         # an entry slab's payload
+            elif name == "window_variants" and args[2] not in ("last",
+                                                               "first"):
+                key = f"{name}:position"         # the voting rule's j
+            if key == default:
+                key = next((row for at, row in BRANCH_AT.get(attr, ())
+                            if len(args) > max(at) and all(isinstance(
+                                args[i], torch.Tensor) for i in at)), key)
             # the streamed join's rows prefer a later entry block (a
             # table and slab of global ids from base > 0) and a query
             # chunk after the first, then the most input elements
             rank = (size,)
+            if key == "window_variants:position":
+                # the position nearest the window's middle
+                rank = (-abs(2 * args[2] - (args[1] - 1)), size)
+            elif key == "vote_windows:routed":
+                rank = (args[2], size)      # the last position's votes
             if name == "seed_table":
                 self.entry_base = args[6] if len(args) > 6 else 0
                 rank = (self.entry_base > 0, size)
             elif name == "probe_join":
                 rank = (self.entry_base > 0,
                         (args[8] if len(args) > 8 else 0) > 0, size)
-            at, suffix = branch_at.get(name, (None, None))
-            if key == name and at is not None and len(args) > at and (
-                    isinstance(args[at], torch.Tensor)):
-                key += ":" + suffix
             row = (key if KERNEL_INFO[key][2] == self.phase
                    else f"{key}:{self.phase}")
             kept = self.args.get(row)
@@ -691,6 +763,14 @@ class Capture:
             setattr(self.kernels, attr, fn)
 
 
+def valid_windows(lengths, N: int, P: int, k: int) -> int:
+    """The windows of N reads of P windows each that lie inside their
+    read: sum(clamp(len - (k - 1), 0, P)), or N * P without lengths."""
+    if lengths is None:
+        return N * P
+    return int((lengths.long() - (k - 1)).clamp(0, P).sum())
+
+
 def work(key: str, args: tuple, total=0):
     """(bytes moved, integer operations) of one call: each input read
     once and each output written once; operations counted from this
@@ -717,7 +797,7 @@ def work(key: str, args: tuple, total=0):
         return (n * 12 + payload.numel() * 4 + capacity * 13,
                 n * 8 + total * (6 * (W - 2) + 22))
     if name == "route_rows":
-        rows, _, _, owner, _, _, valid = args
+        rows, _, _, owner, _, _, valid = route_args(args)
         Q, K = rows.shape
         src = (4 if owner is not None else 8) + (0 if valid is None else 1)
         # the owner source (and flags) read by the count and the write
@@ -756,21 +836,42 @@ def work(key: str, args: tuple, total=0):
         # out; two binary searches a request
         return (R * 16 + min(C, E) * 12 + C * 13,
                 R * 2 * steps * 4 + C * 6)
-    if key == "reduce_requests:probe":
-        src, _, _, cand = args[:4]
+    if key.startswith("reduce_requests:probe"):
+        src, _, _, cand, read_len = args[:5]
         E, C = src.numel(), cand.shape[0]
         steps = max(1, math.ceil(math.log2(E + 1)))
-        # the candidates in, the probed edge rows (at most the edges),
-        # the marks out; a lexicographic binary search a candidate
-        return C * 12 + min(C, E) * 12 + E, C * steps * 6
-    if key == "window_variants":
+        # the candidates in, the probed edge rows (at most the edges) and
+        # their vertices' lengths (at most the shard's), the marks out; a
+        # lexicographic binary search a candidate
+        lens = (min(C, read_len.numel()) * 4 if hasattr(read_len, "numel")
+                else 0)
+        return C * 12 + min(C, E) * 12 + lens + E, C * steps * 6
+    if key == "vote_windows:routed":
+        votes, counts, _, k, _, lengths = args
+        N, P = counts.shape[:2]
+        W = valid_windows(lengths, N, P, k)
+        # each valid window's 4 counts in, the vote word of its base read
+        # and written (a window past its read's end reads neither); 4
+        # compares and a pack a window
+        return (W * 24 + (0 if lengths is None else N * 4), W * 8)
+    if key == "vote_windows:apply":
+        reads, votes = args
+        # codes and votes in, codes out; the rule's compares a base
+        return reads.numel() * 8 + votes.numel(), reads.numel() * 12
+    if key in ("window_variants", "window_variants:position"):
         reads, k = args[:2]
         N, L = reads.shape
         NP = N * (L - k + 1)
         return reads.numel() * 4 + NP * 32, NP * (6 * k + 24)
-    if key == "window_variants:verdicts":
-        reads, counts = args[:2]
-        return reads.numel() * 8 + counts.numel() * 4, counts.numel() * 6
+    if key in ("window_variants:verdicts", "window_variants:ragged"):
+        reads, counts, k = args[:3]
+        lengths = args[5] if len(args) > 5 else None
+        N, P = counts.shape[:2]
+        W = valid_windows(lengths, N, P, k)
+        # every base in and out; each valid window's 4 counts in (a base
+        # past its read's last window reads none); the rule a window
+        return (reads.numel() * 8 + W * 16
+                + (0 if lengths is None else N * 4), W * 24)
     if key == "kmer_keys":
         reads, k = args
         N, L = reads.shape
@@ -922,6 +1023,12 @@ def work(key: str, args: tuple, total=0):
                 n * max(1, math.ceil(math.log2(n + 1))) * 2)
     tbl = args[0]                                   # gather_along
     return tbl.numel() * 12, tbl.numel() * 2
+
+
+def route_args(args: tuple) -> tuple:
+    """A route_rows call's positional arguments with their defaults:
+    (rows, n, cap, owner, keys, flip, valid)."""
+    return tuple(args) + (None, None, False, None)[len(args) - 3:]
 
 
 # operations a count-table lookup is counted at in K5's bound, whatever
@@ -1083,6 +1190,187 @@ def main() -> int:
     phase("1 build", t0, kernels=len(kernels.KERNELS))
     capture = Capture(kernels)
 
+    # phase 2's rows (run as phase 2a for EARLY_PATHS after phase 13, as
+    # phase 2 for the rest at the end)
+    rows = []
+
+    def kern(name):
+        """A wrapper of ``kernels`` as it is, not Capture's (phase 2a runs
+        while Capture wraps them)."""
+        return capture.originals.get(name) or getattr(kernels, name)
+
+    def check_rows(label, selected):
+        """Phase 2's rows of ``selected`` (KERNEL_INFO items): each held
+        against its plain version, timed, its bound computed; appended to
+        ``rows``. Each row's kept inputs are freed after it."""
+        t0 = time.perf_counter()
+        say(f"card before phase {label}: {card_state()}")
+        # K2's rows first: they read their path's K16 row's inputs
+        order = sorted(selected, key=lambda item: not base_key(
+            item[0]).startswith("lookup_counts"))
+        for row, (source, replaces, path) in order:
+            t1 = time.perf_counter()
+            key = base_key(row)
+            name = key.split(":")[0]
+            # K2 on a path whose lookups K16/K17 make: only its directory ran
+            k2_dir = name == "lookup_counts" and path not in MESH_PATHS
+            if k2_dir:
+                args = k2_inputs(capture, path)
+            else:
+                args = capture.inputs(row)      # freed after its row
+            if key == "longest_edges:deferred":
+                args = with_duplicates(args)
+            fn = WRAPPER.get(key, name)
+            wrapper = kern(fn)
+            ref = getattr(plain, fn)
+
+            # reduce_marks, overlap_join (its containment marks) and the cut
+            # (nxt, ovl_next) update an argument in place: the kernel takes a
+            # copy of the inputs, the plain version the inputs themselves, and
+            # the two must end equal
+            a_got = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args)
+            a_want = args
+            unmarked = args[0].clone() if name == "reduce_marks" else None
+            got = wrapper(*a_got)
+            want = ref(*a_want)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got, want), max_abs_err(a_got, a_want))
+            if err != 0:
+                raise AssertionError(f"{row}: kernel differs from its plain "
+                                     f"version (max abs err {err})")
+            if name in ("overlap_join", "probe_join"):
+                total = int(got[4])
+            elif name == "reduce_marks":            # marks this range sets
+                total = int((got != unmarked).sum())
+            elif name == "merge_runs":              # unique keys
+                total = got[0].numel()
+            elif name == "vote_windows" and key not in _ROUTED_VOTE:
+                total = vote_pairs(args)            # the lookups it needs
+            elif name == "dedup_reads":             # unique reads
+                total = got[3]
+            elif key == "seed_rows:stacked":        # live seed rows
+                total = int(got[3])
+            elif name == "seed_rows":
+                total = got[0].numel()
+            elif name == "longest_edges":           # edges kept
+                total = int(got[3])
+            elif name == "prune_table":             # entries kept
+                total = got[0].numel()
+            elif name == "weak_windows":            # weak windows
+                total = got.numel()
+            elif name == "route_rows":              # rows accepted
+                total = sum(got.counts)
+            elif key == "reduce_requests":          # candidates expanded
+                total = got[2]
+            else:
+                total = 0
+            heavy = name in ("vote_windows", "weak_windows") and (
+                key not in _ROUTED_VOTE)
+            ms = time_ms(lambda: wrapper(*args), reps=3 if heavy else 5)
+            plain_ms = time_ms(lambda: ref(*args), reps=1 if heavy else 3)
+            library_ms, library = library_time(key, args)
+            nbytes, ops = work(key, args, total)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / OPS_PER_S * 1e3
+            n_launches = launches_by_key[path][key]
+            rows.append({
+                "name": row, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+            })
+            shape = [tuple(a.shape) for a in args
+                     if isinstance(a, torch.Tensor)]
+            per_step = ""
+            if name == "lookup_counts":         # K2's first launch alone
+                if k2_dir:      # the path's K2 launches: directory launches
+                    rows[-1]["launches_of"] = "bucket directory"
+                rows[-1]["index_ms"] = time_ms(
+                    lambda: kern("lookup_directory")(args[0], args[1]))
+                per_step = (f", of which the bucket directory "
+                            f"{rows[-1]['index_ms']:.3f} ms")
+            elif name == "vote_windows" and key not in _ROUTED_VOTE:
+                # K5's first launch; the skip
+                rows[-1]["index_ms"] = time_ms(
+                    lambda: kern("lookup_directory")(args[1], args[2],
+                                                     "vote_windows"))
+                n_windows, pairs, all_pairs = total
+                rows[-1]["pair_share"] = pairs / max(all_pairs, 1)
+                per_step = (f", of which the bucket directory "
+                            f"{rows[-1]['index_ms']:.3f} ms; the path's "
+                            f"first voting round's input (round 1): "
+                            f"{n_windows} valid windows, {pairs} of "
+                            f"{all_pairs} (w, j) pairs left by the skip "
+                            f"({rows[-1]['pair_share']:.4f})")
+            elif name == "gather_along":    # the launch, no flag read
+                out, flag = torch.empty_like(args[0]), torch.zeros(
+                    1, dtype=torch.int32, device=dev)
+
+                def bare():
+                    kern("gather_along_launch")(*args, out, flag)
+
+                idx64 = args[1].long()
+                rows[-1].update(
+                    kernel_ms=time_ms(bare), device_ms=device_ms(bare),
+                    library_device_ms=device_ms(
+                        lambda: torch.gather(args[0], args[2], idx64)))
+                per_step = (f", the bare launch "
+                            f"{rows[-1]['kernel_ms']:.4f} ms "
+                            f"(no flag read); device times behind a spin: "
+                            f"kernel {rows[-1]['device_ms']:.4f} ms, gather "
+                            f"{rows[-1]['library_device_ms']:.4f} ms")
+            elif name == "pointer_jump":        # a whole loop of args[3] steps
+                p, val, op, steps = args
+                step_ms = time_ms(lambda: torch.index_select(p, 0, p))
+                # a grid barrier: the same loop on 4 vertices, less one step
+                few = [None if t is None else t[:4].clone() for t in (p, val)]
+                few[0].zero_()
+                barrier_ms = (
+                    time_ms(lambda: wrapper(few[0], few[1], op, steps))
+                    - time_ms(lambda: wrapper(few[0], few[1], op, 1))
+                ) / max(steps - 1, 1)
+                per_step = (f", {steps} steps: {ms / steps:.4f} ms a step "
+                            f"(index_select {step_ms:.4f} ms, bound "
+                            f"{max(t_bytes, t_ops) / steps:.4f} ms, grid "
+                            f"barrier {barrier_ms:.4f} ms)")
+            elif name == "merge_runs" and 2 * total < args[0].numel():
+                # what a count table's copy to storage of its own size costs
+                # (kmer/count.py count_from_keys, after the kernel)
+                copy_ms = time_ms(lambda: (got[0].clone(), got[1].clone()))
+                per_step = (f", count_from_keys' copy to exact size "
+                            f"{copy_ms:.3f} ms")
+            say(f"  {row}: equal, {ms:.3f} ms (plain {plain_ms:.3f} ms"
+                + (f", {library} {library_ms:.3f} ms" if library else "")
+                + f"), bound {max(t_bytes, t_ops):.3f} ms, launches "
+                f"{n_launches}"
+                + (" (bucket directory only; the search is built from the "
+                   "weak_windows row's inputs)" if k2_dir else "")
+                + f" (phase {path}), inputs {shape}" + per_step
+                + (f", {total} candidates" if name in ("overlap_join",
+                                                       "probe_join") else "")
+                + (f", {int(got[4])} duplicate rows" if key ==
+                   "longest_edges:deferred" else "")
+                + (f", {total} rows accepted" if name == "route_rows" else "")
+                + (f", {total} candidates expanded" if key == "reduce_requests"
+                   else "")
+                + ({"dedup_reads": f", {total} unique reads",
+                    "seed_rows": f", {total} live rows",
+                    "longest_edges": f", {total} edges",
+                    "prune_table": f", {total} solid entries",
+                    "weak_windows": f", {total} weak windows"}.get(name, ""))
+                + (f", {args[1].numel()} weak windows" if name == "fix_windows"
+                   else "")
+                + f", check {time.perf_counter() - t1:.1f} s")
+            # the row's tensors go, and PyTorch's cache with them, before the
+            # next row's inputs come back
+            del args, a_got, a_want, got, want, unmarked
+            torch.cuda.empty_cache()
+        say(f"card after phase {label}: {card_state()}")
+        phase(f"{label} kernels vs plain", t0, rows=len(order))
+
     # --- phase 11: the benches (before anything is kept on the card) ----
     t0 = time.perf_counter()
     bench = run_bench("bench_gpu.py")
@@ -1175,21 +1463,59 @@ def main() -> int:
                     time.perf_counter() - t0, log, launches, mesh_contigs,
                     mesh_stats, genome, genome_fraction)
     peaks = {"12": peak_gib()}
-    say(f"  peak device memory {peaks['12']} GiB ({MESH_SHARDS} shards on "
-        f"one card)")
-    ledger = next(r for r in log.records if r["stage"] == "comm")
-    say("  collective bytes by stage (summed over its dispatches): "
-        + json.dumps({name: e["total_bytes"]
-                      for name, e in ledger["programs"].items()}))
-    for r in log.records:
-        if r["stage"].endswith(("_retry", "_device_memory")):
-            say(f"  {r['stage']}: " + json.dumps(
-                {k: v for k, v in r.items() if k != "stage"}))
+    report_mesh("12", log, peaks["12"])
     got = {k: e2e["detail"][k] for k in ("n50", "n_contigs")}
     if got != {k: mesh_stats[k] for k in got}:
         raise AssertionError(f"phase 12: n50 {mesh_stats['n50']}, n_contigs "
                              f"{mesh_stats['n_contigs']} differ from "
                              f"bench_e2e_gpu.py's {got}")
+
+    # --- phase 13: ragged reads on the mesh, four shards on this card ---
+    # (phase 8's reads and configs; run here, as phase 12 is, while few
+    # kernel inputs are kept on the card; asserted equal to 8a and 8b
+    # after phase 8)
+    t0 = time.perf_counter()
+    rr = ECOLI_RAGGED
+    ragged, lengths = simulate_ragged_reads(
+        genome, rr["lo"], rr["hi"], rr["coverage"], rr["error_rate"],
+        seed=rr["seed"], contained_frac=rr["contained_frac"])
+    phase("8 inputs", t0, reads=ragged.shape[0], width=ragged.shape[1],
+          real_bases=int(lengths.sum()),
+          coverage=f"{lengths.sum() / len(genome):.2f}")
+    # phases 8 and 13: the default config (8a, 13a), and the voting
+    # corrector with the device reduction (8b, 13b; the mesh reduces
+    # sharded whatever the backend)
+    ragged_configs = (("a", AssemblyConfig()), ("b", AssemblyConfig(
+        correction_rule="vote_all_windows", reduce_backend="device")))
+    meshed = {}
+    for part, cfg in ragged_configs:
+        label = "13" + part
+        t0 = time.perf_counter()
+        log = MetricsLog(None, echo=False)
+        torch.cuda.reset_peak_memory_stats()
+        capture.reset_launch_counts(label)
+        contigs, stats = assemble(
+            ragged, dataclasses.replace(cfg, mesh_shape=(MESH_SHARDS,)),
+            outdir=None, metrics=log, lengths=lengths, device="cuda")
+        launches = dict(kernels.LAUNCHES)
+        launches_by_key[label] = capture.path_launches(label)
+        report_assembly(f"{label} ecoli ragged mesh{MESH_SHARDS}", t0,
+                        time.perf_counter() - t0, log, launches, contigs,
+                        stats, genome, genome_fraction)
+        peaks[label] = peak_gib()
+        report_mesh(label, log, peaks[label])
+        meshed[label] = (contigs, stats, contained_count(log, label))
+        say(f"  n_contained={meshed[label][2]}")
+        del contigs, stats
+
+    # --- phase 2a: the rows of the paths run so far ---------------------
+    # (their kept inputs leave the card before phases 4-10 keep theirs,
+    # so those phases' copies stay on the card and out of their stages'
+    # times)
+    capture.keeping = False
+    check_rows("2a", [item for item in KERNEL_INFO.items()
+                      if item[1][2] in EARLY_PATHS])
+    capture.keeping = True
 
     # --- phase 4: E. coli scale, reads to contigs -----------------------
     t0 = time.perf_counter()
@@ -1283,14 +1609,7 @@ def main() -> int:
     phase("7 probe gathers", t0, shapes=json.dumps(PROBE_SHAPES))
 
     # --- phase 8: ragged reads at E. coli scale -------------------------
-    t0 = time.perf_counter()
-    rr = ECOLI_RAGGED
-    ragged, lengths = simulate_ragged_reads(
-        genome, rr["lo"], rr["hi"], rr["coverage"], rr["error_rate"],
-        seed=rr["seed"], contained_frac=rr["contained_frac"])
-    phase("8 inputs", t0, reads=ragged.shape[0], width=ragged.shape[1],
-          real_bases=int(lengths.sum()),
-          coverage=f"{lengths.sum() / len(genome):.2f}")
+    # (the reads of phase 13's inputs)
     # 8a's reduce-stage input, kept for phase 9
     reduce_input = {}
 
@@ -1300,10 +1619,8 @@ def main() -> int:
         return transitive_reduction_auto(src, dst, ovl, n_vertices,
                                          read_len, **kw)
 
-    for label, cfg in (("8a", AssemblyConfig()),
-                       ("8b", AssemblyConfig(
-                           correction_rule="vote_all_windows",
-                           reduce_backend="device"))):
+    for part, cfg in ragged_configs:
+        label, mesh_label = "8" + part, "13" + part
         t0 = time.perf_counter()
         log = MetricsLog(None, echo=False)
         pipeline.transitive_reduction_auto = (
@@ -1316,18 +1633,22 @@ def main() -> int:
         ragged_launches = {k: v for k, v in launches_by_key[label].items()
                            if k.endswith(":ragged")}
         pipeline.transitive_reduction_auto = transitive_reduction_auto
-        n_contained = [r["n_contained"] for r in log.records
-                       if r["stage"] == "containment"]
-        if not n_contained or n_contained[0] <= 0:
-            raise AssertionError(f"phase {label}: no contained reads "
-                                 f"removed ({n_contained})")
+        n_contained = contained_count(log, label)
         report_assembly(f"{label} ecoli ragged", t0,
                         time.perf_counter() - t0, log, launches, contigs,
                         stats, genome, genome_fraction)
-        say(f"  n_contained={n_contained[0]} ragged_launches="
+        say(f"  n_contained={n_contained} ragged_launches="
             f"{json.dumps(ragged_launches)}")
         incore[label] = (contigs, stats)
-        del contigs, stats
+        m_contigs, m_stats, m_contained = meshed.pop(mesh_label)
+        if m_stats != stats or m_contained != n_contained or len(
+                m_contigs) != len(contigs) or any(
+                not np.array_equal(a, b) for a, b in zip(m_contigs, contigs)):
+            raise AssertionError(f"phase {mesh_label}: the meshed assembly "
+                                 f"differs from phase {label}'s")
+        say(f"  phase {mesh_label}'s meshed assembly equals phase {label}'s:"
+            f" contigs, stats and n_contained {m_contained}")
+        del contigs, stats, m_contigs, m_stats
 
     # --- phase 9: ragged device reduction against the native one --------
     t0 = time.perf_counter()
@@ -1416,167 +1737,8 @@ def main() -> int:
     del incore
 
     # --- phase 2: each kernel against its plain version -----------------
-    t0 = time.perf_counter()
-    say(f"card before phase 2: {card_state()}")
-    rows = []
-    # K2's rows first: they read their path's K16 row's inputs
-    order = sorted(KERNEL_INFO.items(), key=lambda item: not base_key(
-        item[0]).startswith("lookup_counts"))
-    for row, (source, replaces, path) in order:
-        t1 = time.perf_counter()
-        key = base_key(row)
-        name = key.split(":")[0]
-        # K2 on a path whose lookups K16/K17 make: only its directory ran
-        k2_dir = name == "lookup_counts" and path != "12"
-        if k2_dir:
-            args = k2_inputs(capture, path)
-        else:
-            args = capture.inputs(row)      # freed after its row
-        if key == "longest_edges:deferred":
-            args = with_duplicates(args)
-        fn = WRAPPER.get(key, name)
-        wrapper = getattr(kernels, fn)
-        ref = getattr(plain, fn)
-
-        # reduce_marks, overlap_join (its containment marks) and the cut
-        # (nxt, ovl_next) update an argument in place: the kernel takes a
-        # copy of the inputs, the plain version the inputs themselves, and
-        # the two must end equal
-        a_got = tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                      for a in args)
-        a_want = args
-        unmarked = args[0].clone() if name == "reduce_marks" else None
-        got = wrapper(*a_got)
-        want = ref(*a_want)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(got, want), max_abs_err(a_got, a_want))
-        if err != 0:
-            raise AssertionError(f"{row}: kernel differs from its plain "
-                                 f"version (max abs err {err})")
-        if name in ("overlap_join", "probe_join"):
-            total = int(got[4])
-        elif name == "reduce_marks":            # marks this range sets
-            total = int((got != unmarked).sum())
-        elif name == "merge_runs":              # unique keys
-            total = got[0].numel()
-        elif name == "vote_windows":            # the lookups it needs
-            total = vote_pairs(args)
-        elif name == "dedup_reads":             # unique reads
-            total = got[3]
-        elif key == "seed_rows:stacked":        # live seed rows
-            total = int(got[3])
-        elif name == "seed_rows":
-            total = got[0].numel()
-        elif name == "longest_edges":           # edges kept
-            total = int(got[3])
-        elif name == "prune_table":             # entries kept
-            total = got[0].numel()
-        elif name == "weak_windows":            # weak windows
-            total = got.numel()
-        elif name == "route_rows":              # rows accepted
-            total = sum(got.counts)
-        elif key == "reduce_requests":          # candidates expanded
-            total = got[2]
-        else:
-            total = 0
-        heavy = name in ("vote_windows", "weak_windows")
-        ms = time_ms(lambda: wrapper(*args), reps=3 if heavy else 5)
-        plain_ms = time_ms(lambda: ref(*args), reps=1 if heavy else 3)
-        library_ms, library = library_time(key, args)
-        nbytes, ops = work(key, args, total)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / OPS_PER_S * 1e3
-        n_launches = launches_by_key[path][key]
-        rows.append({
-            "name": row, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": n_launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-        })
-        shape = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-        per_step = ""
-        if name == "lookup_counts":         # K2's first launch alone
-            if k2_dir:      # the path's K2 launches: directory launches
-                rows[-1]["launches_of"] = "bucket directory"
-            rows[-1]["index_ms"] = time_ms(
-                lambda: kernels.lookup_directory(args[0], args[1]))
-            per_step = (f", of which the bucket directory "
-                        f"{rows[-1]['index_ms']:.3f} ms")
-        elif name == "vote_windows":        # K5's first launch; the skip
-            rows[-1]["index_ms"] = time_ms(lambda: kernels.lookup_directory(
-                args[1], args[2], "vote_windows"))
-            n_windows, pairs, all_pairs = total
-            rows[-1]["pair_share"] = pairs / max(all_pairs, 1)
-            per_step = (f", of which the bucket directory "
-                        f"{rows[-1]['index_ms']:.3f} ms; the path's first "
-                        f"voting round's input (round 1): {n_windows} valid "
-                        f"windows, {pairs} of {all_pairs} (w, j) pairs "
-                        f"left by the skip ({rows[-1]['pair_share']:.4f})")
-        elif name == "gather_along":        # the launch without the flag read
-            out, flag = torch.empty_like(args[0]), torch.zeros(
-                1, dtype=torch.int32, device=dev)
-
-            def bare():
-                kernels.gather_along_launch(*args, out, flag)
-
-            idx64 = args[1].long()
-            rows[-1].update(
-                kernel_ms=time_ms(bare), device_ms=device_ms(bare),
-                library_device_ms=device_ms(
-                    lambda: torch.gather(args[0], args[2], idx64)))
-            per_step = (f", the bare launch {rows[-1]['kernel_ms']:.4f} ms "
-                        f"(no flag read); device times behind a spin: "
-                        f"kernel {rows[-1]['device_ms']:.4f} ms, gather "
-                        f"{rows[-1]['library_device_ms']:.4f} ms")
-        elif name == "pointer_jump":        # a whole loop of args[3] steps
-            p, val, op, steps = args
-            step_ms = time_ms(lambda: torch.index_select(p, 0, p))
-            # a grid barrier: the same loop on 4 vertices, less one step
-            few = [None if t is None else t[:4].clone() for t in (p, val)]
-            few[0].zero_()
-            barrier_ms = (time_ms(lambda: wrapper(few[0], few[1], op, steps))
-                          - time_ms(lambda: wrapper(few[0], few[1], op, 1))
-                          ) / max(steps - 1, 1)
-            per_step = (f", {steps} steps: {ms / steps:.4f} ms a step "
-                        f"(index_select {step_ms:.4f} ms, bound "
-                        f"{max(t_bytes, t_ops) / steps:.4f} ms, grid "
-                        f"barrier {barrier_ms:.4f} ms)")
-        elif name == "merge_runs" and 2 * total < args[0].numel():
-            # what a count table's copy to storage of its own size costs
-            # (kmer/count.py count_from_keys, after the kernel)
-            copy_ms = time_ms(lambda: (got[0].clone(), got[1].clone()))
-            per_step = (f", count_from_keys' copy to exact size "
-                        f"{copy_ms:.3f} ms")
-        say(f"  {row}: equal, {ms:.3f} ms (plain {plain_ms:.3f} ms"
-            + (f", {library} {library_ms:.3f} ms" if library else "")
-            + f"), bound {max(t_bytes, t_ops):.3f} ms, launches "
-            f"{n_launches}"
-            + (" (bucket directory only; the search is built from the "
-               "weak_windows row's inputs)" if k2_dir else "")
-            + f" (phase {path}), inputs {shape}" + per_step
-            + (f", {total} candidates" if name in ("overlap_join",
-                                                   "probe_join") else "")
-            + (f", {int(got[4])} duplicate rows" if key ==
-               "longest_edges:deferred" else "")
-            + (f", {total} rows accepted" if name == "route_rows" else "")
-            + (f", {total} candidates expanded" if key == "reduce_requests"
-               else "")
-            + ({"dedup_reads": f", {total} unique reads",
-                "seed_rows": f", {total} live rows",
-                "longest_edges": f", {total} edges",
-                "prune_table": f", {total} solid entries",
-                "weak_windows": f", {total} weak windows"}.get(name, ""))
-            + (f", {args[1].numel()} weak windows" if name == "fix_windows"
-               else "")
-            + f", check {time.perf_counter() - t1:.1f} s")
-        # the row's tensors go, and PyTorch's cache with them, before the
-        # next row's inputs come back
-        del args, a_got, a_want, got, want, unmarked
-        torch.cuda.empty_cache()
-    say(f"card after phase 2: {card_state()}")
-    phase("2 kernels vs plain", t0)
+    check_rows("2", [item for item in KERNEL_INFO.items()
+                     if item[1][2] not in EARLY_PATHS])
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))
@@ -1704,6 +1866,31 @@ def peak_gib() -> float:
     return round(torch.cuda.max_memory_allocated() / 2**30, 3)
 
 
+def report_mesh(label, log, peak) -> None:
+    """Print a meshed run's peak device memory, the bytes its exchanges
+    moved by stage (the comm ledger), its retries and capacities."""
+    say(f"  peak device memory {peak} GiB ({MESH_SHARDS} shards on one "
+        f"card)")
+    ledger = next(r for r in log.records if r["stage"] == "comm")
+    say(f"  phase {label} collective bytes by stage (summed over its "
+        "dispatches): " + json.dumps({
+            name: e["total_bytes"] for name, e in ledger["programs"].items()}))
+    for r in log.records:
+        if r["stage"].endswith(("_retry", "_device_memory")):
+            say(f"  {r['stage']}: " + json.dumps(
+                {k: v for k, v in r.items() if k != "stage"}))
+
+
+def contained_count(log, label) -> int:
+    """The contained reads a ragged run removed; raises unless some
+    were."""
+    n = [r["n_contained"] for r in log.records if r["stage"] == "containment"]
+    if not n or n[0] <= 0:
+        raise AssertionError(f"phase {label}: no contained reads removed "
+                             f"({n})")
+    return n[0]
+
+
 def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
                     genome_fraction) -> None:
     """Print an assemble run's stage seconds, launches and contig stats;
@@ -1785,7 +1972,7 @@ def library_time(key: str, args: tuple):
         # last), the reference's sort_by_keys of _route
         from sage2_tpu_torch.kernels import plain
 
-        _, n, _, owner, keys, flip, valid = args
+        _, n, _, owner, keys, flip, valid = route_args(args)
         if owner is None:
             owner = plain.owner_hash(keys, n, flip).to(torch.int32)
         own = owner if valid is None else torch.where(valid, owner, n)

@@ -15,7 +15,8 @@ its own length (ragged reads; a file whose reads all have one length
 takes the fixed-length path). ``--max-device-reads N`` streams the
 assembly in chunks of N reads (``--entry-block-reads``, ``--spill-dir``:
 the streamed join's entry blocks and the host spill store); ``--mesh N``
-shards the in-core assembly of fixed-length reads over N shards;
+shards the in-core assembly over N shards, under either
+``--correction-rule`` and with ``--length-policy pad``;
 ``correct`` and ``overlap`` take these flags and run in core on one
 device, as the reference's do. ``correct`` and ``overlap`` write what the
 reference's subcommands write, quirks included: both correct with the
@@ -64,9 +65,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         " 'pad' keeps every read at its own length"
                         " (lossless ragged mode)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="shard stages over an N-shard mesh (assemble; shard"
-                        " d on device d % the device count, so N shards"
-                        " may share one card)")
+                   help="shard stages over an N-shard mesh (assemble, in"
+                        " core, either correction rule, ragged reads too;"
+                        " shard d on device d % the device count, so N"
+                        " shards may share one card)")
     p.add_argument("--max-device-reads", type=int, default=None,
                    metavar="N",
                    help="stream count/correct/dedup/overlap in chunks of"

@@ -11,7 +11,11 @@ Twenty-three kernels (sources in ``kernels/csrc``):
   K4 ``pointer_jump``   a whole pointer-doubling loop of unitig labeling
                         (one cooperative launch)
   K5 ``vote_windows``   one round of the covering-window voting corrector:
-                        bucket directory and vote (two launches)
+                        bucket directory and vote (two launches);
+                        the routed mode of the mesh, where the counts
+                        come from the k-mer owners: ``vote_add`` (one
+                        window position's votes) and ``vote_apply`` (the
+                        rule)
   K6 ``reduce_counts``  run bounds and expansion counts of the device
                         transitive reduction (two launches)
   K7 ``reduce_marks``   expansion, membership probe and removal marks of
@@ -60,10 +64,13 @@ Twenty-three kernels (sources in ``kernels/csrc``):
   K21 ``reduce_requests`` the meshed reduction's adjacency ranges and
                         candidate expansion (ranges, expand around a
                         torch.cumsum) and membership probe
-                        (``reduce_probe``)
-  K22 ``window_variants`` the canonical keys of the 4 variants of every
-                        window's last or first base, and the verdicts from
-                        their routed counts (``apply_verdicts``)
+                        (``reduce_probe``, with the shard's lengths for
+                        ragged reads)
+  K22 ``window_variants`` the canonical keys of the 4 variants of base j
+                        of every window (j any position, or the last or
+                        first base), and the single_window verdicts from
+                        their routed counts (``apply_verdicts``, with
+                        lengths for ragged reads)
   P1 ``gather_along``   gather along one axis of an (N, W) table (the
                         Pallas probe's kernel; on no path of the package)
 
@@ -79,10 +86,10 @@ deferred modes of K3, K13 and K14, find_overlaps_stacked's, count as
 their kernel's launches and read nothing to the host; K19 launches three
 a call, K21's ``reduce_requests`` two, and the other wrappers of K20,
 K21 and K22 (``route_back``, ``dedup_heads``, ``gather_rows``,
-``reduce_probe``, ``apply_verdicts``) one each under their kernel's
-name). K12 and K13 take a
-``split`` (utils.metrics.DeviceSplit) that marks the end of their sort
-and of their grouping or row build.
+``reduce_probe``, ``apply_verdicts``) and K5's routed mode
+(``vote_add``, ``vote_apply``) one each under their kernel's name). K12
+and K13 take a ``split`` (utils.metrics.DeviceSplit) that marks the end
+of their sort and of their grouping or row build.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
@@ -144,6 +151,8 @@ _ARGTYPES = {
         "sage2_vote_directory": [_P, _P, _I64, _I, _P, _P],
         "sage2_vote_windows": [_P, _P, _I64, _I, _I, _P, _P, _I64, _P, _I,
                                _P, _P],
+        "sage2_vote_add": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
+        "sage2_vote_apply": [_P, _P, _I64, _I, _P, _P],
     },
     "reduce_counts": {
         "sage2_reduce_vertices": [_P, _P, _I64, _I64, _P, _P, _P, _P],
@@ -238,11 +247,13 @@ _ARGTYPES = {
         "sage2_reduce_ranges": [_P, _I64, _P, _I64, _P, _P, _P],
         "sage2_reduce_expand": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
                                 _P],
-        "sage2_reduce_probe": [_P, _P, _P, _I64, _P, _I64, _I, _P, _P],
+        "sage2_reduce_probe": [_P, _P, _P, _I64, _P, _I64, _I, _P, _I64,
+                               _I64, _P, _P],
     },
     "window_variants": {
         "sage2_window_variants": [_P, _I64, _I, _I, _I, _P, _P],
-        "sage2_apply_verdicts": [_P, _P, _I64, _I, _I, _I, _I, _P, _P],
+        "sage2_apply_verdicts": [_P, _P, _P, _I64, _I, _I, _I, _I, _P,
+                                 _P],
     },
 }
 
@@ -684,6 +695,71 @@ def vote_windows(
                 _ptr(lengths), N, L, k, _ptr(table), _ptr(counts),
                 table.shape[0], _ptr(scratch), threshold, _ptr(out),
                 _stream())
+        LAUNCHES["vote_windows"] += 1
+    return out
+
+
+def _check_lengths(lengths: Optional[torch.Tensor], N: int) -> None:
+    if lengths is not None and lengths.shape != (N,):
+        raise ValueError("lengths must be (N,) beside the reads")
+
+
+@_on_device
+def vote_add(votes: torch.Tensor, counts: torch.Tensor, j: int, k: int,
+             threshold: int, lengths: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """The votes of window position j of a voting round from counts the
+    k-mer owners sent back: votes[n, w + j, b] += (counts[n, w, b] >=
+    threshold) for each window w inside its read (see plain.vote_add).
+    ``votes`` (N, L, 4) uint8, updated in place and returned; ``counts``
+    (N, P, 4) int32, the counts of ``window_variants(reads, k, j)``;
+    ``lengths`` (N,) int32 or None. Kernel K5's routed ``vote_add``
+    launch (kernels/csrc/vote_windows.cu)."""
+    if not 1 < k <= 31 or not 0 <= j < k:
+        raise ValueError(f"need 1 < k <= 31 and 0 <= j < k, got k={k}, "
+                         f"j={j}")
+    N, L = votes.shape[:2]
+    P = L - k + 1
+    if votes.shape != (N, L, 4) or counts.shape != (N, P, 4):
+        raise ValueError("votes must be (N, L, 4) and counts (N, L - k + "
+                         "1, 4)")
+    _check_lengths(lengths, N)
+    tensors = (votes, counts) + (() if lengths is None else (lengths,))
+    if _on_cpu(*tensors):
+        return plain.vote_add(votes, counts, j, k, threshold, lengths)
+    _dtype(votes, torch.uint8, "votes")
+    _dtype(counts, torch.int32, "counts")
+    if lengths is not None:
+        _dtype(lengths, torch.int32, "lengths")
+    if votes.data_ptr() % 4 or counts.data_ptr() % 16:
+        raise ValueError("votes must be 4-byte and counts 16-byte aligned")
+    if N:
+        _launch("vote_windows", "sage2_vote_add", _ptr(votes), _ptr(counts),
+                _ptr(lengths), N, L, k, j, threshold, _stream())
+        LAUNCHES["vote_windows"] += 1
+    return votes
+
+
+@_on_device
+def vote_apply(reads: torch.Tensor, votes: torch.Tensor) -> torch.Tensor:
+    """(N, L) int32 reads after the voting rule on the (N, L, 4) uint8
+    ``votes`` of a round's k positions (see plain.vote_apply): a base
+    becomes the unique most-voted base where it beats its own. Bases
+    past a ragged read's end need no mask: ``vote_add`` left their votes
+    0. Kernel K5's routed ``vote_apply`` launch."""
+    N, L = reads.shape
+    if votes.shape != (N, L, 4):
+        raise ValueError("votes must be (N, L, 4) beside the reads")
+    if _on_cpu(reads, votes):
+        return plain.vote_apply(reads, votes)
+    _dtype(reads, torch.int32, "reads")
+    _dtype(votes, torch.uint8, "votes")
+    if votes.data_ptr() % 4:
+        raise ValueError("votes must be 4-byte aligned")
+    out = torch.empty_like(reads)
+    if N:
+        _launch("vote_windows", "sage2_vote_apply", _ptr(reads), _ptr(votes),
+                N, L, _ptr(out), _stream())
         LAUNCHES["vote_windows"] += 1
     return out
 
@@ -1851,46 +1927,53 @@ def reduce_requests(ss_key: torch.Tensor, ss_dst: torch.Tensor,
 
 @_on_device
 def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
-                 cand: torch.Tensor, read_len: int) -> torch.Tensor:
+                 cand: torch.Tensor, read_len, vbase: int = 0
+                 ) -> torch.Tensor:
     """(E,) bool removal marks of the meshed reduction's phase 4 at v's
     owner (see plain.reduce_probe): the received candidates (C, 3) int32
-    against the local (src, dst)-sorted int32 edges. Kernel K21's
-    ``probe`` launch."""
+    against the local (src, dst)-sorted int32 edges; ``read_len`` an int,
+    or the shard's (v_d,) int32 lengths of the vertices [vbase, vbase +
+    v_d) (ragged reads). Kernel K21's ``probe`` launch."""
     if cand.dim() != 2 or cand.shape[1] != 3:
         raise ValueError("cand must be (C, 3)")
-    if _on_cpu(src, dst, ovl, cand):
-        return plain.reduce_probe(src, dst, ovl, cand, read_len)
-    for t in (src, dst, ovl, cand):
-        _dtype(t, torch.int32, "edges and candidates")
+    scalar, lens = _lens(read_len)
+    if lens is not None and lens.shape[0] == 0:
+        raise ValueError("a shard's lengths must hold its vertex range")
+    tensors = (src, dst, ovl, cand) + (() if lens is None else (lens,))
+    if _on_cpu(*tensors):
+        return plain.reduce_probe(src, dst, ovl, cand, read_len, vbase)
+    for t in tensors:
+        _dtype(t, torch.int32, "edges, candidates and lengths")
     E, C = src.shape[0], cand.shape[0]
     removed = torch.zeros(E, dtype=torch.uint8, device=src.device)
     if E and C:
         _launch("reduce_requests", "sage2_reduce_probe", _ptr(src),
-                _ptr(dst), _ptr(ovl), E, _ptr(cand), C, int(read_len),
+                _ptr(dst), _ptr(ovl), E, _ptr(cand), C, scalar, _ptr(lens),
+                0 if lens is None else lens.shape[0], int(vbase),
                 _ptr(removed), _stream())
         LAUNCHES["reduce_requests"] += 1
     return removed.bool()
 
 
-def _variant_checks(reads: torch.Tensor, k: int, which: str) -> int:
-    if which not in plain.WHICH:
-        raise ValueError(f"which must be one of {plain.WHICH}, not {which!r}")
+def _variant_checks(reads: torch.Tensor, k: int, which) -> Tuple[int, int]:
+    """(P, j): the windows of a read, and the position of ``which``."""
     if not 1 < k <= 31:
         raise ValueError(f"k must be in (1, 31], got {k}")
+    j = plain.variant_position(k, which)
     P = reads.shape[1] - k + 1
     if P < 1:
         raise ValueError(f"k ({k}) exceeds read length ({reads.shape[1]})")
-    return P
+    return P, j
 
 
 @_on_device
-def window_variants(reads: torch.Tensor, k: int, which: str
-                    ) -> torch.Tensor:
-    """(N, P, 4) int64 canonical keys of the 4 variants of each window's
-    last or first base (``which``) of the (N, L) int32 ``reads`` (see
+def window_variants(reads: torch.Tensor, k: int, which) -> torch.Tensor:
+    """(N, P, 4) int64 canonical keys of the 4 variants of base j of
+    every window of the (N, L) int32 ``reads``; ``which`` the position j
+    in [0, k), or "last" (k - 1) or "first" (0) (see
     plain.window_variants). Kernel K22's ``variants`` launch
     (kernels/csrc/window_variants.cu)."""
-    P = _variant_checks(reads, k, which)
+    P, j = _variant_checks(reads, k, which)
     if _on_cpu(reads):
         return plain.window_variants(reads, k, which)
     _dtype(reads, torch.int32, "reads")
@@ -1898,30 +1981,39 @@ def window_variants(reads: torch.Tensor, k: int, which: str
     keys = torch.empty((N, P, 4), dtype=torch.int64, device=reads.device)
     if N:
         _launch("window_variants", "sage2_window_variants", _ptr(reads), N,
-                L, k, int(which == "last"), _ptr(keys), _stream())
+                L, k, j, _ptr(keys), _stream())
         LAUNCHES["window_variants"] += 1
     return keys
 
 
 @_on_device
 def apply_verdicts(reads: torch.Tensor, counts: torch.Tensor, k: int,
-                   which: str, threshold: int) -> torch.Tensor:
+                   which: str, threshold: int,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, L) int32 reads after the single_window rule at each window's
     last or first base, from the (N, P, 4) int32 ``counts`` of
-    ``window_variants``' keys (see plain.apply_verdicts). Kernel K22's
-    ``verdicts`` launch."""
-    P = _variant_checks(reads, k, which)
+    ``window_variants``' keys (see plain.apply_verdicts); ``lengths``
+    (N,) int32 for ragged reads (a window past its read's end edits
+    nothing). Kernel K22's ``verdicts`` launch."""
+    if which not in plain.WHICH:
+        raise ValueError(f"which must be one of {plain.WHICH}, not {which!r}")
+    P, off = _variant_checks(reads, k, which)
     if counts.shape != (reads.shape[0], P, 4):
         raise ValueError("counts must be (N, P, 4) for these reads")
-    if _on_cpu(reads, counts):
-        return plain.apply_verdicts(reads, counts, k, which, threshold)
+    _check_lengths(lengths, reads.shape[0])
+    tensors = (reads, counts) + (() if lengths is None else (lengths,))
+    if _on_cpu(*tensors):
+        return plain.apply_verdicts(reads, counts, k, which, threshold,
+                                    lengths)
     _dtype(reads, torch.int32, "reads")
     _dtype(counts, torch.int32, "counts")
+    if lengths is not None:
+        _dtype(lengths, torch.int32, "lengths")
     N, L = reads.shape
     out = torch.empty_like(reads)
     if N:
         _launch("window_variants", "sage2_apply_verdicts", _ptr(reads),
-                _ptr(counts), N, L, k, int(which == "last"), threshold,
+                _ptr(counts), _ptr(lengths), N, L, k, off, threshold,
                 _ptr(out), _stream())
         LAUNCHES["window_variants"] += 1
     return out

@@ -23,8 +23,11 @@
 //   probe   at v's owner, one thread a received candidate [v, x, sl]:
 //           a binary search for (v, x) among the local edges (sorted by
 //           src << 32 | dst, read as two int32 arrays); an edge of
-//           offset read_len - ovl == sl is marked removed. Racing marks
-//           store the same 1.
+//           offset len(v) - ovl == sl is marked removed. Racing marks
+//           store the same 1. len(v) is read_len, or for ragged reads
+//           lens[clip(v - vbase, 0, v_d - 1)] from the shard's own
+//           (v_d,) lengths of its vertex range (:524-527; the vertex's
+//           owner holds its length, so nothing more is routed).
 //
 // Bound: bytes. Each request row is read once and its two searches touch
 // O(log E) sectors; each candidate written once (12 bytes + ok), and read
@@ -95,6 +98,8 @@ __global__ void reduce_probe_kernel(const int32_t* __restrict__ src,
                                     int64_t E,
                                     const int32_t* __restrict__ cand,
                                     int64_t C, int read_len,
+                                    const int32_t* __restrict__ lens,
+                                    int64_t v_d, int64_t vbase,
                                     uint8_t* __restrict__ removed) {
   SAGE2_GRID_STRIDE(j, C) {
     const int32_t v = cand[j * 3], x = cand[j * 3 + 1];
@@ -105,8 +110,14 @@ __global__ void reduce_probe_kernel(const int32_t* __restrict__ src,
       const int32_t s = src[mid];
       if (s < v || (s == v && dst[mid] < x)) lo = mid + 1; else hi = mid;
     }
-    if (lo < E && src[lo] == v && dst[lo] == x && read_len - ovl[lo] == sl) {
-      removed[lo] = 1;
+    if (lo < E && src[lo] == v && dst[lo] == x) {
+      int len = read_len;
+      if (lens != nullptr) {
+        int64_t i = v - vbase;
+        i = i < 0 ? 0 : (i > v_d - 1 ? v_d - 1 : i);
+        len = lens[i];
+      }
+      if (len - ovl[lo] == sl) removed[lo] = 1;
     }
   }
 }
@@ -145,17 +156,21 @@ SAGE2_EXPORT int sage2_reduce_expand(const void* ss_key, const void* ss_dst,
 }
 
 // src, dst, ovl: (E,) int32 local edges sorted by (src, dst) (padding
-// INT32_MAX); cand: (C, 3) int32 [v, x, sl]; removed: (E,) uint8,
-// zeroed by the caller, set where an edge is removed.
+// INT32_MAX); cand: (C, 3) int32 [v, x, sl]; lens: (v_d,) int32 lengths
+// of the vertices [vbase, vbase + v_d) (v_d >= 1), or NULL for read_len;
+// removed: (E,) uint8, zeroed by the caller, set where an edge is
+// removed.
 SAGE2_EXPORT int sage2_reduce_probe(const void* src, const void* dst,
                                     const void* ovl, int64_t E,
                                     const void* cand, int64_t C,
-                                    int read_len, void* removed,
-                                    void* stream) {
+                                    int read_len, const void* lens,
+                                    int64_t v_d, int64_t vbase,
+                                    void* removed, void* stream) {
   reduce_probe_kernel<<<sage2_blocks(C), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
       static_cast<const int32_t*>(ovl), E, static_cast<const int32_t*>(cand),
-      C, read_len, static_cast<uint8_t*>(removed));
+      C, read_len, static_cast<const int32_t*>(lens), v_d, vbase,
+      static_cast<uint8_t*>(removed));
   return static_cast<int>(cudaGetLastError());
 }

@@ -74,6 +74,28 @@
 // Bound: lookups, that is random sectors of L2; the reads and the result
 // are 8 bytes a base. No (N, P) key array and no (4, N, L) vote array
 // goes to device memory.
+//
+// The routed mode (the meshed voting rule, sage2_tpu/parallel/
+// sharded.py:306-320): the counts come from the k-mer owners, not from a
+// table on this card, so the lookups leave K5 and the round becomes k
+// vote launches and one apply launch, with K22 building each position's
+// variant keys and the routed lookup (K19, K2, K20) between them:
+//
+//   vote_add    window position j: one thread a (read, window) reads its
+//               4 counts (16 bytes, coalesced), and adds its 4 solid
+//               verdicts, one byte each, to the packed votes of base
+//               w + j (four uint8 counters in one 32-bit word; at most k
+//               <= 31 windows vote, so no byte carries). For a fixed j
+//               each (read, window) owns its base: no atomics. A window
+//               past its read's end adds nothing.
+//   vote_apply  one thread a base: the replace rule of step 5 on its
+//               votes. A base at or past a ragged read's end has no valid
+//               covering window, so vote_add left its votes 0 and it
+//               keeps its code with no mask.
+//
+// Bound: bytes. vote_add reads 16 bytes of counts a window and reads and
+// writes 4 bytes of votes; vote_apply reads the base and its votes and
+// writes the base.
 
 #include "bucket_search.cuh"
 #include "common.cuh"
@@ -378,5 +400,79 @@ SAGE2_EXPORT int sage2_vote_windows(const void* reads, const void* lengths,
       static_cast<const int64_t*>(table), static_cast<const int32_t*>(counts),
       T, static_cast<const int64_t*>(scratch), threshold, per / 8,
       static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__global__ void vote_add_kernel(uint32_t* __restrict__ votes,
+                                const int4* __restrict__ counts,
+                                const int32_t* __restrict__ lengths,
+                                int64_t n_reads, int L, int k, int j,
+                                int threshold) {
+  const int P = L - k + 1;
+  SAGE2_GRID_STRIDE(i, n_reads * P) {
+    const int64_t r = i / P;
+    const int w = static_cast<int>(i % P);
+    if (lengths != nullptr && w >= lengths[r] - (k - 1)) continue;
+    const int4 c = counts[i];
+    const uint32_t add = static_cast<uint32_t>(c.x >= threshold) |
+                         static_cast<uint32_t>(c.y >= threshold) << 8 |
+                         static_cast<uint32_t>(c.z >= threshold) << 16 |
+                         static_cast<uint32_t>(c.w >= threshold) << 24;
+    if (add) votes[r * L + w + j] += add;
+  }
+}
+
+__global__ void vote_apply_kernel(const int32_t* __restrict__ reads,
+                                  const uint32_t* __restrict__ votes,
+                                  int64_t n, int32_t* __restrict__ out) {
+  SAGE2_GRID_STRIDE(i, n) {
+    const int32_t cur = reads[i];
+    const uint32_t packed = votes[i];
+    int v[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) v[b] = (packed >> (8 * b)) & 0xff;
+    int m = v[0], best = 0;
+#pragma unroll
+    for (int b = 1; b < 4; ++b) {
+      if (v[b] > m) {
+        m = v[b];
+        best = b;
+      }
+    }
+    int n_at_max = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) n_at_max += v[b] == m;
+    out[i] = m > v[cur] && n_at_max == 1 ? best : cur;
+  }
+}
+
+}  // namespace
+
+// The routed mode's vote at window position j: votes (n_reads, L, 4)
+// uint8, updated in place; counts (n_reads, L - k + 1, 4) int32, the
+// owners' counts of the variant keys of base j of every window; lengths
+// (n_reads,) int32 or NULL.
+SAGE2_EXPORT int sage2_vote_add(void* votes, const void* counts,
+                                const void* lengths, int64_t n_reads, int L,
+                                int k, int j, int threshold, void* stream) {
+  const int64_t n = n_reads * (L - k + 1);
+  vote_add_kernel<<<sage2_blocks(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(votes), static_cast<const int4*>(counts),
+      static_cast<const int32_t*>(lengths), n_reads, L, k, j, threshold);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The routed mode's replace rule: reads, out (n_reads, L) int32; votes
+// (n_reads, L, 4) uint8.
+SAGE2_EXPORT int sage2_vote_apply(const void* reads, const void* votes,
+                                  int64_t n_reads, int L, void* out,
+                                  void* stream) {
+  vote_apply_kernel<<<sage2_blocks(n_reads * L), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(reads), static_cast<const uint32_t*>(votes),
+      n_reads * L, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

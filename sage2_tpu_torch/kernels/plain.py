@@ -300,6 +300,51 @@ def vote_windows(
     return torch.cat(out) if out else reads.clone()
 
 
+def _window_valid(lengths: Optional[torch.Tensor], N: int, P: int, k: int,
+                  dev) -> Optional[torch.Tensor]:
+    """(N, P) bool: window w lies inside its read (w < len - (k - 1)),
+    or None for fixed-length reads."""
+    if lengths is None:
+        return None
+    return torch.arange(P, device=dev)[None, :] < (
+        lengths.to(torch.int64)[:, None] - (k - 1))
+
+
+def vote_add(votes: torch.Tensor, counts: torch.Tensor, j: int, k: int,
+             threshold: int, lengths: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+    """The votes of window position j of a voting round from counts the
+    k-mer owners sent back (sage2_tpu/kmer/correct.py:171-173 under the
+    meshed lookup, sage2_tpu/parallel/sharded.py:306-320): votes[n, w +
+    j, b] += (counts[n, w, b] >= threshold) for each valid window w.
+    ``votes`` (N, L, 4) uint8, updated in place and returned; ``counts``
+    (N, P, 4) int32, the counts of ``window_variants(reads, k, j)``;
+    ``lengths``: windows past a read's end do not vote."""
+    N, P = counts.shape[:2]
+    solid = counts >= threshold
+    wvalid = _window_valid(lengths, N, P, k, counts.device)
+    if wvalid is not None:
+        solid &= wvalid[..., None]
+    votes[:, j:j + P] += solid.to(votes.dtype)
+    return votes
+
+
+def vote_apply(reads: torch.Tensor, votes: torch.Tensor) -> torch.Tensor:
+    """(N, L) int32 reads after the voting rule (sage2_tpu/kmer/
+    correct.py:174-187): a base becomes the base with the most votes
+    where that maximum beats its own base's votes and no other base
+    ties it. The reference also masks bases at or past a read's end;
+    no valid window covers them, so ``vote_add`` left their votes 0,
+    and a maximum of 0 never beats the base's own: no mask is needed."""
+    v = votes.to(torch.int32)
+    vcur = v.gather(2, reads.to(torch.int64)[..., None])[..., 0]
+    m = v.max(dim=2).values
+    n_at_max = (v == m[..., None]).sum(dim=2)
+    best = v.argmax(dim=2).to(reads.dtype)
+    replace = (m > vcur) & (n_at_max == 1)
+    return torch.where(replace, best, reads)
+
+
 def _src_len(read_len, v: torch.Tensor):
     """The read length of vertices ``v``: the scalar, or the (V,)
     per-vertex lengths gathered."""
@@ -1090,12 +1135,15 @@ def reduce_requests(ss_key: torch.Tensor, ss_dst: torch.Tensor,
 
 
 def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
-                 cand: torch.Tensor, read_len: int) -> torch.Tensor:
+                 cand: torch.Tensor, read_len, vbase: int = 0
+                 ) -> torch.Tensor:
     """(E,) bool removal marks of phase 4 of
     ``sharded_transitive_reduction`` (:518-537) at v's owner: each
     received candidate (C, 3) int32 [v, x, sl] is looked up in the
     local (src, dst)-sorted edges (padding INT32_MAX); an edge v -> x of
-    offset read_len - ovl == sl is marked."""
+    offset len(v) - ovl == sl is marked. ``read_len``: an int, or the
+    shard's (v_d,) int32 lengths of its vertex range [vbase, vbase +
+    v_d), len(v) = lens[clip(v - vbase, 0, v_d - 1)] (:524-527)."""
     E = src.shape[0]
     removed = torch.zeros(E, dtype=torch.bool, device=src.device)
     if E == 0 or cand.shape[0] == 0:
@@ -1103,7 +1151,13 @@ def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
     key = (src.to(torch.int64) << 32) | dst.to(torch.int64)
     q = (cand[:, 0].to(torch.int64) << 32) | cand[:, 1].to(torch.int64)
     pos = torch.searchsorted(key, q).clamp(max=E - 1)
-    hit = (key[pos] == q) & (read_len - ovl[pos] == cand[:, 2])
+    if isinstance(read_len, torch.Tensor):
+        v_d = read_len.shape[0]
+        local = (cand[:, 0].to(torch.int64) - vbase).clamp(0, max(v_d - 1, 0))
+        plen = read_len[local].to(torch.int64)
+    else:
+        plen = read_len
+    hit = (key[pos] == q) & (plen - ovl[pos] == cand[:, 2])
     removed[pos[hit]] = True
     return removed
 
@@ -1111,32 +1165,49 @@ def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
 WHICH = ("last", "first")
 
 
-def window_variants(reads: torch.Tensor, k: int, which: str
-                    ) -> torch.Tensor:
-    """(N, P, 4) int64 canonical keys of the 4 variants of every window's
-    last (``which="last"``) or first base (sage2_tpu/kmer/correct.py:36
-    ``variant_keys_last``, :58 ``variant_keys_first``; the reference
-    stacks the variants first, (4, N, P))."""
+def variant_position(k: int, which) -> int:
+    """The window position j of ``which``: an int in [0, k), or "last"
+    (k - 1) or "first" (0)."""
+    if which == "last":
+        return k - 1
+    if which == "first":
+        return 0
+    if isinstance(which, bool) or not isinstance(which, int) or not (
+            0 <= which < k):
+        raise ValueError(f"which must be 'last', 'first' or a position in "
+                         f"[0, {k}), not {which!r}")
+    return which
+
+
+def window_variants(reads: torch.Tensor, k: int, which) -> torch.Tensor:
+    """(N, P, 4) int64 canonical keys of the 4 variants of base j of every
+    window (``which``: the position j, or "last" / "first"): the forward
+    key with base j set to b and the RC key with position k - 1 - j set
+    to 3 - b, their minimum (sage2_tpu/kmer/correct.py:161-170
+    ``set_base`` + ``canonicalize_pair``; :36 ``variant_keys_last``, :58
+    ``variant_keys_first``; the reference stacks the variants first,
+    (4, N, P))."""
+    j = variant_position(k, which)
     fwd, rc, _ = kmer_keys(reads, k)
     P = fwd.shape[-1]
-    off = k - 1 if which == "last" else 0
-    cur = reads[:, off:off + P].to(torch.int64)[..., None]
+    cur = reads[:, j:j + P].to(torch.int64)[..., None]
     b = torch.arange(4, dtype=torch.int64, device=reads.device)
-    hi_w = 1 << (2 * (k - 1))
-    w_fwd, w_rc = (1, hi_w) if which == "last" else (hi_w, 1)
-    vf = fwd[..., None] + (b - cur) * w_fwd
-    vr = rc[..., None] + (cur - b) * w_rc
+    vf = fwd[..., None] + (b - cur) * (1 << (2 * (k - 1 - j)))
+    vr = rc[..., None] + (cur - b) * (1 << (2 * j))
     return torch.minimum(vf, vr)
 
 
 def apply_verdicts(reads: torch.Tensor, counts: torch.Tensor, k: int,
-                   which: str, threshold: int) -> torch.Tensor:
+                   which: str, threshold: int,
+                   lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(N, L) int32 reads after the replacement rule of
     sage2_tpu/kmer/correct.py:86 ``apply_verdicts`` at each window's
     last or first base, from ``counts`` (N, P, 4) int32, the counts of
     ``window_variants``' keys: the base becomes the unique best variant
-    when its own count is below threshold and the best reaches it."""
-    P = counts.shape[1]
+    when its own count is below threshold and the best reaches it.
+    ``lengths``: a window past its read's end (w >= len - (k - 1)) edits
+    nothing (``window_valid``, :99-100)."""
+    N, P = counts.shape[:2]
     off = k - 1 if which == "last" else 0
     cur = reads[:, off:off + P].to(torch.int64)
     m = counts.max(dim=-1).values
@@ -1144,6 +1215,9 @@ def apply_verdicts(reads: torch.Tensor, counts: torch.Tensor, k: int,
     cur_cnt = counts.gather(-1, cur[..., None])[..., 0]
     best = torch.argmax(counts, dim=-1)
     replace = (cur_cnt < threshold) & (m >= threshold) & (n_at_max == 1)
+    wvalid = _window_valid(lengths, N, P, k, reads.device)
+    if wvalid is not None:
+        replace &= wvalid
     out = reads.clone()
     out[:, off:off + P] = torch.where(replace, best, cur).to(reads.dtype)
     return out

@@ -20,17 +20,21 @@ the reference's shard_map result bit for bit: the owners' results depend
 only on the rows they received and their order. The K-mer owners run
 the port's count (torch.sort + K11) and lookup (K2); the overlap owners
 K3 on their rows sorted by (key, entries first); the reduction K21 and
-the labeling K20's deduplicated gathers.
+the labeling K20's deduplicated gathers. The correction takes either
+rule (the voting rule's counts come back from the owners to K5's routed
+mode) and ragged reads (``lengths``) everywhere: their windows masked in
+the count and the verdicts, their overlap join's containment marks OR-ed
+over the owners, their reduction's offsets from each shard's own vertex
+lengths.
 
-Not ported yet: ragged reads (``lengths``) and the ``vote_all_windows``
-rule on the mesh, and the streamed stages (sharded_stream.py); they
-raise NotImplementedError naming their ROADMAP items.
+Not ported yet: the streamed stages (sharded_stream.py); the pipeline
+refuses them naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +47,6 @@ from sage2_tpu_torch.overlap.detect import join_geometry
 from sage2_tpu_torch.parallel import comm
 from sage2_tpu_torch.parallel.mesh import Mesh
 
-MESH_RAGGED_VOTING = ("ragged reads and the vote_all_windows rule on a "
-                      "device mesh (ROADMAP Queue 1 item 18)")
 MESH_STREAMED = ("streaming on a device mesh, sharded_stream.py (ROADMAP "
                  "Queue 1 item 19)")
 
@@ -146,19 +148,22 @@ def _count_owned(mesh: Mesh, keys: List[torch.Tensor],
 
 
 def _sharded_lookup(mesh: Mesh, tables: List[KmerTable],
-                    queries: List[torch.Tensor], cap: int):
+                    queries: Callable[[int], torch.Tensor], cap: int):
     """Counts of each shard's int64 queries (any shape) from the owners'
-    tables (sharded.py:193); ``queries`` is emptied as each shard's are
-    routed (the send buffers hold them). Returns (counts int32 per
-    shard, overflow)."""
+    tables (sharded.py:193); ``queries(d)`` makes shard d's queries, one
+    shard after another, each freed once routed (its send buffer holds
+    them), and the send buffers go once exchanged. Returns (counts int32
+    per shard, overflow)."""
     n = mesh.size
-    shapes = [q.shape for q in queries]
-    routes = []
+    shapes, routes = [], []
     for d in range(n):
-        q, queries[d] = queries[d].reshape(-1), None
+        q = queries(d)
+        shapes.append(q.shape)
+        q = q.reshape(-1)
         routes.append(kernels.route_rows(_key_rows(q), n, cap, None, q))
         del q
     recv = _exchange(mesh, routes)
+    routes = [rt._replace(send=None) for rt in routes]
     answers = []
     for d in range(n):
         q = _row_keys(recv[d])
@@ -171,9 +176,12 @@ def _sharded_lookup(mesh: Mesh, tables: List[KmerTable],
         answers.append(a.reshape(-1, 1))
     back = _answer(mesh, routes, answers)
     del answers
-    counts = [_back(back[d], routes[d])[:, 0].reshape(shapes[d])
-              for d in range(n)]
-    return counts, any(r.overflow for r in routes)
+    overflow = any(rt.overflow for rt in routes)
+    counts = []
+    for d in range(n):
+        counts.append(_back(back[d], routes[d])[:, 0].reshape(shapes[d]))
+        back[d] = routes[d] = None
+    return counts, overflow
 
 
 def sharded_count_kmers(mesh: Mesh, reads, k: int, route_cap: int
@@ -205,40 +213,74 @@ def sharded_correct_reads(
     """Spectrum correction of the (N, L) reads sharded over the mesh: every
     count comes from the hash-partitioned table through routed lookups
     (sharded.py:245). Each round counts the canonical k-mers of the valid
-    reads (K1, routed by K19, counted by each owner), then runs the
-    ``single_window`` rule's two sub-passes: the 4 variants of each
-    window's last, then first base (K22), their counts looked up at the
-    owners (K19, K2, K20), and the verdicts (K22). Returns (reads int32
+    reads (K1, routed by K19, counted by each owner), then runs its rule:
+
+    * ``single_window``: two sub-passes, the 4 variants of each window's
+      last, then first base (K22), their counts looked up at the owners
+      (K19, K2, K20), and the verdicts (K22);
+    * ``vote_all_windows``: for each window position j the 4 variants of
+      base j of every window (K22), their routed counts, and their solid
+      verdicts added to the shard's votes (K5's ``vote_add``); after the
+      k positions the rule (K5's ``vote_apply``).
+
+    ``lengths`` (N,) for ragged (0-padded) reads: windows past a read's
+    end are not counted, do not vote and edit nothing, and bases past it
+    stay; every window's variants are still routed, as the reference's
+    are, so the overflow flags are the reference's. Returns (reads int32
     on the first shard's device, overflow). The result equals
-    kmer.correct_reads with the same rule."""
+    kmer.correct_reads with the same rule and lengths."""
     if rule not in ("single_window", "vote_all_windows"):
         raise ValueError(f"unknown correction rule {rule!r}")
-    if lengths is not None or rule != "single_window":
-        raise NotImplementedError(f"not ported yet: {MESH_RAGGED_VOTING}")
     n = mesh.size
     r = _split_rows(mesh, reads, torch.int32)
     if valid is None:
         valid = torch.ones(sum(x.shape[0] for x in r), dtype=torch.bool)
     v = _split_rows(mesh, valid, torch.bool)
+    lens = (None if lengths is None
+            else _split_rows(mesh, lengths, torch.int32))
     P = r[0].shape[1] - k + 1
+    kvalid = []
+    for d in range(n):
+        kv = v[d][:, None].expand(-1, P)
+        if lens is not None:        # the window lies inside its read
+            kv = kv & (torch.arange(P, device=kv.device)[None, :]
+                       < lens[d][:, None] - (k - 1))
+        kvalid.append(kv.reshape(-1))
+    lens = lens or [None] * n
     overflow = False
     with comm.label("sharded_correct_reads"):
         for _ in range(rounds):
             keys = [bitpack.kmer_keys(x, k)[2].reshape(-1) for x in r]
-            kvalid = [v[d][:, None].expand(-1, P).reshape(-1)
-                      for d in range(n)]
             tables, ovf = _count_owned(mesh, keys, kvalid, k, route_cap)
-            del keys, kvalid
+            del keys
             overflow |= ovf
-            for which in kernels.plain.WHICH:
-                variants = [kernels.window_variants(x, k, which) for x in r]
-                counts, ovf = _sharded_lookup(mesh, tables, variants,
-                                              query_cap)
-                del variants
-                overflow |= ovf
-                r = [kernels.apply_verdicts(r[d], counts[d], k, which,
-                                            threshold) for d in range(n)]
-                del counts
+            if rule == "vote_all_windows":
+                votes = [torch.zeros(x.shape + (4,), dtype=torch.uint8,
+                                     device=x.device) for x in r]
+                for j in range(k):
+                    counts, ovf = _sharded_lookup(
+                        mesh, tables,
+                        lambda d: kernels.window_variants(r[d], k, j),
+                        query_cap)
+                    overflow |= ovf
+                    for d in range(n):
+                        kernels.vote_add(votes[d], counts[d], j, k,
+                                         threshold, lens[d])
+                        counts[d] = None
+                r = [kernels.vote_apply(r[d], votes[d])
+                     for d in range(n)]
+                del votes
+            else:
+                for which in kernels.plain.WHICH:
+                    counts, ovf = _sharded_lookup(
+                        mesh, tables,
+                        lambda d: kernels.window_variants(r[d], k, which),
+                        query_cap)
+                    overflow |= ovf
+                    r = [kernels.apply_verdicts(r[d], counts[d], k, which,
+                                                threshold, lens[d])
+                         for d in range(n)]
+                    del counts
             del tables
     dev0 = mesh.device_of(0)
     return torch.cat([x.to(dev0) for x in r]), overflow
@@ -342,12 +384,18 @@ def sharded_find_overlaps(
     int32 edge slices, shard d's holding the edges whose src lies in its
     read range, sorted with INT32_MAX padding (gather_edge_shards
     concatenates them into find_overlaps' edge list), and host
-    n_edges and overflow."""
-    if lengths is not None:
-        raise NotImplementedError(f"not ported yet: {MESH_RAGGED_VOTING}")
+    n_edges and overflow. With ``lengths`` ((M,) per-read lengths of
+    ragged reads: K13's rows live only inside their read, K3 verifies
+    against each row's own length) a sixth output: the (M,) bool
+    containment marks on the first shard's device, read b marked where
+    some owner verified a pair that holds it whole (each owner's K3
+    marks its (M,) array; their int32 sum over the shards, > 0, is the
+    reference's psum, sharded.py:957-966)."""
     n = mesh.size
     r2 = _split_rows(mesh, reads2, torch.int32)
     v2 = _split_rows(mesh, valid2, torch.bool)
+    lens2 = (None if lengths is None
+             else _split_rows(mesh, lengths, torch.int32))
     M, L = sum(x.shape[0] for x in r2), r2[0].shape[1]
     m_local = M // n
     s = min(seed_len, min_overlap, 32)
@@ -363,7 +411,8 @@ def sharded_find_overlaps(
         routes = []
         for d in range(n):
             s_keys, s_rows, payload = kernels.seed_rows(
-                r2[d], v2[d], None, s, g, geo.n_pos, geo.trim, d * m_local)
+                r2[d], v2[d], None if lens2 is None else lens2[d], s, g,
+                geo.n_pos, geo.trim, d * m_local)
             local = s_rows.to(torch.int64) - d * m_local * R
             rows = torch.cat([_key_rows(s_keys), s_rows[:, None],
                               payload.reshape(-1, W2)[local]], dim=1)
@@ -375,7 +424,7 @@ def sharded_find_overlaps(
         overflow |= any(rt.overflow for rt in routes)
         del routes
         # --- each owner's join, and its edges to their source's owner
-        routes = []
+        routes, marks = [], []
         for d in range(n):
             rows, recv[d] = recv[d], None
             keys = _row_keys(rows[:, :2])
@@ -389,9 +438,12 @@ def sharded_find_overlaps(
             s_keys, order = torch.sort(keys[first], stable=True)
             perm = first[order]
             del keys, first, order
+            cont = None if lens2 is None else torch.zeros(
+                M, dtype=torch.uint8, device=s_keys.device)
             ok, a, b, ovl, total = kernels.overlap_join(
                 s_keys, ids[perm], payload, R, g, geo.trim, min_overlap,
-                None, join_cap, None, 0, 0, perm)
+                cont, join_cap, None, 0, 0, perm)
+            marks.append(cont)
             del s_keys, perm, payload, ids
             overflow |= total > join_cap
             e_src, e_dst, e_ovl, n_e = kernels.longest_edges(
@@ -421,7 +473,10 @@ def sharded_find_overlaps(
             out_dst.append(f_dst[:edge_cap])
             out_ovl.append(f_ovl[:edge_cap])
         n_edges = comm.psum(n_edges)
-    return out_src, out_dst, out_ovl, n_edges, overflow
+        if lens2 is None:
+            return out_src, out_dst, out_ovl, n_edges, overflow
+        contained = comm.psum([c.to(torch.int32) for c in marks]) > 0
+    return out_src, out_dst, out_ovl, n_edges, overflow, contained
 
 
 # --------------------------------------------------------------------------
@@ -453,13 +508,19 @@ def sharded_transitive_reduction(
       3. owner(v) probes each candidate among its (src, dst)-sorted
          edges and marks the edges it removes (K21).
 
+    ``lengths_sh``: ragged reads, (ndev, v_d) per-vertex lengths
+    range-partitioned as the edges are (``partition_vertex_range``), or a
+    list of (v_d,) tensors: an edge's offset is sl = len(src) - ovl, and
+    the probe takes len(v) (:460-466, :524-527); both lengths live with
+    the vertex's owner.
+
     Returns (src, dst, ovl) per-shard slices of the input's lengths,
     sorted with padding at the end, and host (n_edges, n_expansions,
     overflow)."""
-    if lengths_sh is not None:
-        raise NotImplementedError(f"not ported yet: {MESH_RAGGED_VOTING}")
     n = mesh.size
     src, dst, ovl = (_shard_list(mesh, x) for x in (src_sh, dst_sh, ovl_sh))
+    lens = (None if lengths_sh is None
+            else _shard_list(mesh, lengths_sh))
     V = n_vertices
     v_d = -(-V // n)
     overflow = False
@@ -469,12 +530,16 @@ def sharded_transitive_reduction(
         adj, routes, is_edge = [], [], []
         for d in range(n):
             e = src[d] != I32_MAX
-            sl = torch.where(e, read_len - ovl[d], I32_MAX)
+            local = (src[d].to(torch.int64) - d * v_d)
+            if lens is None:
+                src_len = read_len
+            else:
+                src_len = lens[d][local.clamp(0, v_d - 1)]
+            sl = torch.where(e, src_len - ovl[d], I32_MAX)
             ss_key, order = torch.sort(
                 (src[d].to(torch.int64) << 32) | sl.to(torch.int64),
                 stable=True)
             adj.append((ss_key, dst[d][order].contiguous()))
-            local = (src[d].to(torch.int64) - d * v_d)
             seg = torch.where(e, local, v_d)
             maxsl = torch.full((v_d + 1,), -1, dtype=torch.int32,
                                device=src[d].device).scatter_reduce_(
@@ -487,7 +552,7 @@ def sharded_transitive_reduction(
             routes.append(_one_way(kernels.route_rows(
                 req, n, req_cap, owner, None, False, e & (bound >= 0))))
             is_edge.append(e)
-            del sl, order, seg, maxsl, bound, req, owner, local
+            del sl, order, seg, maxsl, bound, req, owner, local, src_len
         recv = _exchange(mesh, routes)
         overflow |= any(rt.overflow for rt in routes)
         del routes
@@ -511,8 +576,9 @@ def sharded_transitive_reduction(
         out = ([], [], [])
         n_edges = []
         for d in range(n):
-            removed = kernels.reduce_probe(src[d], dst[d], ovl[d], recv[d],
-                                           read_len)
+            removed = kernels.reduce_probe(
+                src[d], dst[d], ovl[d], recv[d],
+                read_len if lens is None else lens[d], d * v_d)
             recv[d] = None
             keep = is_edge[d] & ~removed
             kept = int(keep.sum())

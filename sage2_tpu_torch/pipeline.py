@@ -20,12 +20,12 @@ the big host arrays (corrected reads, the read store, the edge lists)
 become memmaps of a spill store there (``utils.spill``), and the native
 reduction marks and compacts through it.
 
-A device mesh (``config.mesh_shape``, in core, fixed-length reads, the
-single_window rule): count, correct, overlap, reduction and unitig
-labeling run sharded over ``n`` shard slots (``parallel``; shard d on
-device d % the device count, so four shards may share one card), the
-dedup and the host finish as on one device; the result equals the
-single-device run's.
+A device mesh (``config.mesh_shape``, in core; fixed-length or ragged
+reads, either correction rule): count, correct, overlap, reduction and
+unitig labeling run sharded over ``n`` shard slots (``parallel``; shard
+d on device d % the device count, so four shards may share one card),
+the dedup, the containment removal of ragged reads and the host finish
+as on one device; the result equals the single-device run's.
 
 Stage artifacts are the reference's: corrected.npz, edges.npz,
 reduced.npz, labels.npz, contigs.fasta, stats.json and manifest.json
@@ -160,8 +160,6 @@ def _unsupported(config: AssemblyConfig, n_reads: int, mate_of,
 
         if _stream_chunk(config, n_reads) is not None:
             return sharded.MESH_STREAMED
-        if lengths is not None or config.correction_rule != "single_window":
-            return sharded.MESH_RAGGED_VOTING
     if mate_of is not None:
         return "paired reads and scaffolding (ROADMAP Queue 1 item 14)"
     return None
@@ -185,8 +183,8 @@ def assemble(
     ``config.max_device_reads`` below the read count streams the device
     stages (fixed-length and ragged reads), ``config.entry_block_reads``
     and ``config.spill_dir`` with them; a spilled run resumes only with
-    its spill dir. ``config.mesh_shape`` shards the in-core stages of
-    fixed-length reads under the single_window rule over a mesh of
+    its spill dir. ``config.mesh_shape`` shards the in-core stages
+    (either rule, fixed-length or ragged reads) over a mesh of
     prod(mesh_shape) shards on ``device`` ("cuda": the visible cards,
     shard d on card d % their count, at most 8 shards; "cpu": all on the
     CPU). ``mate_of`` exists for the reference's signature; paired
@@ -297,22 +295,25 @@ def _pad_rows(arr: np.ndarray, multiple: int) -> np.ndarray:
     return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
 
 
-def _mesh_correct(mesh, reads, config, log, dev):
+def _mesh_correct(mesh, reads, config, log, dev, lengths):
     """The meshed count + correct stage (sage2_tpu/pipeline.py:251-277):
-    (N, L) int8 corrected reads on ``dev``."""
+    (N, L) int8 corrected reads on ``dev``; ``lengths`` padded as the
+    reads are."""
     from sage2_tpu_torch.parallel import sharded_correct_reads
 
     N, L = reads.shape
     nd = mesh.size
     padded = _pad_rows(reads.astype(np.int32), nd)
     pvalid = np.arange(padded.shape[0]) < N
+    lens_pad = None if lengths is None else _pad_rows(
+        np.asarray(lengths, np.int32).reshape(-1, 1), nd).reshape(-1)
     cap = max(4096, 4 * padded.shape[0] * (L - config.k + 1) // nd)
     with log.timed("correct", rounds=config.correction_rounds,
                    sharded=True):
         corrected, ovf = sharded_correct_reads(
             mesh, padded, config.k, config.solid_threshold,
             config.correction_rounds, route_cap=cap, query_cap=cap,
-            valid=pvalid, rule=config.correction_rule)
+            valid=pvalid, lengths=lens_pad, rule=config.correction_rule)
         _sync_mesh(mesh)
     if ovf:
         raise RuntimeError("sharded correction routing overflow")
@@ -321,9 +322,11 @@ def _mesh_correct(mesh, reads, config, log, dev):
 
 def _mesh_overlap(mesh, rs, config, log, outdir):
     """The meshed overlap stage (sage2_tpu/pipeline.py:561-620): the
-    deduplicated reads padded to the mesh, routed join, capacities
-    doubled until nothing overflows. Returns (per-shard edge slices,
-    n_edges, the host edge list or None without ``outdir``)."""
+    deduplicated reads padded to the mesh (ragged ones with length 0),
+    routed join, capacities doubled until nothing overflows. Returns
+    (per-shard edge slices, n_edges, the host edge list or None without
+    ``outdir`` or lengths, the (M2,) containment marks of ragged reads or
+    None)."""
     from sage2_tpu_torch.overlap.detect import join_geometry
     from sage2_tpu_torch.parallel import (
         gather_edge_shards,
@@ -338,6 +341,9 @@ def _mesh_overlap(mesh, rs, config, log, outdir):
                                                device=dev)])
     valid2 = torch.cat([rs.valid2, torch.zeros(padm, dtype=torch.bool,
                                                device=dev)])
+    lengths2 = None if rs.lengths2 is None else torch.cat(
+        [rs.lengths2.to(torch.int32),
+         torch.zeros(padm, dtype=torch.int32, device=dev)])
     Mp = M2 + padm
     geo = join_geometry(L, config.min_overlap, config.effective_seed_len)
     row_cap = max(4096, 2 * (Mp // nd) * geo.R // nd)
@@ -345,10 +351,11 @@ def _mesh_overlap(mesh, rs, config, log, outdir):
     edge_cap = join_cap
     while True:
         with log.timed("overlap", sharded=True):
-            src_sh, dst_sh, ovl_sh, n_edges, ovf = sharded_find_overlaps(
+            out = sharded_find_overlaps(
                 mesh, reads2, valid2, config.min_overlap,
                 config.effective_seed_len, row_cap=row_cap,
-                join_cap=join_cap, edge_cap=edge_cap)
+                join_cap=join_cap, edge_cap=edge_cap, lengths=lengths2)
+            src_sh, dst_sh, ovl_sh, n_edges, ovf = out[:5]
             _sync_mesh(mesh)
         if not ovf:
             break
@@ -361,18 +368,22 @@ def _mesh_overlap(mesh, rs, config, log, outdir):
             seed_rows_per_device=(Mp // nd) * geo.R, row_cap=row_cap,
             join_cap=join_cap, edge_cap=edge_cap, global_reads=Mp)
     edges = (gather_edge_shards(src_sh, dst_sh, ovl_sh, n_edges)
-             if outdir else None)
-    return (src_sh, dst_sh, ovl_sh), n_edges, edges
+             if outdir or lengths2 is not None else None)
+    cont = None if lengths2 is None else out[5][:M2]
+    return (src_sh, dst_sh, ovl_sh), n_edges, edges, cont
 
 
-def _mesh_reduce(mesh, edges_dev, edges, n_edges, V, L, config, log):
+def _mesh_reduce(mesh, edges_dev, edges, n_edges, V, L, config, log,
+                 lengths2):
     """The meshed transitive reduction (sage2_tpu/pipeline.py:755-830):
     the overlap stage's slices, or the host edges partitioned by src
-    range; the reference's capacity retries. Returns (reduced slices,
-    host reduced edges, n_edges, n_expansions)."""
+    range; ragged reads' ``lengths2`` partitioned by vertex range
+    (:776-784); the reference's capacity retries. Returns (reduced
+    slices, host reduced edges, n_edges, n_expansions)."""
     from sage2_tpu_torch.parallel import (
         gather_edge_shards,
         partition_edges_by_src,
+        partition_vertex_range,
         sharded_transitive_reduction,
     )
 
@@ -384,6 +395,8 @@ def _mesh_reduce(mesh, edges_dev, edges, n_edges, V, L, config, log):
         s_sh, d_sh, o_sh, _ = partition_edges_by_src(
             edges[0], edges[1], edges[2], V, nd)
         n_edges_glob = int(np.sum(s_sh != I32_MAX))
+    lens_sh = None if lengths2 is None else partition_vertex_range(
+        np.asarray(lengths2, np.int32), V, nd)
     e_d = int(s_sh[0].shape[0])
     cap = config.reduce_capacity
     reqc = max(4096, 2 * e_d // nd)
@@ -393,7 +406,7 @@ def _mesh_reduce(mesh, edges_dev, edges, n_edges, V, L, config, log):
             r_src, r_dst, r_ovl, r_n, r_exp, r_ovf = (
                 sharded_transitive_reduction(
                     mesh, s_sh, d_sh, o_sh, V, L, req_cap=reqc,
-                    cand_cap=cap_dev))
+                    cand_cap=cap_dev, lengths_sh=lens_sh))
         if not r_ovf:
             break
         grain = 1 << 16
@@ -476,7 +489,8 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                 )
         elif mesh is not None:
             # kept on the card for the in-core dedup
-            corrected8 = _mesh_correct(mesh, reads, config, log, dev)
+            corrected8 = _mesh_correct(mesh, reads, config, log, dev,
+                                       lengths)
             corrected_np = corrected8.cpu().numpy()
         else:
             r = torch.from_numpy(reads.astype(np.int32)).to(dev)
@@ -596,8 +610,8 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
             _sync(dev)
         log.log("dedup_split", **split.ms())
         if mesh is not None:
-            edges_dev, n_edges, edges = _mesh_overlap(mesh, rs, config, log,
-                                                      outdir)
+            edges_dev, n_edges, edges, contained = _mesh_overlap(
+                mesh, rs, config, log, outdir)
             n_candidates = n_edges
         else:
             with log.timed("overlap"):
@@ -628,6 +642,9 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
             if cont.any():
                 edges, n_edges = _drop_vertices(edges, cont)
                 valid2_np = valid2_np & ~cont
+                # the edge set changed on the host: the meshed reduction
+                # partitions it anew (sage2_tpu/pipeline.py:654)
+                edges_dev = None
         log.log("overlap_result", n_edges=n_edges,
                 n_candidates=n_candidates,
                 n_unique_reads=int(rs.n_unique))
@@ -671,7 +688,7 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     if start <= STAGES.index("reduce") and mesh is not None:
         reduced_dev, redges, red_n, red_exp = _mesh_reduce(
             mesh, edges_dev, edges, n_edges if edges_dev else None, V, L,
-            config, log)
+            config, log, lengths2_np)
         edges_dev = None
         log.log("reduce_result", n_edges=red_n, n_expansions=red_exp)
         _save(outdir, log, "reduced", src=redges[0], dst=redges[1],

@@ -1408,3 +1408,196 @@ def test_meshed_assembly_on_several_cards(cards):
     assert m_stats == stats and len(m_contigs) == len(contigs) >= 1
     for a, b in zip(m_contigs, contigs):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("k", [11, 25])
+def test_vote_add_and_apply_kernels(cuda, k, ragged):
+    """K5's routed mode: each position's votes from the counts of K22's
+    variant keys (as the owners send them back), then the rule; each
+    launch bit-equal to its plain version, and the round equal to K5's
+    fused round over the same table."""
+    r, lens = _ragged() if ragged else (_reads(), None)
+    r = r[:3000]
+    lens = None if lens is None else lens[:3000]
+    t = prune_table_for_correction(count_kmers(r, k, lens), 2)
+    N, L = r.shape
+    votes = torch.zeros((N, L, 4), dtype=torch.uint8)
+    gvotes = votes.to(cuda)
+    glens = None if lens is None else lens.to(cuda)
+    before = kernels.LAUNCHES["vote_windows"]
+    for j in range(k):
+        counts = plain._count_of(t.keys, t.count,
+                                 plain.window_variants(r, k, j))
+        plain.vote_add(votes, counts, j, k, 2, lens)
+        got = kernels.vote_add(gvotes, counts.to(cuda), j, k, 2, glens)
+        assert got is gvotes
+        assert torch.equal(gvotes.cpu(), votes)
+    want = plain.vote_apply(r, votes)
+    got = kernels.vote_apply(r.to(cuda), gvotes)
+    assert kernels.LAUNCHES["vote_windows"] == before + k + 1
+    assert torch.equal(got.cpu(), want)
+    assert (want != r).any()
+    assert torch.equal(want, plain.vote_windows(r, t.keys, t.count, k, 2,
+                                                lens))
+
+
+@pytest.mark.parametrize("k", [11, 25, 31])
+def test_window_variants_kernel_positions(cuda, k):
+    """K22 at every window position j, and its verdicts with lengths."""
+    reads = _reads(n_genome=5000)[:300]
+    for j in range(k):
+        want = plain.window_variants(reads, k, j)
+        got = kernels.window_variants(reads.to(cuda), k, j)
+        assert torch.equal(got.cpu(), want), j
+    lens = torch.from_numpy(np.random.default_rng(k).integers(
+        k - 3, 101, size=300).astype(np.int32))
+    counts = torch.from_numpy(np.random.default_rng(k + 1).choice(
+        [0, 1, 2, 3, 7], size=(300, 101 - k, 4)).astype(np.int32))
+    for which in plain.WHICH:
+        want = plain.apply_verdicts(reads, counts, k, which, 2, lens)
+        got = kernels.apply_verdicts(reads.to(cuda), counts.to(cuda), k,
+                                     which, 2, lens.to(cuda))
+        assert torch.equal(got.cpu(), want)
+        assert not torch.equal(want, plain.apply_verdicts(
+            reads, counts, k, which, 2))
+
+
+@pytest.mark.parametrize("vbase", [0, 150])
+def test_reduce_probe_kernel_ragged(cuda, vbase):
+    """K21's probe with a shard's own lengths: len(v) of vertices
+    [vbase, vbase + v_d), clipped."""
+    rng = np.random.default_rng(vbase)
+    V, v_d = 300, 200
+    pairs = np.unique(rng.integers(0, V, size=(3000, 2)), axis=0)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]]
+    lens = rng.integers(60, 101, size=v_d).astype(np.int32)
+    src = pairs[:, 0].astype(np.int32)
+    dst = pairs[:, 1].astype(np.int32)
+    ovl = rng.integers(40, 60, size=src.shape[0]).astype(np.int32)
+    local = np.clip(src.astype(np.int64) - vbase, 0, v_d - 1)
+    # a candidate for every edge, half of them at its true offset
+    sl = lens[local] - ovl + (rng.random(src.shape[0]) < 0.5)
+    cand = np.stack([src, dst, sl], 1).astype(np.int32)
+    t = torch.from_numpy
+    want = plain.reduce_probe(t(src), t(dst), t(ovl), t(cand), t(lens),
+                              vbase)
+    got = kernels.reduce_probe(t(src).to(cuda), t(dst).to(cuda),
+                               t(ovl).to(cuda), t(cand).to(cuda),
+                               t(lens).to(cuda), vbase)
+    assert torch.equal(got.cpu(), want)
+    assert want.any() and not want.all()
+
+
+def test_overlap_join_payload_perm_contained_kernel(cuda):
+    """K3 with the owners' payload permutation and containment marks at
+    once (the meshed ragged join): the in-core join's candidates and
+    marks."""
+    rs, args = _ragged_rows(cuda)
+    s_keys, s_rows, flat = args[:3]
+    M = rs.reads2.shape[0]
+    want_cont = torch.zeros(M, dtype=torch.uint8, device=cuda)
+    want = kernels.overlap_join(*args, want_cont)
+    shuffle = torch.randperm(s_rows.shape[0],
+                             generator=torch.Generator().manual_seed(4)
+                             ).to(cuda)
+    received = flat[s_rows.long()][shuffle]
+    perm = torch.argsort(shuffle)
+    rest = (s_keys, s_rows, received) + args[3:]
+    plain_cont = torch.zeros(M, dtype=torch.uint8)
+    plain_out = plain.overlap_join(*(a.cpu() if isinstance(a, torch.Tensor)
+                                     else a for a in rest), plain_cont,
+                                   None, None, 0, 0, perm.cpu())
+    cont = torch.zeros(M, dtype=torch.uint8, device=cuda)
+    before = kernels.LAUNCHES["overlap_join"]
+    got = kernels.overlap_join(*rest, cont, None, None, 0, 0, perm)
+    assert kernels.LAUNCHES["overlap_join"] == before + 2
+    _equal(got, plain_out)
+    _equal(got, want)
+    assert torch.equal(cont.cpu(), plain_cont)
+    assert torch.equal(cont, want_cont) and cont.any()
+
+
+def test_sharded_ragged_and_voting_stages_on_one_card(cuda):
+    """The meshed stages of ragged reads (both rules: the routed vote,
+    the ragged verdicts, the join's marks, the reduction with the
+    shards' lengths) with 4 shards on one card, against the same on a
+    CPU mesh."""
+    _sharded_ragged_stages_match_cpu(cuda)
+
+
+def test_sharded_ragged_stages_on_several_cards(cards):
+    _sharded_ragged_stages_match_cpu(None)
+
+
+def _sharded_ragged_stages_match_cpu(devices):
+    from sage2_tpu_torch.parallel import (
+        gather_edge_shards,
+        make_mesh,
+        partition_vertex_range,
+        sharded_correct_reads,
+        sharded_find_overlaps,
+        sharded_transitive_reduction,
+    )
+
+    r, lens = _ragged(n_genome=20_000)
+    n = r.shape[0] - r.shape[0] % 4
+    reads, lens = r[:n].numpy(), lens[:n].numpy()
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", devices)):
+        mesh = make_mesh(4, devices=dev)
+        got = []
+        for rule in ("single_window", "vote_all_windows"):
+            corrected, ovf = sharded_correct_reads(
+                mesh, reads, 25, 2, 2, 1 << 20, 1 << 20, lengths=lens,
+                rule=rule)
+            assert not ovf
+            got.append(corrected.cpu())
+        rs = prepare_reads(corrected, torch.from_numpy(lens).to(
+            corrected.device))
+        M = rs.reads2.shape[0]
+        pad = (-M) % 4
+        L = rs.reads2.shape[1]
+        reads2 = torch.cat([rs.reads2, rs.reads2.new_zeros((pad, L))])
+        valid2 = torch.cat([rs.valid2, rs.valid2.new_zeros(pad)])
+        lens2 = torch.cat([rs.lengths2, rs.lengths2.new_zeros(pad)])
+        src, dst, ovl, n_edges, ovf, cont = sharded_find_overlaps(
+            mesh, reads2, valid2, 40, 32, row_cap=1 << 17,
+            join_cap=1 << 18, lengths=lens2)
+        assert not ovf and bool(cont.any())
+        lens_sh = partition_vertex_range(rs.lengths2.cpu().numpy(), M, 4)
+        red = sharded_transitive_reduction(mesh, src, dst, ovl, M, L,
+                                           req_cap=1 << 17,
+                                           cand_cap=1 << 20,
+                                           lengths_sh=lens_sh)
+        assert not red[5]
+        got += [n_edges, cont.cpu(), red[3:5],
+                gather_edge_shards(*red[:3], red[3])]
+        out[name] = got
+    a, b = out["cpu"], out["cuda"]
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert not torch.equal(a[0], a[1])
+    assert a[2] == b[2] and torch.equal(a[3], b[3]) and a[4] == b[4]
+    for x, y in zip(a[5], b[5]):
+        assert np.array_equal(x, y)
+
+
+def test_meshed_ragged_voting_assembly_on_several_cards(cards):
+    """assemble(mesh_shape=(4,), lengths=...) with the voting rule, the
+    shards spread over every visible card: the single-device run's
+    contigs and stats."""
+    from dataclasses import replace
+
+    from sage2_tpu_torch import AssemblyConfig
+    from sage2_tpu_torch.pipeline import assemble
+
+    r, lens = _ragged(n_genome=20_000)
+    reads, lens = r.numpy(), lens.numpy()
+    cfg = AssemblyConfig(min_contig_len=500,
+                         correction_rule="vote_all_windows")
+    contigs, stats = assemble(reads, cfg, device="cuda:0", lengths=lens)
+    m_contigs, m_stats = assemble(reads, replace(cfg, mesh_shape=(4,)),
+                                  device="cuda", lengths=lens)
+    assert m_stats == stats and len(m_contigs) == len(contigs) >= 1
+    for a, b in zip(m_contigs, contigs):
+        np.testing.assert_array_equal(a, b)

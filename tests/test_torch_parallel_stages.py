@@ -101,10 +101,19 @@ def test_sharded_correct_matches_single(nd):
     _, overflow = sharded_correct_reads(mesh, reads, k, thr, 1,
                                         route_cap=cap, query_cap=64)
     assert overflow
-    for kw in ({"rule": "vote_all_windows"},
-               {"lengths": np.full(reads.shape[0], 40)}):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            sharded_correct_reads(mesh, reads, k, thr, 1, cap, cap, **kw)
+    # ragged reads and the voting rule run on the mesh too: reads of
+    # full length correct as fixed-length ones, and the voting rule as
+    # the reference's single-device one
+    full, overflow = sharded_correct_reads(
+        mesh, reads, k, thr, rounds, cap, cap,
+        lengths=np.full(reads.shape[0], 40))
+    assert not overflow
+    np.testing.assert_array_equal(full.numpy(), single)
+    voted, overflow = sharded_correct_reads(mesh, reads, k, thr, 1, cap, cap,
+                                            rule="vote_all_windows")
+    assert not overflow
+    np.testing.assert_array_equal(voted.numpy(), np.asarray(correct_reads(
+        jnp.asarray(reads), k, thr, 1, rule="vote_all_windows")))
 
 
 @pytest.mark.parametrize("nd", SHARDS)

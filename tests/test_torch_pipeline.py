@@ -76,14 +76,13 @@ def test_resume_continues_a_reference_run(runs, stage, tmp_path):
 def test_unported_paths_raise(runs):
     """Off the ported path, assemble raises naming the ROADMAP item;
     ragged reads (``lengths``), streaming, of fixed-length and of ragged
-    reads, and the in-core mesh are on it now and assemble."""
+    reads, and the in-core mesh, of fixed-length and of ragged reads
+    under either rule, are on it now and assemble."""
     reads = runs[0]
     for cfg, kw in [
-            (AssemblyConfig(mesh_shape=(2,),
-                            correction_rule="vote_all_windows"), {}),
-            (AssemblyConfig(mesh_shape=(2,)),
-             {"lengths": np.full(10, reads.shape[1])}),
             (AssemblyConfig(mesh_shape=(2,), max_device_reads=5), {}),
+            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5),
+             {"lengths": np.full(10, reads.shape[1])}),
             (AssemblyConfig(), {"mate_of": np.arange(10)})]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             assemble(reads[:10], cfg, device="cpu", **kw)
@@ -94,6 +93,8 @@ def test_unported_paths_raise(runs):
     assert stats == assemble(reads[:n], AssemblyConfig(), device="cpu")[1]
     assert stats == assemble(reads[:n], AssemblyConfig(mesh_shape=(2,)),
                              device="cpu")[1]
+    assert stats == assemble(reads[:n], AssemblyConfig(mesh_shape=(2,)),
+                             device="cpu", lengths=full)[1]
     assert stats == assemble(reads[:n], AssemblyConfig(max_device_reads=100),
                              device="cpu")[1]
     assert stats == assemble(reads[:n], AssemblyConfig(max_device_reads=100),

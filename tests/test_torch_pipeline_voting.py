@@ -90,8 +90,8 @@ def _roadmap_items():
 def test_unsupported_names_current_roadmap_items():
     """Both correction rules, every reduce backend, ragged reads,
     streaming with entry blocks and a spill dir for fixed-length and
-    ragged reads, and the in-core device mesh for fixed-length reads
-    under the single_window rule are ported; each remaining refusal
+    ragged reads, and the in-core device mesh for fixed-length and
+    ragged reads under either rule are ported; each remaining refusal
     names the open ROADMAP item that ports it."""
     for rule in ("single_window", "vote_all_windows"):
         for backend in ("auto", "native", "device"):
@@ -112,25 +112,28 @@ def test_unsupported_names_current_roadmap_items():
                 AssemblyConfig(max_device_reads=5, entry_block_reads=3,
                                spill_dir="x")):
         assert _unsupported(cfg, 10, None, np.full(10, 100)) is None
-    # the in-core mesh, whatever the reduce backend; a max_device_reads
-    # above the read count keeps the run in core
+    # the in-core mesh, whatever the reduce backend and the rule, for
+    # fixed-length and ragged reads; a max_device_reads above the read
+    # count keeps the run in core
     for backend in ("auto", "native", "device"):
-        for cfg in (AssemblyConfig(mesh_shape=(2,), reduce_backend=backend),
-                    AssemblyConfig(mesh_shape=(8,), max_device_reads=10,
-                                   reduce_backend=backend)):
-            assert _unsupported(cfg, 10, None, None) is None
+        for rule in ("single_window", "vote_all_windows"):
+            for cfg in (AssemblyConfig(mesh_shape=(2,), reduce_backend=backend,
+                                       correction_rule=rule),
+                        AssemblyConfig(mesh_shape=(8,), max_device_reads=10,
+                                       reduce_backend=backend,
+                                       correction_rule=rule)):
+                assert _unsupported(cfg, 10, None, None) is None
+                assert _unsupported(cfg, 10, None, np.full(10, 100)) is None
     items = _roadmap_items()
     assert not any("Ragged" in title for title in items.values())
-    mesh = AssemblyConfig(mesh_shape=(2,))
     for cfg, mate_of, lengths, word in [
             (AssemblyConfig(mesh_shape=(2,), max_device_reads=5), None, None,
              "streaming"),
             (AssemblyConfig(mesh_shape=(2,), max_device_reads=5), None,
              np.full(10, 100), "streaming"),
-            (mesh, None, np.full(10, 100), "ragged"),
-            (AssemblyConfig(mesh_shape=(2,),
+            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5,
                             correction_rule="vote_all_windows"), None, None,
-             "voting"),
+             "streaming"),
             (AssemblyConfig(), np.arange(10), None, "Paired")]:
         msg = _unsupported(cfg, 10, mate_of, lengths)
         n = int(re.search(r"ROADMAP Queue 1 item (\d+)", msg).group(1))
