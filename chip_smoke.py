@@ -53,6 +53,21 @@ Phases (one flushed line each, with its seconds):
      retries and capacities and its containment count, and asserts
      genome_fraction >= 0.99; contigs, stats and containment counts
      asserted equal to 8a's and 8b's after phase 8;
+  14 streaming on the same four-shard mesh, right after phase 13 for the
+     same reason, with phase 10a's flags (1,000,000-read chunks, a spill
+     dir and artifacts): 14a phase 4's reads and config (the streamed
+     sharded count with its running tables (K11 weighted), the chunked
+     routed correction, the owners' accumulated entry rows and each
+     query chunk's join (K13 entries/queries, K3 under the owners'
+     permutation, K14), the edges gathered into the spill store
+     (gather_edge_shards_spill), the sharded reduction and labeling),
+     14b phase 8's ragged reads and 8a's config (K3's containment marks
+     OR-ed over chunks and owners, the meshed containment removal); each
+     prints its stage seconds, peak device memory, collective bytes by
+     stage, retries and capacities and its spill files, and asserts
+     genome_fraction >= 0.99; contigs and stats asserted equal to phase
+     4's (14a) and 8a's with its containment count (14b) after those
+     phases;
   4  reads to contigs at E. coli scale (4.6 Mbp genome, 50x, 100 bp,
      error 0.005, seeds 7/8, default AssemblyConfig: single_window
      corrector, host-native reduction) through
@@ -97,12 +112,13 @@ Phases (one flushed line each, with its seconds):
      (torch.cuda.max_memory_allocated after a reset), 10a-10d the host
      split of their streamed dedup (K8's words, the host sort and
      grouping, the representative rows);
-  2a right after phase 13: phase 2's rows of paths 11, 12, 13a and 13b,
-     so that their kept inputs leave the card before phases 4-10 keep
-     theirs (else those phases' copies go to the host inside their timed
-     stages);
+  2a right after phase 13: phase 2's rows of paths 11, 12, 13a and 13b
+     (2b right after phase 14: those of 14a and 14b),
+     so that their kept inputs leave the card before the next phases
+     keep theirs (else those phases' copies go to the host inside their
+     timed stages, or their plain versions run out of device memory);
   2  (the card's clocks, power, temperature and throttle reasons
-     printed before and after it, and before and after 2a) each kernel
+     printed before and after it, 2a and 2b) each kernel
      against its plain PyTorch version on the inputs that
      its path's run gave it (captured during that run, so phase 2 comes
      last): one row for each kernel of each path (PATHS), "name" on its
@@ -153,7 +169,10 @@ lengths: "window_variants:ragged", "reduce_requests:probe_ragged",
 "overlap_join:ragged_perm"; 13b K22 at a window position,
 "window_variants:position", the one nearest the window's middle, and
 K5's routed mode, "vote_windows:routed" (the last position's call) and
-"vote_windows:apply"; the ":13a"/":13b" rows), phase 4 for K1-K4, K8
+"vote_windows:apply"; the ":13a"/":13b" rows), 14a and 14b for the
+streamed mesh (K1, K11 unit and weighted, K19, K2, K20 and K22 a chunk;
+K13 entries and queries, K3 with the permutation (14b: and marks) and
+K14; K8; K21; the ":14a"/":14b" rows), phase 4 for K1-K4, K8
 and K11-K18,
 phase 5 for K5-K7,
 K12-K15 and K18, phase 7 for P1, phases 8a and 8b for the ragged path
@@ -389,10 +408,32 @@ _MESH_RAGGED = ["kmer_keys", "merge_runs", "lookup_counts",
                 "overlap_join:ragged_perm", "route_rows", "routed_gather",
                 "routed_gather:heads", "routed_gather:gather",
                 "reduce_requests", "reduce_requests:probe_ragged"]
+# the streamed mesh's kernels under single_window: the chunked count and
+# correction, K13's entry and query rows, the owners' join, the edge merge,
+# the sharded reduction and labeling
+_MESH_STREAMED = ["kmer_keys", "merge_runs", "merge_runs:weighted",
+                  "lookup_counts", "route_rows", "routed_gather",
+                  "routed_gather:heads", "routed_gather:gather",
+                  "window_variants", "seed_rows:entries", "seed_rows:queries",
+                  "longest_edges", "reduce_requests"]
+# the TPU programs of sharded_stream.py that the streamed mesh's rows
+# replace (their first rows name the single-device or in-core ones)
+_SS = "sage2_tpu/parallel/sharded_stream.py:"
+STREAM_MESH_REPLACES = {
+    "kmer_keys": _SS + "131", "merge_runs": _SS + "145",
+    "merge_runs:weighted": _SS + "82", "route_rows": _SS + "141",
+    "lookup_counts": _SS + "272", "routed_gather": _SS + "272",
+    "window_variants": _SS + "267", "window_variants:verdicts": _SS + "277",
+    "window_variants:ragged": _SS + "277", "seed_rows:entries": _SS + "381",
+    "seed_rows:queries": _SS + "445", "overlap_join": _SS + "474",
+    "overlap_join:ragged_perm": _SS + "474", "longest_edges": _SS + "524",
+}
 # the mesh's paths: K2 makes real lookups at the k-mer owners there
-MESH_PATHS = ("12", "13a", "13b")
-# the paths that run before phase 4, whose rows phase 2a checks
+MESH_PATHS = ("12", "13a", "13b", "14a", "14b")
+# the paths that run before phase 4, whose rows phase 2a (11-13b, right
+# after phase 13) and phase 2b (14a, 14b, right after phase 14) check
 EARLY_PATHS = ("11", *MESH_PATHS)
+STREAM_MESH_PATHS = ("14a", "14b")
 PATHS = {
     "4": ["kmer_keys", *_TWOPHASE, "canonical_reads", "overlap_join",
           "merge_runs", *_JUMPS, *_DEDUP_JOIN, *_CHAIN],
@@ -421,6 +462,11 @@ PATHS = {
            "window_variants:verdicts"],
     "13a": [*_MESH_RAGGED, "window_variants", "window_variants:ragged"],
     "13b": [*_MESH_RAGGED, "window_variants:position", *_ROUTED_VOTE],
+    "14a": [*_MESH_STREAMED, "canonical_reads", "overlap_join",
+            "window_variants:verdicts", "reduce_requests:probe"],
+    "14b": [*_MESH_STREAMED, "canonical_reads:ragged",
+            "overlap_join:ragged_perm", "window_variants:ragged",
+            "reduce_requests:probe_ragged"],
 }
 # every kernel of a path is held against its plain version at that
 # path's shapes: a second row "<key>:<path>" where its first row comes
@@ -428,7 +474,11 @@ PATHS = {
 for _path, _keys in PATHS.items():
     for _key in _keys:
         if KERNEL_INFO[_key][2] != _path:
-            KERNEL_INFO[f"{_key}:{_path}"] = KERNEL_INFO[_key][:2] + (_path,)
+            _replaces = KERNEL_INFO[_key][1]
+            if _path.startswith("14"):
+                _replaces = STREAM_MESH_REPLACES.get(_key, _replaces)
+            KERNEL_INFO[f"{_key}:{_path}"] = (KERNEL_INFO[_key][0], _replaces,
+                                              _path)
 
 T_START = time.perf_counter()
 
@@ -1190,8 +1240,8 @@ def main() -> int:
     phase("1 build", t0, kernels=len(kernels.KERNELS))
     capture = Capture(kernels)
 
-    # phase 2's rows (run as phase 2a for EARLY_PATHS after phase 13, as
-    # phase 2 for the rest at the end)
+    # phase 2's rows (run as phases 2a and 2b for EARLY_PATHS after phases
+    # 13 and 14, as phase 2 for the rest at the end)
     rows = []
 
     def kern(name):
@@ -1509,12 +1559,57 @@ def main() -> int:
         del contigs, stats
 
     # --- phase 2a: the rows of the paths run so far ---------------------
-    # (their kept inputs leave the card before phases 4-10 keep theirs,
-    # so those phases' copies stay on the card and out of their stages'
-    # times)
+    # (their kept inputs leave the card before phases 14 and 4-10 keep
+    # theirs, so those phases' copies stay on the card and out of their
+    # stages' times)
     capture.keeping = False
     check_rows("2a", [item for item in KERNEL_INFO.items()
-                      if item[1][2] in EARLY_PATHS])
+                      if item[1][2] in EARLY_PATHS
+                      and item[1][2] not in STREAM_MESH_PATHS])
+    capture.keeping = True
+
+    # --- phase 14: streaming on the mesh, four shards on this card ------
+    # (phase 10a's flags: 14a phase 4's reads and config, 14b phase 8's
+    # ragged reads and 8a's config; run here, as phases 12 and 13 are;
+    # asserted equal to 4 and 8a after those phases)
+    for label, cfg, stream_reads, stream_lengths in (
+            ("14a", AssemblyConfig(), reads, None),
+            ("14b", ragged_configs[0][1], ragged, lengths)):
+        t0 = time.perf_counter()
+        log = MetricsLog(None, echo=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = dataclasses.replace(
+                cfg, mesh_shape=(MESH_SHARDS,), max_device_reads=STREAM_CHUNK,
+                spill_dir=os.path.join(tmp, "spill"))
+            torch.cuda.reset_peak_memory_stats()
+            capture.reset_launch_counts(label)
+            contigs, stats = assemble(
+                stream_reads, cfg, outdir=os.path.join(tmp, "out"),
+                metrics=log, device="cuda", lengths=stream_lengths)
+            launches = dict(kernels.LAUNCHES)
+            launches_by_key[label] = capture.path_launches(label)
+            t_asm = time.perf_counter() - t0
+            spilled = sorted(os.listdir(cfg.spill_dir))
+        report_assembly(f"{label} ecoli streamed mesh{MESH_SHARDS}", t0,
+                        t_asm, log, launches, contigs, stats, genome,
+                        genome_fraction)
+        peaks[label] = peak_gib()
+        report_mesh(label, log, peaks[label])
+        # 14a gathers its edges into the spill store, shard by shard
+        if stream_lengths is None and "edges_src.bin" not in spilled:
+            raise AssertionError(f"phase {label}: no edges_src in the spill "
+                                 f"store ({spilled})")
+        n_contained = (None if stream_lengths is None
+                       else contained_count(log, label))
+        meshed[label] = (contigs, stats, n_contained)
+        say(f"  spill files {spilled}"
+            + ("" if n_contained is None else f", n_contained={n_contained}"))
+        del contigs, stats
+
+    # --- phase 2b: the streamed mesh's rows ----------------------------
+    capture.keeping = False
+    check_rows("2b", [item for item in KERNEL_INFO.items()
+                      if item[1][2] in STREAM_MESH_PATHS])
     capture.keeping = True
 
     # --- phase 4: E. coli scale, reads to contigs -----------------------
@@ -1537,12 +1632,15 @@ def main() -> int:
                     genome, genome_fraction)
     peaks["4"] = peak_gib()
     incore = {"4": (contigs, stats)}
-    if mesh_stats != stats or len(mesh_contigs) != len(contigs) or any(
-            not np.array_equal(a, b) for a, b in zip(mesh_contigs, contigs)):
-        raise AssertionError("phase 12: the meshed assembly differs from "
-                             "phase 4's")
-    say("  phase 12's meshed assembly equals phase 4's: contigs and stats")
-    del mesh_contigs, mesh_stats
+    for label, (m_contigs, m_stats) in (("12", (mesh_contigs, mesh_stats)),
+                                        ("14a", meshed.pop("14a")[:2])):
+        if m_stats != stats or len(m_contigs) != len(contigs) or any(
+                not np.array_equal(a, b) for a, b in zip(m_contigs, contigs)):
+            raise AssertionError(f"phase {label}: the meshed assembly "
+                                 f"differs from phase 4's")
+        say(f"  phase {label}'s meshed assembly equals phase 4's: contigs "
+            f"and stats")
+    del mesh_contigs, mesh_stats, m_contigs, m_stats
     got = {k: e2e["detail"][k] for k in ("n50", "n_contigs")}
     if got != {k: stats[k] for k in got}:
         raise AssertionError(f"bench_e2e_gpu.py: {got} differs from phase "
@@ -1640,15 +1738,19 @@ def main() -> int:
         say(f"  n_contained={n_contained} ragged_launches="
             f"{json.dumps(ragged_launches)}")
         incore[label] = (contigs, stats)
-        m_contigs, m_stats, m_contained = meshed.pop(mesh_label)
-        if m_stats != stats or m_contained != n_contained or len(
-                m_contigs) != len(contigs) or any(
-                not np.array_equal(a, b) for a, b in zip(m_contigs, contigs)):
-            raise AssertionError(f"phase {mesh_label}: the meshed assembly "
-                                 f"differs from phase {label}'s")
-        say(f"  phase {mesh_label}'s meshed assembly equals phase {label}'s:"
-            f" contigs, stats and n_contained {m_contained}")
-        del contigs, stats, m_contigs, m_stats
+        # 13a and 14b (the streamed mesh) are 8a's twins, 13b is 8b's
+        for twin in (mesh_label, "14b")[:2 if part == "a" else 1]:
+            m_contigs, m_stats, m_contained = meshed.pop(twin)
+            if m_stats != stats or m_contained != n_contained or len(
+                    m_contigs) != len(contigs) or any(
+                    not np.array_equal(a, b)
+                    for a, b in zip(m_contigs, contigs)):
+                raise AssertionError(f"phase {twin}: the meshed assembly "
+                                     f"differs from phase {label}'s")
+            say(f"  phase {twin}'s meshed assembly equals phase {label}'s:"
+                f" contigs, stats and n_contained {m_contained}")
+            del m_contigs, m_stats
+        del contigs, stats
 
     # --- phase 9: ragged device reduction against the native one --------
     t0 = time.perf_counter()

@@ -66,9 +66,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         " (lossless ragged mode)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="shard stages over an N-shard mesh (assemble, in"
-                        " core, either correction rule, ragged reads too;"
-                        " shard d on device d % the device count, so N"
-                        " shards may share one card)")
+                        " core or with --max-device-reads, either"
+                        " correction rule, ragged reads too; shard d on"
+                        " device d % the device count, so N shards may"
+                        " share one card)")
     p.add_argument("--max-device-reads", type=int, default=None,
                    metavar="N",
                    help="stream count/correct/dedup/overlap in chunks of"

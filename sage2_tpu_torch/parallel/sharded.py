@@ -27,8 +27,9 @@ the count and the verdicts, their overlap join's containment marks OR-ed
 over the owners, their reduction's offsets from each shard's own vertex
 lengths.
 
-Not ported yet: the streamed stages (sharded_stream.py); the pipeline
-refuses them naming their ROADMAP item.
+The streamed stages (``sharded_stream``) run the same owners' steps a
+chunk at a time: ``_count_owned``, ``_correct_round``, ``_owner_join``
+and ``_merge_edges`` serve both.
 """
 
 from __future__ import annotations
@@ -40,16 +41,13 @@ import numpy as np
 import torch
 
 from sage2_tpu_torch import kernels
-from sage2_tpu_torch.kmer.count import KmerTable, count_from_keys
+from sage2_tpu_torch.kmer.count import KmerTable, count_from_keys, window_mask
 from sage2_tpu_torch.ops import bitpack
 from sage2_tpu_torch.ops.sort import I32_MAX
 from sage2_tpu_torch.overlap.detect import join_geometry
 from sage2_tpu_torch.parallel import comm
 from sage2_tpu_torch.parallel.mesh import Mesh
-
-MESH_STREAMED = ("streaming on a device mesh, sharded_stream.py (ROADMAP "
-                 "Queue 1 item 19)")
-
+from sage2_tpu_torch.stream import _close_padded, _edge_writers
 
 def _devices(mesh: Mesh) -> List[torch.device]:
     return [mesh.device_of(d) for d in range(mesh.size)]
@@ -198,6 +196,53 @@ def sharded_count_kmers(mesh: Mesh, reads, k: int, route_cap: int
         return _count_owned(mesh, keys, None, k, route_cap)
 
 
+def _kmer_valid(v: List[torch.Tensor], lens: Optional[List[torch.Tensor]],
+                L: int, k: int) -> List[torch.Tensor]:
+    """Each shard's flat (rows * P,) flags of the windows to count: its
+    read is valid and, for ragged reads, the window lies inside it."""
+    P = L - k + 1
+    out = []
+    for d, x in enumerate(v):
+        kv = x[:, None].expand(-1, P)
+        if lens is not None:
+            kv = kv & window_mask(lens[d], L, k)
+        out.append(kv.reshape(-1))
+    return out
+
+
+def _correct_round(mesh: Mesh, r: List[torch.Tensor],
+                   tables: List[KmerTable], k: int, threshold: int,
+                   query_cap: int, lens: Sequence[Optional[torch.Tensor]],
+                   rule: str) -> Tuple[List[torch.Tensor], bool]:
+    """One round of the rule on each shard's reads ``r`` against the
+    owners' count tables (sharded.py:252-283, sharded_stream.py:249-278).
+    Returns (the corrected reads per shard, overflow)."""
+    n = mesh.size
+    overflow = False
+    if rule == "vote_all_windows":
+        votes = [torch.zeros(x.shape + (4,), dtype=torch.uint8,
+                             device=x.device) for x in r]
+        for j in range(k):
+            counts, ovf = _sharded_lookup(
+                mesh, tables, lambda d: kernels.window_variants(r[d], k, j),
+                query_cap)
+            overflow |= ovf
+            for d in range(n):
+                kernels.vote_add(votes[d], counts[d], j, k, threshold,
+                                 lens[d])
+                counts[d] = None
+        return [kernels.vote_apply(r[d], votes[d]) for d in range(n)], overflow
+    for which in kernels.plain.WHICH:
+        counts, ovf = _sharded_lookup(
+            mesh, tables, lambda d: kernels.window_variants(r[d], k, which),
+            query_cap)
+        overflow |= ovf
+        r = [kernels.apply_verdicts(r[d], counts[d], k, which, threshold,
+                                    lens[d]) for d in range(n)]
+        del counts
+    return r, overflow
+
+
 def sharded_correct_reads(
     mesh: Mesh,
     reads,
@@ -238,14 +283,7 @@ def sharded_correct_reads(
     v = _split_rows(mesh, valid, torch.bool)
     lens = (None if lengths is None
             else _split_rows(mesh, lengths, torch.int32))
-    P = r[0].shape[1] - k + 1
-    kvalid = []
-    for d in range(n):
-        kv = v[d][:, None].expand(-1, P)
-        if lens is not None:        # the window lies inside its read
-            kv = kv & (torch.arange(P, device=kv.device)[None, :]
-                       < lens[d][:, None] - (k - 1))
-        kvalid.append(kv.reshape(-1))
+    kvalid = _kmer_valid(v, lens, r[0].shape[1], k)
     lens = lens or [None] * n
     overflow = False
     with comm.label("sharded_correct_reads"):
@@ -254,33 +292,9 @@ def sharded_correct_reads(
             tables, ovf = _count_owned(mesh, keys, kvalid, k, route_cap)
             del keys
             overflow |= ovf
-            if rule == "vote_all_windows":
-                votes = [torch.zeros(x.shape + (4,), dtype=torch.uint8,
-                                     device=x.device) for x in r]
-                for j in range(k):
-                    counts, ovf = _sharded_lookup(
-                        mesh, tables,
-                        lambda d: kernels.window_variants(r[d], k, j),
-                        query_cap)
-                    overflow |= ovf
-                    for d in range(n):
-                        kernels.vote_add(votes[d], counts[d], j, k,
-                                         threshold, lens[d])
-                        counts[d] = None
-                r = [kernels.vote_apply(r[d], votes[d])
-                     for d in range(n)]
-                del votes
-            else:
-                for which in kernels.plain.WHICH:
-                    counts, ovf = _sharded_lookup(
-                        mesh, tables,
-                        lambda d: kernels.window_variants(r[d], k, which),
-                        query_cap)
-                    overflow |= ovf
-                    r = [kernels.apply_verdicts(r[d], counts[d], k, which,
-                                                threshold, lens[d])
-                         for d in range(n)]
-                    del counts
+            r, ovf = _correct_round(mesh, r, tables, k, threshold,
+                                    query_cap, lens, rule)
+            overflow |= ovf
             del tables
     dev0 = mesh.device_of(0)
     return torch.cat([x.to(dev0) for x in r]), overflow
@@ -347,6 +361,26 @@ def gather_edge_shards(src_sh, dst_sh, ovl_sh, n_edges):
     return out_src, out_dst, out_ovl
 
 
+def gather_edge_shards_spill(store, src_sh, dst_sh, ovl_sh, n_edges):
+    """gather_edge_shards into the spill store's ``edges_src``/``_dst``/
+    ``_ovl`` memmaps, one shard at a time, so host memory stays
+    O(shard) (sharded.py:996): each shard's live edges appended in shard
+    order (src-range order), their total asserted equal to ``n_edges``,
+    padded to the streamed edge lists' 2^14 grain with (INT32_MAX,
+    INT32_MAX, 0). Returns the three memmaps."""
+    writers = _edge_writers(store, ("edges_src", "edges_dst", "edges_ovl"))
+    total = 0
+    for d in range(len(src_sh)):
+        src = _host(src_sh[d]).reshape(-1)
+        keep = src != I32_MAX
+        writers[0].append(src[keep])
+        writers[1].append(_host(dst_sh[d]).reshape(-1)[keep])
+        writers[2].append(_host(ovl_sh[d]).reshape(-1)[keep])
+        total += int(keep.sum())
+    assert total == int(n_edges), (total, int(n_edges))
+    return _close_padded(writers, total)
+
+
 def gather_cyclic_shards(shards, n_vertices: int) -> np.ndarray:
     """Host reassembly of cyclic vertex slices (a list of (v_d,) tensors,
     or an (ndev, v_d) array) into the global (V,) array: global[v] =
@@ -402,81 +436,130 @@ def sharded_find_overlaps(
     if edge_cap is None:
         edge_cap = join_cap
     geo = join_geometry(L, min_overlap, s)
-    R, g, W2 = geo.R, geo.g, geo.Wt + 2
-    if M * R >= (1 << 31) - 1:
-        raise ValueError(f"global seed rows {M * R} overflow 31-bit ids")
-    overflow = False
+    if M * geo.R >= (1 << 31) - 1:
+        raise ValueError(f"global seed rows {M * geo.R} overflow 31-bit ids")
     with comm.label("sharded_find_overlaps"):
         # --- each shard's live seed rows, global ids, to the seed owners
-        routes = []
-        for d in range(n):
-            s_keys, s_rows, payload = kernels.seed_rows(
-                r2[d], v2[d], None if lens2 is None else lens2[d], s, g,
-                geo.n_pos, geo.trim, d * m_local)
-            local = s_rows.to(torch.int64) - d * m_local * R
-            rows = torch.cat([_key_rows(s_keys), s_rows[:, None],
-                              payload.reshape(-1, W2)[local]], dim=1)
-            del payload, local
-            routes.append(_one_way(kernels.route_rows(
-                rows, n, row_cap, None, s_keys, True)))
-            del rows, s_keys, s_rows
-        recv = _exchange(mesh, routes)
-        overflow |= any(rt.overflow for rt in routes)
-        del routes
+        recv, overflow = _routed_seed_rows(
+            mesh, r2, v2, lens2 or [None] * n, 0, m_local, "all", s, geo,
+            row_cap)
         # --- each owner's join, and its edges to their source's owner
         routes, marks = [], []
         for d in range(n):
-            rows, recv[d] = recv[d], None
-            keys = _row_keys(rows[:, :2])
-            ids = rows[:, 2].contiguous()
-            payload = rows[:, 3:].contiguous()
-            del rows
-            # entries before queries (stably), then a stable key sort:
-            # the reference's (key, tag | id) order within a key
-            first = torch.sort(((ids % R) >= g).to(torch.uint8),
-                               stable=True).indices
-            s_keys, order = torch.sort(keys[first], stable=True)
-            perm = first[order]
-            del keys, first, order
             cont = None if lens2 is None else torch.zeros(
-                M, dtype=torch.uint8, device=s_keys.device)
-            ok, a, b, ovl, total = kernels.overlap_join(
-                s_keys, ids[perm], payload, R, g, geo.trim, min_overlap,
-                cont, join_cap, None, 0, 0, perm)
+                M, dtype=torch.uint8, device=mesh.device_of(d))
+            parts = [recv[d]]
+            recv[d] = None
+            route, total = _owner_join(parts, geo, M, L, min_overlap,
+                                       join_cap, cont, n, m_local, edge_cap)
             marks.append(cont)
-            del s_keys, perm, payload, ids
             overflow |= total > join_cap
-            e_src, e_dst, e_ovl, n_e = kernels.longest_edges(
-                ok, a, b, ovl, M, L, ok.shape[0])
-            del ok, a, b, ovl
-            erows = torch.stack([e_src[:n_e], e_dst[:n_e], e_ovl[:n_e]], 1)
-            owner = torch.div(erows[:, 0], m_local,
-                              rounding_mode="floor").clamp(0, n - 1)
-            routes.append(_one_way(kernels.route_rows(
-                erows, n, edge_cap, owner.to(torch.int32))))
+            routes.append(route)
         recv = _exchange(mesh, routes)
         overflow |= any(rt.overflow for rt in routes)
         del routes
         # --- each source owner's merge and dedup
-        out_src, out_dst, out_ovl = [], [], []
-        n_edges = []
-        for d in range(n):
-            er, recv[d] = recv[d], None
-            ones = torch.ones(er.shape[0], dtype=torch.bool,
-                              device=er.device)
-            f_src, f_dst, f_ovl, n_local = kernels.longest_edges(
-                ones, er[:, 0].contiguous(), er[:, 1].contiguous(),
-                er[:, 2].contiguous(), M, L, max(edge_cap, er.shape[0]))
-            overflow |= n_local > edge_cap
-            n_edges.append(n_local)
-            out_src.append(f_src[:edge_cap])
-            out_dst.append(f_dst[:edge_cap])
-            out_ovl.append(f_ovl[:edge_cap])
+        out_src, out_dst, out_ovl, n_edges, ovf = _merge_edges(
+            recv, M, L, edge_cap, edge_cap)
+        overflow |= ovf
         n_edges = comm.psum(n_edges)
         if lens2 is None:
             return out_src, out_dst, out_ovl, n_edges, overflow
         contained = comm.psum([c.to(torch.int32) for c in marks]) > 0
     return out_src, out_dst, out_ovl, n_edges, overflow, contained
+
+
+def _routed_seed_rows(mesh: Mesh, r, v, lens, base: int, rows_local: int,
+                      kind: str, s: int, geo, cap: int):
+    """Each shard's live seed rows of one ``kind`` (K13's "all",
+    "entries" or "queries", with global ids from ``base + d rows_local``;
+    sharded.py:899-916, sharded_stream.py:380-397, :444-461) as [key (2
+    words), id, payload] rows, routed to the owners of their seed hashes
+    (K19, ``cap`` per destination). Returns (the rows each owner
+    received, by source and rank; overflow)."""
+    n = mesh.size
+    R, g, W2 = geo.R, geo.g, geo.Wt + 2
+    # a read's rows of this kind, and the first one's offset t
+    per, t0 = {"all": (R, 0), "entries": (g, 0),
+               "queries": (geo.n_pos, g)}[kind]
+    routes = []
+    for d in range(n):
+        id_base = base + d * rows_local
+        s_keys, s_rows, payload = kernels.seed_rows(
+            r[d], v[d], lens[d], s, g, geo.n_pos, geo.trim, id_base, kind)
+        ids = s_rows.to(torch.int64)
+        local = (torch.div(ids, R, rounding_mode="floor") - id_base) * per \
+            + torch.remainder(ids, R) - t0
+        rows = torch.cat([_key_rows(s_keys), s_rows[:, None],
+                          payload.reshape(-1, W2)[local]], dim=1)
+        del payload, local, ids
+        routes.append(_one_way(kernels.route_rows(rows, n, cap, None, s_keys,
+                                                  True)))
+        del rows, s_keys, s_rows
+    recv = _exchange(mesh, routes)
+    return recv, any(rt.overflow for rt in routes)
+
+
+def _owner_join(parts: List[torch.Tensor], geo, M: int, L: int,
+                min_overlap: int, join_cap: int,
+                cont: Optional[torch.Tensor], n: int, v_d: int,
+                edge_cap: int) -> Tuple[kernels.Route, int]:
+    """One seed owner's join over the rows it holds (sharded.py:925-956,
+    sharded_stream.py:462-491): ``parts``, int32 rows [key (2 words),
+    global row id, payload], concatenated in the order given; the list is
+    emptied, so that the rows are freed once split. The rows go in the
+    reference's (key, tag | id) order: entries before queries (stably),
+    then a stable key sort, which is that order while each class arrives
+    in id order. K3 joins them through the sort's payload permutation
+    (``cont``: (M,) uint8 containment marks of ragged reads, set in
+    place), K14 keeps the longest overlap per pair, and K19 routes each
+    edge to the owner of its source's range of ``v_d`` reads. Returns
+    (the edges' one-way route, the join's candidate total)."""
+    R, g = geo.R, geo.g
+    rows = torch.cat(parts) if len(parts) > 1 else parts[0]
+    parts.clear()
+    keys = _row_keys(rows[:, :2])
+    ids = rows[:, 2].contiguous()
+    payload = rows[:, 3:].contiguous()
+    del rows
+    first = torch.sort(((ids % R) >= g).to(torch.uint8), stable=True).indices
+    s_keys, order = torch.sort(keys[first], stable=True)
+    perm = first[order]
+    del keys, first, order
+    ok, a, b, ovl, total = kernels.overlap_join(
+        s_keys, ids[perm], payload, R, g, geo.trim, min_overlap, cont,
+        join_cap, None, 0, 0, perm)
+    del s_keys, perm, payload, ids
+    e_src, e_dst, e_ovl, n_e = kernels.longest_edges(ok, a, b, ovl, M, L,
+                                                     ok.shape[0])
+    del ok, a, b, ovl
+    erows = torch.stack([e_src[:n_e], e_dst[:n_e], e_ovl[:n_e]], 1)
+    owner = torch.div(erows[:, 0], v_d, rounding_mode="floor").clamp(0, n - 1)
+    return _one_way(kernels.route_rows(erows, n, edge_cap,
+                                       owner.to(torch.int32))), total
+
+
+def _merge_edges(recv: List[torch.Tensor], M: int, L: int, edge_cap: int,
+                 out_len: int):
+    """Each source owner's merge of the (rows, 3) edges it received: the
+    longest overlap per pair (K14), sorted, cut to ``out_len`` rows with
+    INT32_MAX padding (sharded.py:972-979, sharded_stream.py:521-533).
+    Returns (src, dst, ovl per shard, n_edges per shard, overflow: some
+    shard kept more than ``edge_cap``)."""
+    out = ([], [], [])
+    n_edges, overflow = [], False
+    for d in range(len(recv)):
+        er, recv[d] = recv[d], None
+        ones = torch.ones(er.shape[0], dtype=torch.bool, device=er.device)
+        *edges, n_local = kernels.longest_edges(
+            ones, er[:, 0].contiguous(), er[:, 1].contiguous(),
+            er[:, 2].contiguous(), M, L, max(out_len, er.shape[0]))
+        del er, ones
+        overflow |= n_local > edge_cap
+        n_edges.append(n_local)
+        for o, x in zip(out, edges):
+            o.append(x[:out_len])
+    return (*out, n_edges, overflow)
 
 
 # --------------------------------------------------------------------------

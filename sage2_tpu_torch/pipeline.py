@@ -20,12 +20,15 @@ the big host arrays (corrected reads, the read store, the edge lists)
 become memmaps of a spill store there (``utils.spill``), and the native
 reduction marks and compacts through it.
 
-A device mesh (``config.mesh_shape``, in core; fixed-length or ragged
-reads, either correction rule): count, correct, overlap, reduction and
-unitig labeling run sharded over ``n`` shard slots (``parallel``; shard
-d on device d % the device count, so four shards may share one card),
-the dedup, the containment removal of ragged reads and the host finish
-as on one device; the result equals the single-device run's.
+A device mesh (``config.mesh_shape``; fixed-length or ragged reads,
+either correction rule): count, correct, overlap, reduction and unitig
+labeling run sharded over ``n`` shard slots (``parallel``; shard d on
+device d % the device count, so four shards may share one card), the
+dedup, the containment removal of ragged reads and the host finish as on
+one device; the result equals the single-device run's. With streaming
+too, count, correct and overlap stream their chunks through the mesh
+(``parallel.sharded_stream``) and the overlap's edge slices chain into
+the sharded reduction, as in core.
 
 Stage artifacts are the reference's: corrected.npz, edges.npz,
 reduced.npz, labels.npz, contigs.fasta, stats.json and manifest.json
@@ -155,11 +158,6 @@ def load_reference_artifacts(outdir: str,
 def _unsupported(config: AssemblyConfig, n_reads: int, mate_of,
                  lengths) -> Optional[str]:
     """The ROADMAP item a request needs, or None on the ported path."""
-    if config.mesh_shape is not None:
-        from sage2_tpu_torch.parallel import sharded
-
-        if _stream_chunk(config, n_reads) is not None:
-            return sharded.MESH_STREAMED
     if mate_of is not None:
         return "paired reads and scaffolding (ROADMAP Queue 1 item 14)"
     return None
@@ -183,13 +181,13 @@ def assemble(
     ``config.max_device_reads`` below the read count streams the device
     stages (fixed-length and ragged reads), ``config.entry_block_reads``
     and ``config.spill_dir`` with them; a spilled run resumes only with
-    its spill dir. ``config.mesh_shape`` shards the in-core stages
-    (either rule, fixed-length or ragged reads) over a mesh of
+    its spill dir. ``config.mesh_shape`` shards the stages (either rule,
+    fixed-length or ragged reads, in core or streamed; a streamed mesh
+    ignores ``entry_block_reads``, as the reference does) over a mesh of
     prod(mesh_shape) shards on ``device`` ("cuda": the visible cards,
     shard d on card d % their count, at most 8 shards; "cpu": all on the
     CPU). ``mate_of`` exists for the reference's signature; paired
-    inputs raise NotImplementedError, as does any configuration off the
-    ported path.
+    inputs raise NotImplementedError.
     """
     dev = resolve_device(device)
     missing = _unsupported(config, reads.shape[0], mate_of, lengths)
@@ -318,6 +316,178 @@ def _mesh_correct(mesh, reads, config, log, dev, lengths):
     if ovf:
         raise RuntimeError("sharded correction routing overflow")
     return corrected[:N].to(dev, torch.int8)
+
+
+def _stream_overlap(reads2, valid2, lengths2, n_uniq, config, log,
+                    stream_chunk, store, dev):
+    """The streamed overlap stage on one device (sage2_tpu/pipeline.py:
+    446-560): the streamed join (K9/K10, or for ragged reads K13 and K3),
+    its capacity doubled until no chunk overflows; the containment
+    removal of ragged reads; the edge list padded to the 2^14 grain (the
+    store's ``edges_*`` memmaps with a spill store). Returns (n_edges,
+    the edge list, valid2)."""
+    # ~19 edges a vertex at 50x coverage: up to ~32 candidates a read of
+    # a chunk; starting at 64x avoids doubling retries (each a full
+    # streamed pass) on dense graphs
+    cap_chunk = max(1 << 16, 64 * stream_chunk)
+    while True:
+        with log.timed("overlap", streamed=True, chunk_reads=stream_chunk):
+            common = dict(chunk_reads=2 * stream_chunk,
+                          seed_len=config.effective_seed_len,
+                          capacity_per_chunk=cap_chunk, store=store,
+                          entry_block_reads=config.entry_block_reads,
+                          device=dev)
+            if lengths2 is not None:
+                e_src, e_dst, e_ovl, n_edges, cont, overflow = (
+                    find_overlaps_chunked_ragged(
+                        reads2, valid2, lengths2, config.min_overlap,
+                        **common))
+            else:
+                e_src, e_dst, e_ovl, n_edges, overflow = (
+                    find_overlaps_chunked(reads2, valid2, config.min_overlap,
+                                          **common))
+        if not overflow:
+            break
+        cap_chunk *= 2
+        log.log("overlap_retry", capacity_per_chunk=cap_chunk)
+    cont_mask = None
+    if lengths2 is not None:
+        # SAGE containment removal (sage2_tpu/pipeline.py:474-483): a read
+        # contained in either orientation leaves the graph with its edges
+        cont = cont | np.roll(cont, cont.shape[0] // 2)
+        n_cont = int(cont.sum())
+        log.log("containment", n_contained=n_cont)
+        if n_cont:
+            cont_mask = cont
+            valid2 = valid2 & ~cont
+    if store is not None and lengths2 is None:
+        # find_overlaps_chunked wrote the padded edges_* memmaps
+        edges = (e_src, e_dst, e_ovl)
+    elif store is not None:
+        *edges, n_edges = compact_pad_edges_spill(
+            store, e_src, e_dst, e_ovl, n_edges, cont=cont_mask)
+        edges = tuple(edges)
+    else:
+        if cont_mask is not None:
+            keep = ~(cont_mask[e_src[:n_edges]] | cont_mask[e_dst[:n_edges]])
+            e_src, e_dst, e_ovl = (a[:n_edges][keep]
+                                   for a in (e_src, e_dst, e_ovl))
+            n_edges = int(keep.sum())
+        # pad to the reference's grain of the sorted edge list
+        pad_to = max(1, -(-n_edges // (1 << 14)) * (1 << 14))
+        edges = tuple(
+            np.concatenate([a[:n_edges], np.full(
+                pad_to - n_edges, I32_MAX if j < 2 else 0, np.int32)])
+            for j, a in enumerate((e_src, e_dst, e_ovl)))
+    log.log("overlap_result", n_edges=n_edges, n_candidates=n_edges,
+            n_unique_reads=n_uniq)
+    return n_edges, edges, valid2
+
+
+def _mesh_correct_streamed(mesh, reads, config, log, stream_chunk, store,
+                           lengths):
+    """The streamed meshed count + correct stage (sage2_tpu/pipeline.py:
+    219-250): (N, L) int8 corrected reads on the host (the store's
+    ``corrected`` memmap with a spill store); the route and table
+    capacities doubled until nothing overflows."""
+    from sage2_tpu_torch.parallel import sharded_correct_reads_chunked
+
+    N, L = reads.shape
+    nd = mesh.size
+    rows = min(stream_chunk, N)
+    rows += (-rows) % nd
+    cap = max(4096, 4 * rows * (L - config.k + 1) // nd)
+    # unique k-mers an owner: a quarter of all windows to start with
+    tcap = max(1 << 15, N * (L - config.k + 1) // (4 * nd))
+    while True:
+        with log.timed("correct", rounds=config.correction_rounds,
+                       sharded=True, streamed=True, chunk_reads=stream_chunk):
+            corrected, ovf = sharded_correct_reads_chunked(
+                mesh, reads, config.k, config.solid_threshold,
+                config.correction_rounds, stream_chunk, cap, cap, tcap,
+                lengths=lengths, rule=config.correction_rule,
+                out=(store.empty("corrected", np.int8, reads.shape)
+                     if store is not None else None))
+            _sync_mesh(mesh)
+        if not ovf:
+            return corrected
+        cap *= 2
+        tcap *= 2
+        log.log("correct_retry", route_cap=cap, table_cap=tcap)
+
+
+def _mesh_overlap_streamed(mesh, reads2, valid2, lengths2, n_uniq, config,
+                           log, stream_chunk, store, outdir):
+    """The streamed meshed overlap stage (sage2_tpu/pipeline.py:325-426)
+    on the streamed dedup's host arrays: the reference's capacities, all
+    doubled until nothing overflows; the edge slices gathered to the host
+    (into the spill store's ``edges_*`` memmaps for fixed-length reads
+    with a store and an outdir) when there is an outdir or lengths; the
+    containment removal of ragged reads. Returns (the edge slices, or
+    None once containment changed the edges; n_edges; the host edge list
+    or None; valid2)."""
+    from sage2_tpu_torch.overlap.detect import join_geometry
+    from sage2_tpu_torch.parallel import (
+        gather_edge_shards,
+        gather_edge_shards_spill,
+        sharded_find_overlaps_chunked,
+    )
+
+    nd = mesh.size
+    M2, L = reads2.shape
+    geo = join_geometry(L, config.min_overlap, config.effective_seed_len)
+    rows = min(2 * stream_chunk, M2)
+    rows += (-rows) % nd
+    row_cap = max(4096, 2 * (rows // nd) * geo.g // nd)
+    q_cap = max(4096, 2 * (rows // nd) * geo.n_pos // nd)
+    join_cap = max(1 << 16, 32 * rows // nd)
+    # a chunk's edges land on the one or two owners of its source range
+    edge_chunk_cap = max(4096, 32 * rows // nd)
+    edge_cap = max(1 << 16, 32 * (M2 + (-M2) % nd) // nd)
+    while True:
+        with log.timed("overlap", sharded=True, streamed=True,
+                       chunk_reads=stream_chunk):
+            out = sharded_find_overlaps_chunked(
+                mesh, reads2, valid2, config.min_overlap,
+                config.effective_seed_len, 2 * stream_chunk, row_cap, q_cap,
+                join_cap, edge_chunk_cap, edge_cap, lengths=lengths2)
+            src_sh, dst_sh, ovl_sh, n_edges, ovf = out[:5]
+            _sync_mesh(mesh)
+        if not ovf:
+            break
+        row_cap *= 2
+        q_cap *= 2
+        join_cap *= 2
+        edge_chunk_cap *= 2
+        edge_cap *= 2
+        log.log("overlap_retry", row_cap=row_cap, q_cap=q_cap,
+                join_cap=join_cap, edge_chunk_cap=edge_chunk_cap,
+                edge_cap=edge_cap)
+    log.log("overlap_result", n_edges=n_edges, n_candidates=n_edges,
+            n_unique_reads=n_uniq)
+    log.log("overlap_device_memory", chunk_rows_per_device=rows // nd,
+            entry_rows_per_device="accumulated/ndev", row_cap=row_cap,
+            q_cap=q_cap, join_cap=join_cap, edge_chunk_cap=edge_chunk_cap,
+            edge_cap=edge_cap, global_reads=M2)
+    edges_dev = (src_sh, dst_sh, ovl_sh)
+    if store is not None and lengths2 is None and outdir:
+        edges = gather_edge_shards_spill(store, src_sh, dst_sh, ovl_sh,
+                                         n_edges)
+    elif outdir or lengths2 is not None:
+        edges = gather_edge_shards(src_sh, dst_sh, ovl_sh, n_edges)
+    else:
+        edges = None
+    if lengths2 is not None:
+        # SAGE containment removal (sage2_tpu/pipeline.py:401-426); the
+        # edge set changes on the host, so the reduction partitions it anew
+        cont = out[5]
+        cont = cont | np.roll(cont, M2 // 2)
+        log.log("containment", n_contained=int(cont.sum()))
+        if cont.any():
+            edges, n_edges = _drop_vertices(edges, cont)
+            edges_dev = None
+            valid2 = valid2 & ~cont
+    return edges_dev, n_edges, edges, valid2
 
 
 def _mesh_overlap(mesh, rs, config, log, outdir):
@@ -476,7 +646,10 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
 
     # --- stage 1+2: count + correct ------------------------------------
     if start <= STAGES.index("correct"):
-        if stream_chunk is not None:
+        if stream_chunk is not None and mesh is not None:
+            corrected_np = _mesh_correct_streamed(
+                mesh, reads, config, log, stream_chunk, store, lengths)
+        elif stream_chunk is not None:
             with log.timed("correct", rounds=config.correction_rounds,
                            streamed=True, chunk_reads=stream_chunk):
                 corrected_np = correct_reads_chunked(
@@ -526,72 +699,21 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                                       store=store, device=dev,
                                       lengths=lengths, split=split))
         log.log("dedup_split", **split.ms())
-        # ~19 edges a vertex at 50x coverage: up to ~32 candidates a read
-        # of a chunk; starting at 64x avoids doubling retries (each a
-        # full streamed pass) on dense graphs
-        cap_chunk = max(1 << 16, 64 * stream_chunk)
-        while True:
-            with log.timed("overlap", streamed=True,
-                           chunk_reads=stream_chunk):
-                common = dict(chunk_reads=2 * stream_chunk,
-                              seed_len=config.effective_seed_len,
-                              capacity_per_chunk=cap_chunk, store=store,
-                              entry_block_reads=config.entry_block_reads,
-                              device=dev)
-                if lengths2_np is not None:
-                    e_src, e_dst, e_ovl, n_edges, cont, overflow = (
-                        find_overlaps_chunked_ragged(
-                            reads2_np, valid2_np, lengths2_np,
-                            config.min_overlap, **common))
-                else:
-                    e_src, e_dst, e_ovl, n_edges, overflow = (
-                        find_overlaps_chunked(
-                            reads2_np, valid2_np, config.min_overlap,
-                            **common))
-            if not overflow:
-                break
-            cap_chunk *= 2
-            log.log("overlap_retry", capacity_per_chunk=cap_chunk)
-        cont_mask = None
-        if lengths2_np is not None:
-            # SAGE containment removal (sage2_tpu/pipeline.py:474-483): a
-            # read contained in either orientation leaves the graph with
-            # its edges
-            cont = cont | np.roll(cont, cont.shape[0] // 2)
-            n_cont = int(cont.sum())
-            log.log("containment", n_contained=n_cont)
-            if n_cont:
-                cont_mask = cont
-                valid2_np = valid2_np & ~cont
-        if spilled and lengths2_np is None:
-            # find_overlaps_chunked wrote the padded edges_* memmaps
-            edges = (e_src, e_dst, e_ovl)
-        elif spilled:
-            *edges, n_edges = compact_pad_edges_spill(
-                store, e_src, e_dst, e_ovl, n_edges, cont=cont_mask)
-            edges = tuple(edges)
+        if mesh is not None:
+            edges_dev, n_edges, edges, valid2_np = _mesh_overlap_streamed(
+                mesh, reads2_np, valid2_np, lengths2_np, n_uniq, config, log,
+                stream_chunk, store, outdir)
         else:
-            if cont_mask is not None:
-                keep = ~(cont_mask[e_src[:n_edges]]
-                         | cont_mask[e_dst[:n_edges]])
-                e_src, e_dst, e_ovl = (a[:n_edges][keep]
-                                       for a in (e_src, e_dst, e_ovl))
-                n_edges = int(keep.sum())
-            # pad to the reference's grain of the sorted edge list
-            pad_to = max(1, -(-n_edges // (1 << 14)) * (1 << 14))
-            edges = tuple(
-                np.concatenate([a[:n_edges], np.full(
-                    pad_to - n_edges, I32_MAX if j < 2 else 0, np.int32)])
-                for j, a in enumerate((e_src, e_dst, e_ovl)))
-        log.log("overlap_result", n_edges=n_edges, n_candidates=n_edges,
-                n_unique_reads=n_uniq)
+            n_edges, edges, valid2_np = _stream_overlap(
+                reads2_np, valid2_np, lengths2_np, n_uniq, config, log,
+                stream_chunk, store, dev)
         extra = {} if lengths2_np is None else {"lengths2": lengths2_np}
-        if spilled:
+        if spilled and store.exists("edges_src"):
             # the big arrays live in the spill store; the npz carries
             # only the small per-vertex ones
             _save(outdir, log, "edges", n_edges=n_edges, valid2=valid2_np,
                   multiplicity=mult_np, **extra)
-        else:
+        elif edges is not None:     # a meshed run gathers them for outdir
             _save(outdir, log, "edges", src=edges[0], dst=edges[1],
                   ovl=edges[2], n_edges=n_edges, reads2=reads2_np,
                   valid2=valid2_np, multiplicity=mult_np, **extra)

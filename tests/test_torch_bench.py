@@ -16,6 +16,7 @@ sys.path.insert(0, ROOT)
 import bench_e2e_gpu  # noqa: E402
 import bench_gpu  # noqa: E402
 from sage2_tpu_torch.io import native  # noqa: E402
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _printed_keys(script: str) -> dict:

@@ -10,6 +10,7 @@ from sage2_tpu.ops import bitpack as jbp
 from sage2_tpu.overlap.detect import seed_keys_at_positions
 from sage2_tpu_torch.ops import bitpack as tbp
 from sage2_tpu_torch.overlap.detect import seed_keys
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _reads(rng, n=300, L=70):

@@ -11,6 +11,7 @@ import numpy as np
 from sage2_tpu import AssemblyConfig as RefConfig
 from sage2_tpu.pipeline import assemble as ref_assemble
 from sage2_tpu_torch.io import load_reads
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

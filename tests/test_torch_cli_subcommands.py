@@ -6,6 +6,7 @@ import pytest
 
 from sage2_tpu.cli import main as ref_main
 from sage2_tpu_torch.cli import main as port_main
+from torch_one_thread import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ from sage2_tpu.kmer.correct import correct_reads_twophase as jcorrect
 from sage2_tpu.kmer.count import count_kmers as jcount
 from sage2_tpu_torch.kmer.correct import correct_reads_twophase as tcorrect
 from sage2_tpu_torch.kmer.count import count_kmers as tcount
+from torch_one_thread import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k,err,seed", [(25, 0.01, 11), (21, 0.02, 12)])

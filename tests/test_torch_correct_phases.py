@@ -20,6 +20,7 @@ from sage2_tpu_torch.data import simulate_genome, simulate_ragged_reads
 from sage2_tpu_torch.kmer import correct as tcorrect
 from sage2_tpu_torch.kmer.count import KmerTable
 from torch_kernel_cases import VOTE_CASES, count_table, vote_case
+from torch_one_thread import one_thread  # noqa: F401
 
 CASES = VOTE_CASES + ("sim_ragged",)
 

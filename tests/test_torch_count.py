@@ -18,6 +18,7 @@ from torch_kernel_cases import (
     lookup_case,
     oracle_lookup,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _reads(seed, err=0.01):

@@ -26,6 +26,7 @@ from torch_kernel_cases import (
     reduce_case,
     seed_case,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 I32_MAX = 2**31 - 1
 

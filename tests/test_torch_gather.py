@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from sage2_tpu_torch import kernels
+from torch_one_thread import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("N,W,axis", [(8, 128, 0), (1024, 128, 0),

@@ -10,6 +10,7 @@ import sys
 
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -60,6 +60,7 @@ from torch_kernel_cases import (
     slot_splits,
     vote_case,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -1598,6 +1599,36 @@ def test_meshed_ragged_voting_assembly_on_several_cards(cards):
     contigs, stats = assemble(reads, cfg, device="cuda:0", lengths=lens)
     m_contigs, m_stats = assemble(reads, replace(cfg, mesh_shape=(4,)),
                                   device="cuda", lengths=lens)
+    assert m_stats == stats and len(m_contigs) == len(contigs) >= 1
+    for a, b in zip(m_contigs, contigs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_streamed_mesh_assembly_on_one_card(cuda, ragged, tmp_path):
+    """assemble(mesh_shape=(4,), max_device_reads=1000) with a spill dir
+    and an outdir on one card (the streamed mesh: the chunked count and
+    correction, the owners' accumulated entry rows and query-chunk joins;
+    the voting rule for ragged reads): the single-device in-core run's
+    contigs and stats."""
+    from dataclasses import replace
+
+    from sage2_tpu_torch import AssemblyConfig
+    from sage2_tpu_torch.pipeline import assemble
+
+    if ragged:
+        r, lens = _ragged(n_genome=20_000)
+        reads, lens = r.numpy(), lens.numpy()
+        cfg = AssemblyConfig(min_contig_len=500,
+                             correction_rule="vote_all_windows")
+    else:
+        reads, lens = _reads(n_genome=20_000).numpy()[:4001], None
+        cfg = AssemblyConfig(min_contig_len=500)
+    contigs, stats = assemble(reads, cfg, device="cuda", lengths=lens)
+    m_contigs, m_stats = assemble(
+        reads, replace(cfg, mesh_shape=(4,), max_device_reads=1000,
+                       spill_dir=str(tmp_path / "spill")),
+        outdir=str(tmp_path / "out"), device="cuda", lengths=lens)
     assert m_stats == stats and len(m_contigs) == len(contigs) >= 1
     for a, b in zip(m_contigs, contigs):
         np.testing.assert_array_equal(a, b)

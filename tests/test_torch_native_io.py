@@ -18,6 +18,7 @@ from sage2_tpu.overlap import find_overlaps_auto as jfind_auto
 from sage2_tpu_torch.io import fastq, native
 from sage2_tpu_torch.overlap import find_overlaps_auto
 from sage2_tpu_torch.utils import native_build
+from torch_one_thread import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C++ compiler")

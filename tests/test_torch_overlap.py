@@ -14,6 +14,7 @@ from sage2_tpu.refmodel.oracle import oracle_overlaps
 from sage2_tpu_torch.overlap import find_overlaps as tfind
 from sage2_tpu_torch.overlap import find_overlaps_auto as tfind_auto
 from sage2_tpu_torch.overlap import prepare_reads as tprepare
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _reads(seed, n_genome=3000, L=60, cov=15, err=0.0):

@@ -19,6 +19,7 @@ from sage2_tpu_torch.data import (
 )
 from sage2_tpu_torch.overlap import detect as tdetect
 from sage2_tpu_torch.overlap import prepare_reads as tprepare
+from torch_one_thread import one_thread  # noqa: F401
 
 N_READS = 3000
 

@@ -19,6 +19,7 @@ from sage2_tpu.pipeline import assemble as ref_assemble
 from sage2_tpu_torch import AssemblyConfig
 from sage2_tpu_torch.cli import main as port_main
 from sage2_tpu_torch.pipeline import assemble, load_reference_artifacts
+from torch_one_thread import one_thread  # noqa: F401
 
 CFG = dict(k=15, min_overlap=25, min_contig_len=150)
 

@@ -42,20 +42,10 @@ from sage2_tpu_torch.parallel import (
     sharded_transitive_reduction,
 )
 from sage2_tpu_torch.pipeline import assemble
+from torch_one_thread import one_thread  # noqa: F401
 
 SHARDS = [1, 2, 8]
 I32_MAX = 2**31 - 1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread while this module runs: the mesh's many small
-    CPU ops slow ~40x when the suite's workers oversubscribe the cores
-    with OpenMP threads (a 10 s test took 590 s beside five others)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _ragged(seed, n=128, lo=28, hi=40, err=0.01):

@@ -21,6 +21,7 @@ from sage2_tpu.parallel import make_mesh as ref_make_mesh
 from sage2_tpu.parallel import sharded as ref
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.parallel import comm, make_mesh, sharded
+from torch_one_thread import one_thread  # noqa: F401
 
 I32_MAX = 2**31 - 1
 Q = 64          # inputs a shard

@@ -32,6 +32,7 @@ from sage2_tpu_torch.parallel import (
     sharded_find_overlaps,
     sharded_transitive_reduction,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 SHARDS = [1, 2, 8]
 

@@ -29,19 +29,9 @@ from sage2_tpu_torch.data import simulate_ragged_reads
 from sage2_tpu_torch.kernels import plain
 from sage2_tpu_torch.parallel import make_mesh, sharded_correct_reads
 from sage2_tpu_torch.pipeline import assemble
+from torch_one_thread import one_thread  # noqa: F401
 
 K, THR, ROUNDS = 11, 3, 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread while this module runs: the mesh's many small
-    CPU ops slow ~40x when the suite's workers oversubscribe the cores
-    with OpenMP threads (a 10 s test took 590 s beside five others)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _reads(ragged: bool, seed=311):

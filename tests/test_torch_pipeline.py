@@ -13,6 +13,7 @@ from sage2_tpu.data import simulate_genome, simulate_reads
 from sage2_tpu.pipeline import assemble as ref_assemble
 from sage2_tpu_torch import AssemblyConfig
 from sage2_tpu_torch.pipeline import assemble, load_reference_artifacts
+from torch_one_thread import one_thread  # noqa: F401
 
 ARRAYS = ("corrected", "edges", "reduced", "labels")
 
@@ -74,18 +75,14 @@ def test_resume_continues_a_reference_run(runs, stage, tmp_path):
 
 
 def test_unported_paths_raise(runs):
-    """Off the ported path, assemble raises naming the ROADMAP item;
-    ragged reads (``lengths``), streaming, of fixed-length and of ragged
-    reads, and the in-core mesh, of fixed-length and of ragged reads
-    under either rule, are on it now and assemble."""
+    """Off the ported path, assemble raises naming the ROADMAP item: only
+    paired reads are off it now. Ragged reads (``lengths``), streaming,
+    the in-core mesh and the streamed mesh, of fixed-length and of ragged
+    reads, are on it and assemble."""
     reads = runs[0]
-    for cfg, kw in [
-            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5), {}),
-            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5),
-             {"lengths": np.full(10, reads.shape[1])}),
-            (AssemblyConfig(), {"mate_of": np.arange(10)})]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            assemble(reads[:10], cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assemble(reads[:10], AssemblyConfig(), device="cpu",
+                 mate_of=np.arange(10))
     n = 400
     full = np.full(n, reads.shape[1])
     _, stats = assemble(reads[:n], AssemblyConfig(), device="cpu",
@@ -99,3 +96,20 @@ def test_unported_paths_raise(runs):
                              device="cpu")[1]
     assert stats == assemble(reads[:n], AssemblyConfig(max_device_reads=100),
                              device="cpu", lengths=full)[1]
+    streamed_mesh = AssemblyConfig(mesh_shape=(2,), max_device_reads=100)
+    assert stats == assemble(reads[:n], streamed_mesh, device="cpu")[1]
+    assert stats == assemble(reads[:n], streamed_mesh, device="cpu",
+                             lengths=full)[1]
+
+
+def test_unitig_traversal_matches_reference(runs):
+    """``traversal="unitig"`` (no branch prunes, no re-annotation,
+    ``join_paths``) on the same reads: the reference's contigs and
+    stats."""
+    reads = runs[0]
+    ref = ref_assemble(reads, RefConfig(traversal="unitig"))
+    port = assemble(reads, AssemblyConfig(traversal="unitig"), device="cpu")
+    assert port[1] == ref[1]
+    assert len(port[0]) == len(ref[0]) >= 1
+    for a, b in zip(port[0], ref[0]):
+        np.testing.assert_array_equal(a, b)

@@ -24,6 +24,7 @@ from sage2_tpu_torch.data import simulate_genome, simulate_ragged_reads
 from sage2_tpu_torch.ops.bitpack import decode_to_ascii
 from sage2_tpu_torch.pipeline import assemble, load_reference_artifacts
 from sage2_tpu_torch.utils.stats import genome_fraction
+from torch_one_thread import one_thread  # noqa: F401
 
 BASE = dict(k=15, min_overlap=35, min_contig_len=120)
 CONFIGS = {

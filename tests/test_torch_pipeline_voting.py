@@ -19,6 +19,7 @@ from sage2_tpu_torch.pipeline import (
     assemble,
     load_reference_artifacts,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = dict(correction_rule="vote_all_windows", reduce_backend="device")
@@ -90,9 +91,10 @@ def _roadmap_items():
 def test_unsupported_names_current_roadmap_items():
     """Both correction rules, every reduce backend, ragged reads,
     streaming with entry blocks and a spill dir for fixed-length and
-    ragged reads, and the in-core device mesh for fixed-length and
-    ragged reads under either rule are ported; each remaining refusal
-    names the open ROADMAP item that ports it."""
+    ragged reads, and the device mesh, in core and streamed, for
+    fixed-length and ragged reads under either rule are ported; the one
+    remaining refusal, paired reads, names the open ROADMAP item that
+    ports it."""
     for rule in ("single_window", "vote_all_windows"):
         for backend in ("auto", "native", "device"):
             cfg = AssemblyConfig(correction_rule=rule,
@@ -112,29 +114,31 @@ def test_unsupported_names_current_roadmap_items():
                 AssemblyConfig(max_device_reads=5, entry_block_reads=3,
                                spill_dir="x")):
         assert _unsupported(cfg, 10, None, np.full(10, 100)) is None
-    # the in-core mesh, whatever the reduce backend and the rule, for
-    # fixed-length and ragged reads; a max_device_reads above the read
-    # count keeps the run in core
+    # the mesh, whatever the reduce backend and the rule, for fixed-length
+    # and ragged reads: in core (a max_device_reads above the read count
+    # keeps the run in core) and streamed, with a spill dir too
     for backend in ("auto", "native", "device"):
         for rule in ("single_window", "vote_all_windows"):
             for cfg in (AssemblyConfig(mesh_shape=(2,), reduce_backend=backend,
                                        correction_rule=rule),
                         AssemblyConfig(mesh_shape=(8,), max_device_reads=10,
                                        reduce_backend=backend,
+                                       correction_rule=rule),
+                        AssemblyConfig(mesh_shape=(2,), max_device_reads=5,
+                                       reduce_backend=backend,
+                                       correction_rule=rule),
+                        AssemblyConfig(mesh_shape=(2,), max_device_reads=5,
+                                       spill_dir="x", reduce_backend=backend,
                                        correction_rule=rule)):
                 assert _unsupported(cfg, 10, None, None) is None
                 assert _unsupported(cfg, 10, None, np.full(10, 100)) is None
     items = _roadmap_items()
     assert not any("Ragged" in title for title in items.values())
+    assert not any("streaming" in title for title in items.values())
     for cfg, mate_of, lengths, word in [
-            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5), None, None,
-             "streaming"),
-            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5), None,
-             np.full(10, 100), "streaming"),
-            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5,
-                            correction_rule="vote_all_windows"), None, None,
-             "streaming"),
-            (AssemblyConfig(), np.arange(10), None, "Paired")]:
+            (AssemblyConfig(), np.arange(10), None, "Paired"),
+            (AssemblyConfig(mesh_shape=(2,), max_device_reads=5),
+             np.arange(10), None, "Paired")]:
         msg = _unsupported(cfg, 10, mate_of, lengths)
         n = int(re.search(r"ROADMAP Queue 1 item (\d+)", msg).group(1))
         assert word in items[n], (msg, items[n])

@@ -29,6 +29,7 @@ from sage2_tpu_torch.kmer import count_kmers as tcount
 from sage2_tpu_torch.overlap import find_overlaps as tfind
 from sage2_tpu_torch.overlap import find_overlaps_auto as tfind_auto
 from sage2_tpu_torch.overlap import prepare_reads as tprepare
+from torch_one_thread import one_thread  # noqa: F401
 
 K, MIN_OVERLAP = 15, 35
 I32_MAX = 2**31 - 1

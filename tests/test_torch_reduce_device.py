@@ -18,6 +18,7 @@ from sage2_tpu.refmodel.oracle import oracle_transitive_reduction
 from sage2_tpu_torch import kernels
 from sage2_tpu_torch.graph import reduce as treduce
 from sage2_tpu_torch.ops.sort import sort_by_pair
+from torch_one_thread import one_thread  # noqa: F401
 
 _I32_MAX = 2**31 - 1
 

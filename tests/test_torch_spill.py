@@ -27,6 +27,7 @@ from sage2_tpu_torch.io import load_reads
 from sage2_tpu_torch.pipeline import assemble, load_reference_artifacts
 from sage2_tpu_torch.utils.metrics import MetricsLog
 from sage2_tpu_torch.utils.spill import SpillStore
+from torch_one_thread import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"

@@ -22,6 +22,7 @@ from sage2_tpu_torch.overlap import compact_stacked_result
 from sage2_tpu_torch.overlap import detect as tdetect
 from sage2_tpu_torch.overlap import find_overlaps, find_overlaps_stacked
 from torch_kernel_cases import REDUCE_CASES, reduce_case
+from torch_one_thread import one_thread  # noqa: F401
 
 I32_MAX = 2**31 - 1
 FIELDS = ("src", "dst", "ovl", "n_edges", "n_candidates", "n_verified",

@@ -37,6 +37,7 @@ from sage2_tpu_torch.kmer import count_kmers as tcount
 from sage2_tpu_torch.kmer.count import KmerTable
 from sage2_tpu_torch.ops import bitpack as tbitpack
 from sage2_tpu_torch.overlap import detect as tdetect
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

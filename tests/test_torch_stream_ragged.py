@@ -23,6 +23,7 @@ from sage2_tpu_torch import stream as tstream
 from sage2_tpu_torch.data import simulate_genome
 from sage2_tpu_torch.pipeline import assemble
 from sage2_tpu_torch.utils.spill import SpillStore
+from torch_one_thread import one_thread  # noqa: F401
 
 CPU = "cpu"
 

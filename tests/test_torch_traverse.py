@@ -20,6 +20,7 @@ from sage2_tpu_torch.graph.reduce import transitive_reduction_auto as treduce
 from sage2_tpu_torch.graph.traverse import contract_unitigs as tcontract
 from sage2_tpu_torch.kernels import plain
 from torch_kernel_cases import CHAIN_CASES, chain_case
+from torch_one_thread import one_thread  # noqa: F401
 
 I32_MAX = 2**31 - 1
 

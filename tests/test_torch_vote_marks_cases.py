@@ -26,6 +26,7 @@ from torch_kernel_cases import (
     vote_case,
     weak_covered,
 )
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _t(a):

@@ -17,6 +17,7 @@ from sage2_tpu.kmer.count import count_kmers as jcount
 from sage2_tpu.refmodel.oracle import oracle_correct, oracle_correct_voting
 from sage2_tpu_torch.kmer import correct_reads as tcorrect
 from sage2_tpu_torch.kmer import count_kmers as tcount
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _reads(seed, n_genome=4000, L=80, cov=20, err=0.015):
