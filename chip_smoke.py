@@ -55,14 +55,16 @@ Phases (one flushed line each, with its seconds):
      asserted equal to 8a's and 8b's after phase 8;
   14 streaming on the same four-shard mesh, right after phase 13 for the
      same reason, with phase 10a's flags (1,000,000-read chunks, a spill
-     dir and artifacts): 14a phase 4's reads and config (the streamed
-     sharded count with its running tables (K11 weighted), the chunked
-     routed correction, the owners' accumulated entry rows and each
-     query chunk's join (K13 entries/queries, K3 under the owners'
+     dir; artifacts for 14a only): 14a phase 4's reads and config (the
+     streamed sharded count with its running tables (K11 weighted), the
+     chunked routed correction, the owners' accumulated entry rows and
+     each query chunk's join (K13 entries/queries, K3 under the owners'
      permutation, K14), the edges gathered into the spill store
      (gather_edge_shards_spill), the sharded reduction and labeling),
      14b phase 8's ragged reads and 8a's config (K3's containment marks
-     OR-ed over chunks and owners, the meshed containment removal); each
+     OR-ed over chunks and owners, the meshed containment removal, the
+     edges gathered to the host as with an outdir; no artifacts: the
+     full edges.npz with reads2 took ~120 s of the script's time); each
      prints its stage seconds, peak device memory, collective bytes by
      stage, retries and capacities and its spill files, and asserts
      genome_fraction >= 0.99; contigs and stats asserted equal to phase
@@ -158,7 +160,12 @@ Phases (one flushed line each, with its seconds):
      barrier (the loop on 4 vertices, less one step, over steps - 1);
      its bound is steps times a step's bytes. A K11 row whose table is
      under half its input prints the time of the copy to exact size that
-     count_from_keys makes after the kernel.
+     count_from_keys makes after the kernel. A K19 row prints its mode
+     (one-way: no per-row answers; two-way) and the device time of its
+     histogram, host read and scatter; a K21 row whether it searched
+     from the shard's vertex row table, and its ranges, cumsum, host read
+     and expand; "reduce_requests:rows" is that table's launch (once a
+     shard and reduction pass, beside torch.searchsorted).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after it: phase 11 for K13, K3 and K14 in the stacked path's
@@ -327,6 +334,10 @@ KERNEL_INFO = {
                         "sage2_tpu/parallel/sharded.py:493", "12"),
     "reduce_requests:probe": (_CSRC + "reduce_requests.cu",
                               "sage2_tpu/parallel/sharded.py:518", "12"),
+    # K21's vertex row table of a shard, once a reduction pass (the
+    # reference searched the whole adjacency in phases 2 and 4 instead)
+    "reduce_requests:rows": (_CSRC + "reduce_requests.cu",
+                             "sage2_tpu/parallel/sharded.py:493", "12"),
     "window_variants": (_CSRC + "window_variants.cu",
                         "sage2_tpu/kmer/correct.py:36", "12"),
     "window_variants:verdicts": (_CSRC + "window_variants.cu",
@@ -358,6 +369,7 @@ WRAPPER = {"chain_links:cut": "chain_cut",
            "routed_gather:heads": "dedup_heads",
            "routed_gather:gather": "gather_rows",
            "reduce_requests:probe": "reduce_probe",
+           "reduce_requests:rows": "reduce_rows",
            "window_variants:verdicts": "apply_verdicts",
            "vote_windows:routed": "vote_add",
            "vote_windows:apply": "vote_apply",
@@ -407,7 +419,8 @@ _MESH_RAGGED = ["kmer_keys", "merge_runs", "lookup_counts",
                 "canonical_reads:ragged", *_RAGGED_DEDUP_JOIN,
                 "overlap_join:ragged_perm", "route_rows", "routed_gather",
                 "routed_gather:heads", "routed_gather:gather",
-                "reduce_requests", "reduce_requests:probe_ragged"]
+                "reduce_requests", "reduce_requests:rows",
+                "reduce_requests:probe_ragged"]
 # the streamed mesh's kernels under single_window: the chunked count and
 # correction, K13's entry and query rows, the owners' join, the edge merge,
 # the sharded reduction and labeling
@@ -415,7 +428,7 @@ _MESH_STREAMED = ["kmer_keys", "merge_runs", "merge_runs:weighted",
                   "lookup_counts", "route_rows", "routed_gather",
                   "routed_gather:heads", "routed_gather:gather",
                   "window_variants", "seed_rows:entries", "seed_rows:queries",
-                  "longest_edges", "reduce_requests"]
+                  "longest_edges", "reduce_requests", "reduce_requests:rows"]
 # the TPU programs of sharded_stream.py that the streamed mesh's rows
 # replace (their first rows name the single-device or in-core ones)
 _SS = "sage2_tpu/parallel/sharded_stream.py:"
@@ -458,7 +471,7 @@ PATHS = {
     "12": ["kmer_keys", "merge_runs", "lookup_counts", "canonical_reads",
            *_DEDUP_JOIN, "overlap_join", "route_rows", "routed_gather",
            "routed_gather:heads", "routed_gather:gather", "reduce_requests",
-           "reduce_requests:probe", "window_variants",
+           "reduce_requests:probe", "reduce_requests:rows", "window_variants",
            "window_variants:verdicts"],
     "13a": [*_MESH_RAGGED, "window_variants", "window_variants:ragged"],
     "13b": [*_MESH_RAGGED, "window_variants:position", *_ROUTED_VOTE],
@@ -847,13 +860,20 @@ def work(key: str, args: tuple, total=0):
         return (n * 12 + payload.numel() * 4 + capacity * 13,
                 n * 8 + total * (6 * (W - 2) + 22))
     if name == "route_rows":
-        rows, _, _, owner, _, _, valid = route_args(args)
+        rows, _, _, owner, keys, _, valid, answers = route_args(args)
         Q, K = rows.shape
-        src = (4 if owner is not None else 8) + (0 if valid is None else 1)
-        # the owner source (and flags) read by the count and the write
-        # pass, each row read once; dest, rank, sent_ok out, and each
-        # accepted row once; a hash and a rank an input
-        return Q * (2 * src + K * 4 + 9) + total * K * 4, Q * 24
+        src = 4 if owner is not None else 8
+        flag = 0 if valid is None else 1
+        # rows that are the keys themselves: the scatter hashes its rows
+        same = (keys is not None and K == 2 and Q > 0
+                and rows.data_ptr() == keys.data_ptr())
+        # the owner source and flags read by the histogram and the
+        # scatter, each row read once and each accepted row written once;
+        # the two-way mode writes dest, rank and sent_ok; a hash and a
+        # rank an input
+        return (Q * (src + flag) + Q * ((0 if same else src) + flag)
+                + Q * K * 4 + total * K * 4 + (Q * 9 if answers else 0),
+                Q * 24)
     if key == "routed_gather":
         back, dest, _, _, offsets, pos, valid = args
         Q0 = dest.numel()
@@ -876,26 +896,38 @@ def work(key: str, args: tuple, total=0):
         v_d = tables[0].numel()
         # the requests in, each table row at most once, the answers out
         return R * 4 + min(R, v_d) * K * 4 + R * K * 4, R * 4
+    if key == "reduce_requests:rows":
+        import torch
+
+        ss_key, vbase, v_d = args
+        # the keys up to the table's end in (the padding after them is not
+        # needed), the table out; a shift and two compares a key
+        end = torch.tensor([(vbase + v_d) << 32], device=ss_key.device)
+        E = int(torch.searchsorted(ss_key, end))
+        return E * 8 + (v_d + 1) * 8, E * 3
     if key == "reduce_requests":
-        ss_key, _, req, cand_cap = args
+        ss_key, _, req, cand_cap, row = args[:5]
         R, E = req.shape[0], ss_key.numel()
         C = min(total, cand_cap)
-        steps = max(1, math.ceil(math.log2(E + 1)))
-        # the requests in, the adjacency rows the candidates read (12
-        # bytes each, at most the adjacency), the candidates and flags
-        # out; two binary searches a request
-        return (R * 16 + min(C, E) * 12 + C * 13,
-                R * 2 * steps * 4 + C * 6)
+        steps = run_steps(row)
+        # the requests in, the table's starts of their vertices (at most
+        # the table), the adjacency rows the candidates read (12 bytes
+        # each, at most the adjacency), the candidates and flags out; a
+        # binary search a request in its vertex's run
+        return (R * 16 + table_bytes(row, 2 * R) + min(C, E) * 12 + C * 13,
+                R * steps * 4 + C * 6)
     if key.startswith("reduce_requests:probe"):
-        src, _, _, cand, read_len = args[:5]
+        src, _, _, cand, read_len, _, row = args[:7]
         E, C = src.numel(), cand.shape[0]
-        steps = max(1, math.ceil(math.log2(E + 1)))
-        # the candidates in, the probed edge rows (at most the edges) and
-        # their vertices' lengths (at most the shard's), the marks out; a
-        # lexicographic binary search a candidate
+        steps = run_steps(row)
+        # the candidates in, the table's starts of their vertices, the
+        # probed edge rows (at most the edges) and their vertices' lengths
+        # (at most the shard's), the marks out; a binary search a
+        # candidate in its vertex's run
         lens = (min(C, read_len.numel()) * 4 if hasattr(read_len, "numel")
                 else 0)
-        return C * 12 + min(C, E) * 12 + lens + E, C * steps * 6
+        return (C * 12 + table_bytes(row, 2 * C) + min(C, E) * 12 + lens
+                + E, C * steps * 6)
     if key == "vote_windows:routed":
         votes, counts, _, k, _, lengths = args
         N, P = counts.shape[:2]
@@ -1077,8 +1109,53 @@ def work(key: str, args: tuple, total=0):
 
 def route_args(args: tuple) -> tuple:
     """A route_rows call's positional arguments with their defaults:
-    (rows, n, cap, owner, keys, flip, valid)."""
-    return tuple(args) + (None, None, False, None)[len(args) - 3:]
+    (rows, n, cap, owner, keys, flip, valid, answers)."""
+    return tuple(args) + (None, None, False, None, True)[len(args) - 3:]
+
+
+def key_rows_alias(args: tuple) -> tuple:
+    """A route_rows call whose rows were its int64 keys (a lookup's
+    ``_key_rows``), as the path made it: the kept copies of the two are
+    apart, so the rows become a view of the keys again."""
+    import torch
+
+    rows, keys = args[0], route_args(args)[4]
+    if keys is None or rows.shape[1] != 2:
+        return args
+    alias = keys.view(torch.int32).reshape(-1, 2)
+    return (alias, *args[1:]) if torch.equal(rows, alias) else args
+
+
+def split_ms(fn, reps: int = 5) -> dict:
+    """Median device milliseconds of each part of ``fn(split)``, a
+    utils.metrics.DeviceSplit a run (CUDA events between the parts),
+    after one warm-up."""
+    import torch
+
+    from sage2_tpu_torch.utils.metrics import DeviceSplit
+
+    fn(None)
+    runs = []
+    for _ in range(reps):
+        split = DeviceSplit("cuda")
+        fn(split)
+        torch.cuda.synchronize()
+        runs.append(split.ms())
+    return {part: statistics.median(r[part] for r in runs)
+            for part in runs[0]}
+
+
+def run_steps(row) -> int:
+    """Steps of a binary search in a vertex's run of K21's row table (the
+    longest run)."""
+    longest = int((row[1:] - row[:-1]).max()) if row.numel() > 1 else 0
+    return max(1, math.ceil(math.log2(longest + 1)))
+
+
+def table_bytes(row, reads: int) -> int:
+    """Bytes of K21's row table that ``reads`` lookups read: each start
+    at most once."""
+    return min(reads, row.numel()) * 8
 
 
 # operations a count-table lookup is counted at in K5's bound, whatever
@@ -1270,6 +1347,8 @@ def main() -> int:
                 args = capture.inputs(row)      # freed after its row
             if key == "longest_edges:deferred":
                 args = with_duplicates(args)
+            if name == "route_rows":
+                args = key_rows_alias(args)
             fn = WRAPPER.get(key, name)
             wrapper = kern(fn)
             ref = getattr(plain, fn)
@@ -1280,6 +1359,8 @@ def main() -> int:
             # the two must end equal
             a_got = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                           for a in args)
+            if name == "route_rows":    # reads only; keeps the keys' alias
+                a_got = args
             a_want = args
             unmarked = args[0].clone() if name == "reduce_marks" else None
             got = wrapper(*a_got)
@@ -1355,6 +1436,16 @@ def main() -> int:
                             f"{n_windows} valid windows, {pairs} of "
                             f"{all_pairs} (w, j) pairs left by the skip "
                             f"({rows[-1]['pair_share']:.4f})")
+            elif key == "reduce_requests:rows":     # the launch alone
+                ss_key, vbase, v_d = args
+                firsts = (torch.arange(v_d + 1, device=dev) + vbase) << 32
+                rows[-1].update(
+                    device_ms=device_ms(lambda: wrapper(*args)),
+                    library_device_ms=device_ms(
+                        lambda: torch.searchsorted(ss_key, firsts)))
+                per_step = (f"; device times behind a spin: kernel "
+                            f"{rows[-1]['device_ms']:.4f} ms, searchsorted "
+                            f"{rows[-1]['library_device_ms']:.4f} ms")
             elif name == "gather_along":    # the launch, no flag read
                 out, flag = torch.empty_like(args[0]), torch.zeros(
                     1, dtype=torch.int32, device=dev)
@@ -1386,6 +1477,15 @@ def main() -> int:
                             f"(index_select {step_ms:.4f} ms, bound "
                             f"{max(t_bytes, t_ops) / steps:.4f} ms, grid "
                             f"barrier {barrier_ms:.4f} ms)")
+            elif name == "route_rows" or key == "reduce_requests":
+                # the mode, and each launch's device time (and the host
+                # read between them) from a DeviceSplit a run
+                parts = split_ms(lambda sp: wrapper(*args, split=sp))
+                mode = ("row table" if name != "route_rows" else
+                        "two-way" if route_args(args)[7] else "one-way")
+                rows[-1].update(mode=mode, launch_ms=parts)
+                per_step = f", {mode}: " + ", ".join(
+                    f"{p[:-3]} {v:.4f} ms" for p, v in parts.items())
             elif name == "merge_runs" and 2 * total < args[0].numel():
                 # what a count table's copy to storage of its own size costs
                 # (kmer/count.py count_from_keys, after the kernel)
@@ -1584,7 +1684,8 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             capture.reset_launch_counts(label)
             contigs, stats = assemble(
-                stream_reads, cfg, outdir=os.path.join(tmp, "out"),
+                stream_reads, cfg, outdir=os.path.join(tmp, "out")
+                if stream_lengths is None else None,
                 metrics=log, device="cuda", lengths=stream_lengths)
             launches = dict(kernels.LAUNCHES)
             launches_by_key[label] = capture.path_launches(label)
@@ -2074,7 +2175,7 @@ def library_time(key: str, args: tuple):
         # last), the reference's sort_by_keys of _route
         from sage2_tpu_torch.kernels import plain
 
-        _, n, _, owner, keys, flip, valid = route_args(args)
+        _, n, _, owner, keys, flip, valid, _ = route_args(args)
         if owner is None:
             owner = plain.owner_hash(keys, n, flip).to(torch.int32)
         own = owner if valid is None else torch.where(valid, owner, n)
@@ -2104,6 +2205,12 @@ def library_time(key: str, args: tuple):
             torch.arange(nb, device=table.device), table[:, 1].long())
         buckets = torch.arange(nb, device=table.device)
         return time_ms(lambda: torch.searchsorted(column, buckets)), \
+            "searchsorted"
+    if key == "reduce_requests:rows":
+        # the table's starts: a search of every vertex's first key
+        ss_key, vbase, v_d = args
+        firsts = (torch.arange(v_d + 1, device=ss_key.device) + vbase) << 32
+        return time_ms(lambda: torch.searchsorted(ss_key, firsts)), \
             "searchsorted"
     if key == "merge_runs":
         keys = args[0]

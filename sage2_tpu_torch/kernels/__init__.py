@@ -55,17 +55,20 @@ Twenty-three kernels (sources in ``kernels/csrc``):
                         after K4's first two loops (one launch)
   K19 ``route_rows``   the owner shard of each row, its stable rank
                         among the rows bound there, and the accepted rows
-                        written destination-major (count, scan, write;
-                        the send side of every exchange of the mesh)
+                        written destination-major (histogram, then a
+                        single-pass scatter with decoupled look-back; a
+                        one-way mode writes no per-row answers; the send
+                        side of every exchange of the mesh)
   K20 ``routed_gather`` the request dedup around one torch.sort
                         (``dedup_heads``), the owner's row gather
                         (``gather_rows``) and the answers' way back to the
                         asker (``route_back``)
-  K21 ``reduce_requests`` the meshed reduction's adjacency ranges and
-                        candidate expansion (ranges, expand around a
-                        torch.cumsum) and membership probe
-                        (``reduce_probe``, with the shard's lengths for
-                        ragged reads)
+  K21 ``reduce_requests`` the meshed reduction's vertex row table
+                        (``reduce_rows``, once a pass), adjacency ranges
+                        and candidate expansion (ranges, a merge-path
+                        expand around a torch.cumsum) and membership
+                        probe (``reduce_probe``, with the shard's lengths
+                        for ragged reads)
   K22 ``window_variants`` the canonical keys of the 4 variants of base j
                         of every window (j any position, or the last or
                         first base), and the single_window verdicts from
@@ -83,9 +86,10 @@ to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 K2's first launch, builds the directory that K16 and K17 share, and
 ``chain_cut`` counts as a ``chain_links`` launch; the fixed-capacity and
 deferred modes of K3, K13 and K14, find_overlaps_stacked's, count as
-their kernel's launches and read nothing to the host; K19 launches three
-a call, K21's ``reduce_requests`` two, and the other wrappers of K20,
-K21 and K22 (``route_back``, ``dedup_heads``, ``gather_rows``,
+their kernel's launches and read nothing to the host; K19 launches two
+a call with rows (none without), K21's ``reduce_requests`` two (one
+when no candidate comes out), and the other wrappers of K20, K21 and
+K22 (``route_back``, ``dedup_heads``, ``gather_rows``, ``reduce_rows``,
 ``reduce_probe``, ``apply_verdicts``) and K5's routed mode
 (``vote_add``, ``vote_apply``) one each under their kernel's name). K12
 and K13 take a ``split`` (utils.metrics.DeviceSplit) that marks the end
@@ -233,10 +237,9 @@ _ARGTYPES = {
         "sage2_chain_cut": [_P, _P, _P, _I64, _P, _P, _P, _P, _P],
     },
     "route_rows": {
-        "sage2_route_count": [_P, _P, _I, _P, _I64, _I, _P, _P],
-        "sage2_scan_tiles": [_P, _I64, _P, _P],
-        "sage2_route_write": [_P, _P, _I, _P, _I64, _I, _I, _P, _I, _P, _P,
-                              _P, _P, _P, _P, _P],
+        "sage2_route_hist": [_P, _P, _I, _P, _I64, _I, _P, _P],
+        "sage2_route_scatter": [_P, _P, _I, _P, _I64, _I, _I, _P, _I, _I,
+                                _P, _P, _P, _P, _P, _P, _P],
     },
     "routed_gather": {
         "sage2_dedup_heads": [_P, _P, _I64, _P, _P, _P],
@@ -244,10 +247,10 @@ _ARGTYPES = {
         "sage2_route_back": [_P, _I, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     },
     "reduce_requests": {
-        "sage2_reduce_ranges": [_P, _I64, _P, _I64, _P, _P, _P],
-        "sage2_reduce_expand": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
-                                _P],
-        "sage2_reduce_probe": [_P, _P, _P, _I64, _P, _I64, _I, _P, _I64,
+        "sage2_reduce_rows": [_P, _I64, _I64, _I64, _P, _P],
+        "sage2_reduce_ranges": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
+        "sage2_reduce_expand": [_P, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+        "sage2_reduce_probe": [_P, _P, _P, _I64, _I64, _P, _I64, _I, _P,
                                _I64, _P, _P],
     },
     "window_variants": {
@@ -283,8 +286,7 @@ HEADERS = {"lookup_counts": ("bucket_search.cuh",),
            "dedup_reads": ("scan.cuh",), "seed_rows": ("scan.cuh",),
            "longest_edges": ("scan.cuh",), "prune_table": ("scan.cuh",),
            "weak_windows": ("bucket_search.cuh", "scan.cuh"),
-           "fix_windows": ("bucket_search.cuh",),
-           "route_rows": ("scan.cuh",)}
+           "fix_windows": ("bucket_search.cuh",)}
 
 
 def _specs():
@@ -1733,22 +1735,27 @@ def chain_cut(p: torch.Tensor, pf: torch.Tensor, m: torch.Tensor,
 Route = plain.Route
 # most shards a K19 route takes (two packed words of 5 bins a tile)
 MAX_ROUTE_SHARDS = 8
+# rows a tile of K19's scatter (kTile in kernels/csrc/route_rows.cu)
+ROUTE_TILE = 2048
 
 
 @_on_device
 def route_rows(rows: torch.Tensor, n: int, cap: int,
                owner: Optional[torch.Tensor] = None,
                keys: Optional[torch.Tensor] = None, flip: bool = False,
-               valid: Optional[torch.Tensor] = None) -> Route:
+               valid: Optional[torch.Tensor] = None, answers: bool = True,
+               *, split=None) -> Route:
     """Route the (Q, K) int32 ``rows`` to their owners among n shards
     (see plain.route_rows): the owner is ``owner`` (Q,) int32, or the
     hash of the int64 ``keys`` (Q,) (``flip``: 32-base seed keys);
     ``valid`` (Q,) bool or None. Returns a ``Route``: the accepted rows
-    destination-major (rank < cap), each input's dest, rank and sent_ok,
-    the accepted rows per destination and the overflow flag (host
-    values) and the destinations' first rows in ``send``. Kernel K19:
-    count, scan, one host read of the n + 1 owner starts, write (see
-    kernels/csrc/route_rows.cu)."""
+    destination-major (rank < cap), each input's dest, rank and sent_ok
+    (None where ``answers`` is False: no answer comes back), the
+    accepted rows per destination and the overflow flag (host values)
+    and the destinations' first rows in ``send``. Kernel K19: histogram,
+    one host read of the n owner totals, scatter (see
+    kernels/csrc/route_rows.cu); ``split`` (utils.metrics.DeviceSplit)
+    marks the end of each."""
     if (owner is None) == (keys is None):
         raise ValueError("route_rows takes one of owner and keys")
     if rows.dim() != 2:
@@ -1758,7 +1765,8 @@ def route_rows(rows: torch.Tensor, n: int, cap: int,
     if src.shape != (Q,) or (valid is not None and valid.shape != (Q,)):
         raise ValueError("owner/keys and valid must be (Q,) beside rows")
     if _on_cpu(*(t for t in (rows, src, valid) if t is not None)):
-        return plain.route_rows(rows, n, cap, owner, keys, flip, valid)
+        return plain.route_rows(rows, n, cap, owner, keys, flip, valid,
+                                answers)
     if not 1 <= n <= MAX_ROUTE_SHARDS:
         raise ValueError(f"K19 routes to 1..{MAX_ROUTE_SHARDS} shards, "
                          f"not {n}")
@@ -1775,28 +1783,38 @@ def route_rows(rows: torch.Tensor, n: int, cap: int,
     # every rank is below Q, so a cap past Q drops and flags nothing (and
     # the launch's int32 cap cannot wrap)
     cap = min(int(cap), Q)
-    tiles = max(1, -(-Q // SCAN_TILE))
-    scratch = torch.empty((n + 1) * tiles + 1, dtype=torch.int64,
-                          device=dev)
-    tile_counts, total = scratch[:-1], scratch[-1:]
+    dest = rank = sent_ok = None
+    if answers:
+        dest = torch.empty(Q, dtype=torch.int32, device=dev)
+        rank = torch.empty(Q, dtype=torch.int32, device=dev)
+        sent_ok = torch.empty(Q, dtype=torch.bool, device=dev)
+    if Q == 0:
+        return Route(rows.new_empty((0, K)), dest, rank, sent_ok, (0,) * n,
+                     False, torch.zeros(n, dtype=torch.int64, device=dev))
+    # the n + 1 bin totals, (n + 1) x tiles uint32 status words of the
+    # look-back
+    tiles = -(-Q // ROUTE_TILE)
+    scratch = torch.empty(n + 1 + -(-(n + 1) * tiles // 2),
+                          dtype=torch.int64, device=dev)
     args = (_ptr(owner), _ptr(keys), int(flip), _ptr(valid), Q, n)
-    _launch("route_rows", "sage2_route_count", *args, _ptr(tile_counts),
+    _launch("route_rows", "sage2_route_hist", *args, _ptr(scratch),
             _stream())
     LAUNCHES["route_rows"] += 1
-    _scan_tiles("route_rows", tile_counts, total)
-    # the bins' starts: the rows of every earlier owner (bin n: invalid)
-    starts = tile_counts.view(n + 1, tiles)[:, 0].tolist() + [Q]
-    per = [starts[d + 1] - starts[d] for d in range(n)]
+    mark_part(split, "histogram")
+    per = scratch[:n].tolist()
+    mark_part(split, "host_read")
     counts = tuple(min(c, cap) for c in per)
-    dest = torch.empty(Q, dtype=torch.int32, device=dev)
-    rank = torch.empty(Q, dtype=torch.int32, device=dev)
-    sent_ok = torch.empty(Q, dtype=torch.bool, device=dev)
     send = torch.empty((sum(counts), K), dtype=torch.int32, device=dev)
     offsets = torch.empty(n, dtype=torch.int64, device=dev)
-    _launch("route_rows", "sage2_route_write", *args, cap, _ptr(rows), K,
-            _ptr(tile_counts), _ptr(dest), _ptr(rank), _ptr(sent_ok),
+    # a key route whose rows are the keys: the scatter hashes them from
+    # the rows it holds
+    key_rows = int(keys is not None and K == 2
+                   and rows.data_ptr() == keys.data_ptr())
+    _launch("route_rows", "sage2_route_scatter", *args, cap, _ptr(rows), K,
+            key_rows, _ptr(scratch), _ptr(dest), _ptr(rank), _ptr(sent_ok),
             _ptr(send), _ptr(offsets), _stream())
     LAUNCHES["route_rows"] += 1
+    mark_part(split, "scatter")
     return Route(send, dest, rank, sent_ok, counts,
                  any(c > cap for c in per), offsets)
 
@@ -1887,70 +1905,118 @@ def gather_rows(idx: torch.Tensor, n: int, *tables: torch.Tensor
 
 
 @_on_device
+def reduce_rows(ss_key: torch.Tensor, vbase: int, v_d: int) -> torch.Tensor:
+    """(v_d + 1,) int64 vertex row table of a shard's adjacency for the
+    meshed reduction (see plain.reduce_rows): row[i] is the first index
+    of ``ss_key`` (E,) int64, sorted src << 32 | sl, whose src >= vbase +
+    i. Kernel K21's ``rows`` launch, once a reduction pass; it serves the
+    (src, dst) order of the same edges as well."""
+    if ss_key.dim() != 1:
+        raise ValueError("ss_key must be (E,)")
+    if _on_cpu(ss_key):
+        return plain.reduce_rows(ss_key, vbase, v_d)
+    _dtype(ss_key, torch.int64, "ss_key")
+    row = torch.empty(int(v_d) + 1, dtype=torch.int64, device=ss_key.device)
+    _launch("reduce_requests", "sage2_reduce_rows", _ptr(ss_key),
+            ss_key.shape[0], int(vbase), int(v_d), _ptr(row), _stream())
+    LAUNCHES["reduce_requests"] += 1
+    return row
+
+
+def _table(row: torch.Tensor) -> int:
+    """The vertices of a row table."""
+    _dtype(row, torch.int64, "row")
+    if row.dim() != 1 or row.shape[0] < 1:
+        raise ValueError("a row table must be (v_d + 1,)")
+    return row.shape[0] - 1
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where it starts on 16 bytes, else a copy that does (a
+    kernel reads its rows as int4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@_on_device
 def reduce_requests(ss_key: torch.Tensor, ss_dst: torch.Tensor,
-                    req: torch.Tensor, cand_cap: int):
+                    req: torch.Tensor, cand_cap: int, row: torch.Tensor,
+                    vbase: int, *, split=None):
     """(cand (C, 3) int32, ok (C,) bool, total) of the meshed
     reduction's phase 2 at w's owner (see plain.reduce_requests):
     ``ss_key`` (E,) int64 the local adjacency sorted by src << 32 | sl,
-    ``ss_dst`` (E,) int32, ``req`` (R, 4) int32 received requests; C =
+    ``ss_dst`` (E,) int32, ``req`` (R, 4) int32 received requests, ``row``
+    the shard's vertex row table of [vbase, vbase + v_d) (reduce_rows);
+    C =
     min(total, cand_cap). Kernel K21: ranges, a torch.cumsum and one
-    host read of the total, expand (kernels/csrc/reduce_requests.cu)."""
+    host read of the total, expand (kernels/csrc/reduce_requests.cu);
+    ``split`` marks the end of each."""
     if req.dim() != 2 or req.shape[1] != 4:
         raise ValueError("req must be (R, 4)")
-    if _on_cpu(ss_key, ss_dst, req):
-        return plain.reduce_requests(ss_key, ss_dst, req, cand_cap)
+    if _on_cpu(ss_key, ss_dst, req, row):
+        return plain.reduce_requests(ss_key, ss_dst, req, cand_cap, row,
+                                     vbase)
     _dtype(ss_key, torch.int64, "ss_key")
     _dtype(ss_dst, torch.int32, "ss_dst")
     _dtype(req, torch.int32, "req")
+    v_d = _table(row)
     dev = req.device
     R, E = req.shape[0], ss_key.shape[0]
     if R == 0:
         return (torch.empty((0, 3), dtype=torch.int32, device=dev),
                 torch.empty(0, dtype=torch.bool, device=dev), 0)
+    req = _aligned16(req)
     start = torch.empty(R, dtype=torch.int64, device=dev)
     counts = torch.empty(R, dtype=torch.int64, device=dev)
-    _launch("reduce_requests", "sage2_reduce_ranges", _ptr(ss_key), E,
-            _ptr(req), R, _ptr(start), _ptr(counts), _stream())
+    _launch("reduce_requests", "sage2_reduce_ranges", _ptr(ss_key),
+            _ptr(row), int(vbase), v_d, _ptr(req), R, _ptr(start),
+            _ptr(counts), _stream())
     LAUNCHES["reduce_requests"] += 1
+    mark_part(split, "ranges")
     ends = torch.cumsum(counts, 0)
+    mark_part(split, "cumsum")
     total = int(ends[-1])
+    mark_part(split, "host_read")
     C = min(total, cand_cap)
     cand = torch.empty((C, 3), dtype=torch.int32, device=dev)
     ok = torch.empty(C, dtype=torch.bool, device=dev)
     if C:
         _launch("reduce_requests", "sage2_reduce_expand", _ptr(ss_key),
-                _ptr(ss_dst), _ptr(req), R, _ptr(start), _ptr(counts),
-                _ptr(ends), C, _ptr(cand), _ptr(ok), _stream())
+                _ptr(ss_dst), _ptr(req), R, _ptr(start), _ptr(ends), C,
+                _ptr(cand), _ptr(ok), _stream())
         LAUNCHES["reduce_requests"] += 1
+    mark_part(split, "expand")
     return cand, ok, total
 
 
 @_on_device
 def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
-                 cand: torch.Tensor, read_len, vbase: int = 0
-                 ) -> torch.Tensor:
+                 cand: torch.Tensor, read_len, vbase: int,
+                 row: torch.Tensor) -> torch.Tensor:
     """(E,) bool removal marks of the meshed reduction's phase 4 at v's
     owner (see plain.reduce_probe): the received candidates (C, 3) int32
     against the local (src, dst)-sorted int32 edges; ``read_len`` an int,
     or the shard's (v_d,) int32 lengths of the vertices [vbase, vbase +
-    v_d) (ragged reads). Kernel K21's ``probe`` launch."""
+    v_d) (ragged reads); ``row`` the shard's vertex row table (the same
+    edges' src runs). Kernel K21's ``probe`` launch."""
     if cand.dim() != 2 or cand.shape[1] != 3:
         raise ValueError("cand must be (C, 3)")
     scalar, lens = _lens(read_len)
     if lens is not None and lens.shape[0] == 0:
         raise ValueError("a shard's lengths must hold its vertex range")
     tensors = (src, dst, ovl, cand) + (() if lens is None else (lens,))
-    if _on_cpu(*tensors):
-        return plain.reduce_probe(src, dst, ovl, cand, read_len, vbase)
+    if _on_cpu(*tensors, row):
+        return plain.reduce_probe(src, dst, ovl, cand, read_len, vbase, row)
     for t in tensors:
         _dtype(t, torch.int32, "edges, candidates and lengths")
+    v_d = _table(row)
     E, C = src.shape[0], cand.shape[0]
     removed = torch.zeros(E, dtype=torch.uint8, device=src.device)
     if E and C:
-        _launch("reduce_requests", "sage2_reduce_probe", _ptr(src),
-                _ptr(dst), _ptr(ovl), E, _ptr(cand), C, scalar, _ptr(lens),
-                0 if lens is None else lens.shape[0], int(vbase),
-                _ptr(removed), _stream())
+        _launch("reduce_requests", "sage2_reduce_probe", _ptr(dst),
+                _ptr(ovl), _ptr(row), int(vbase), v_d,
+                _ptr(cand), C, scalar, _ptr(lens),
+                0 if lens is None else lens.shape[0], _ptr(removed),
+                _stream())
         LAUNCHES["reduce_requests"] += 1
     return removed.bool()
 

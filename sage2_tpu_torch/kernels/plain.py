@@ -1008,14 +1008,17 @@ class Route(NamedTuple):
 def route_rows(rows: torch.Tensor, n: int, cap: int,
                owner: Optional[torch.Tensor] = None,
                keys: Optional[torch.Tensor] = None, flip: bool = False,
-               valid: Optional[torch.Tensor] = None) -> Route:
+               valid: Optional[torch.Tensor] = None,
+               answers: bool = True) -> Route:
     """Route the (Q, K) int32 ``rows`` to their owners among n shards
     (sage2_tpu/parallel/sharded.py:73 ``_route``, :128 ``_route_rows``):
     the owner is ``owner`` (Q,) int32, or ``owner_hash(keys, n, flip)``;
     invalid rows (``valid`` False) go nowhere. The rows are ranked
     stably within their owner in input order (the reference's stable
     sort by owner), and those of rank >= cap are dropped and flagged.
-    Only the accepted rows are written (``Route.send``)."""
+    Only the accepted rows are written (``Route.send``). ``answers``
+    False (a one-way route, ``_route_rows``): dest, rank and sent_ok are
+    None."""
     dev = rows.device
     Q = rows.shape[0]
     if owner is None:
@@ -1028,12 +1031,14 @@ def route_rows(rows: torch.Tensor, n: int, cap: int,
     start = torch.searchsorted(s_own, torch.arange(n, device=dev))
     rank_sorted = torch.arange(Q, device=dev) - start[s_own.clamp(max=n - 1)]
     ok_sorted = (s_own < n) & (rank_sorted < cap)
-    dest = torch.empty(Q, dtype=torch.int32, device=dev)
-    rank = torch.empty(Q, dtype=torch.int32, device=dev)
-    sent_ok = torch.empty(Q, dtype=torch.bool, device=dev)
-    dest[s_idx] = s_own.clamp(max=n - 1).to(torch.int32)
-    rank[s_idx] = rank_sorted.to(torch.int32)
-    sent_ok[s_idx] = ok_sorted
+    dest = rank = sent_ok = None
+    if answers:
+        dest = torch.empty(Q, dtype=torch.int32, device=dev)
+        rank = torch.empty(Q, dtype=torch.int32, device=dev)
+        sent_ok = torch.empty(Q, dtype=torch.bool, device=dev)
+        dest[s_idx] = s_own.clamp(max=n - 1).to(torch.int32)
+        rank[s_idx] = rank_sorted.to(torch.int32)
+        sent_ok[s_idx] = ok_sorted
     per = torch.bincount(own, minlength=n + 1)[:n]
     accepted = per.clamp(max=cap)
     offsets = torch.cumsum(accepted, 0) - accepted
@@ -1104,23 +1109,47 @@ def gather_rows(idx: torch.Tensor, n: int, *tables: torch.Tensor
     return torch.stack([t[slot] for t in tables], dim=1).to(torch.int32)
 
 
+def reduce_rows(ss_key: torch.Tensor, vbase: int, v_d: int) -> torch.Tensor:
+    """(v_d + 1,) int64 vertex row table of a shard's adjacency ``ss_key``
+    (E,) int64, sorted src << 32 | sl (or any composite key sorted by src
+    first): row[i] is the first index whose src >= vbase + i, so vertex
+    vbase + i's rows are [row[i], row[i + 1]). The (src, sl) and the
+    (src, dst) orders of the same edges share it."""
+    starts = torch.arange(int(v_d) + 1, dtype=torch.int64,
+                          device=ss_key.device) + int(vbase)
+    return torch.searchsorted(ss_key, starts << 32)
+
+
+def _runs(v: torch.Tensor, row: torch.Tensor,
+          vbase: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[lo, hi) of each vertex v's rows from the row table of [vbase,
+    vbase + v_d); empty (0, 0) for a vertex outside it, which has no rows
+    in its shard (the shard holds its own vertices' edges only)."""
+    i = v.to(torch.int64) - vbase
+    inr = (i >= 0) & (i < row.shape[0] - 1)
+    return (torch.where(inr, row[torch.where(inr, i, 0)], 0),
+            torch.where(inr, row[torch.where(inr, i + 1, 0)], 0))
+
+
 def reduce_requests(ss_key: torch.Tensor, ss_dst: torch.Tensor,
-                    req: torch.Tensor, cand_cap: int):
+                    req: torch.Tensor, cand_cap: int, row: torch.Tensor,
+                    vbase: int):
     """(cand (C, 3) int32, ok (C,) bool, total) of phase 2 of
     sharded.py:394 ``sharded_transitive_reduction`` (:493-508) at w's
     owner: ``ss_key`` (E,) int64 the local adjacency sorted by src << 32
     | sl (padding INT32_MAX, INT32_MAX), ``ss_dst`` (E,) int32 beside
     it, ``req`` (R, 4) int32 the received requests [v, w, sl_vw,
-    bound]. Each request's adjacency range (src == w, sl <= bound), the
-    total of their sizes, and the first C = min(total, cand_cap)
-    candidates [v, x, sl_vw + sl_wx] in request order, rank order within
-    a request (``expand_by_counts``); ok where x != v."""
+    bound], ``row`` the shard's vertex row table of [vbase, vbase + v_d)
+    (``reduce_rows``). Each request's adjacency range (w's run,
+    sl <= bound), the total of their sizes, and the first C = min(total,
+    cand_cap) candidates [v, x, sl_vw + sl_wx] in request order, rank
+    order within a request (``expand_by_counts``); ok where x != v."""
     dev = req.device
     R = req.shape[0]
     rv, rw, rsl, rbound = (req[:, c].to(torch.int64) for c in range(4))
-    start = torch.searchsorted(ss_key, rw << 32)
+    start, run_end = _runs(rw, row, vbase)
     upto = torch.searchsorted(ss_key, (rw << 32) | rbound, right=True)
-    counts = upto - start
+    counts = torch.minimum(torch.maximum(upto, start), run_end) - start
     total = int(counts.sum()) if R else 0
     C = min(total, cand_cap)
     group = torch.repeat_interleave(torch.arange(R, device=dev), counts)[:C]
@@ -1135,30 +1164,34 @@ def reduce_requests(ss_key: torch.Tensor, ss_dst: torch.Tensor,
 
 
 def reduce_probe(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
-                 cand: torch.Tensor, read_len, vbase: int = 0
-                 ) -> torch.Tensor:
+                 cand: torch.Tensor, read_len, vbase: int,
+                 row: torch.Tensor) -> torch.Tensor:
     """(E,) bool removal marks of phase 4 of
     ``sharded_transitive_reduction`` (:518-537) at v's owner: each
-    received candidate (C, 3) int32 [v, x, sl] is looked up in the
-    local (src, dst)-sorted edges (padding INT32_MAX); an edge v -> x of
-    offset len(v) - ovl == sl is marked. ``read_len``: an int, or the
-    shard's (v_d,) int32 lengths of its vertex range [vbase, vbase +
-    v_d), len(v) = lens[clip(v - vbase, 0, v_d - 1)] (:524-527)."""
+    received candidate (C, 3) int32 [v, x, sl] is looked up in v's run of
+    the local (src, dst)-sorted edges (padding INT32_MAX; ``row`` the
+    shard's vertex row table of [vbase, vbase + v_d)); an edge
+    v -> x of offset len(v) - ovl == sl is marked. ``read_len``: an int,
+    or the shard's (v_d,) int32 lengths of its vertex range [vbase,
+    vbase + v_d), len(v) = lens[clip(v - vbase, 0, v_d - 1)]
+    (:524-527)."""
     E = src.shape[0]
     removed = torch.zeros(E, dtype=torch.bool, device=src.device)
     if E == 0 or cand.shape[0] == 0:
         return removed
     key = (src.to(torch.int64) << 32) | dst.to(torch.int64)
     q = (cand[:, 0].to(torch.int64) << 32) | cand[:, 1].to(torch.int64)
-    pos = torch.searchsorted(key, q).clamp(max=E - 1)
+    lo, hi = _runs(cand[:, 0], row, vbase)
+    pos = torch.minimum(torch.maximum(torch.searchsorted(key, q), lo), hi)
     if isinstance(read_len, torch.Tensor):
         v_d = read_len.shape[0]
         local = (cand[:, 0].to(torch.int64) - vbase).clamp(0, max(v_d - 1, 0))
         plen = read_len[local].to(torch.int64)
     else:
         plen = read_len
-    hit = (key[pos] == q) & (plen - ovl[pos] == cand[:, 2])
-    removed[pos[hit]] = True
+    at = pos.clamp(max=E - 1)
+    hit = (pos < hi) & (key[at] == q) & (plen - ovl[at] == cand[:, 2])
+    removed[at[hit]] = True
     return removed
 
 

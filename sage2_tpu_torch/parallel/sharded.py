@@ -93,12 +93,6 @@ def _row_keys(rows: torch.Tensor) -> torch.Tensor:
     return rows.contiguous().view(torch.int64).reshape(-1)
 
 
-def _one_way(route: kernels.Route) -> kernels.Route:
-    """A route whose answers do not come back: its per-input dest, rank
-    and sent_ok are dropped at once (only the send buffer moves)."""
-    return route._replace(dest=None, rank=None, sent_ok=None)
-
-
 def _back(back: torch.Tensor, route: kernels.Route, pos=None, valid=None
           ) -> torch.Tensor:
     """K20's way back of the answers ``back`` to the asker's inputs."""
@@ -132,9 +126,9 @@ def _count_owned(mesh: Mesh, keys: List[torch.Tensor],
     """Route canonical keys to their owners; each owner counts what it
     received (sharded.py:181). Returns (tables, overflow)."""
     n = mesh.size
-    routes = [_one_way(kernels.route_rows(
+    routes = [kernels.route_rows(
         _key_rows(keys[d]), n, cap, None, keys[d], False,
-        None if valid is None else valid[d])) for d in range(n)]
+        None if valid is None else valid[d], False) for d in range(n)]
     recv = _exchange(mesh, routes)
     overflow = any(r.overflow for r in routes)
     del routes
@@ -493,8 +487,8 @@ def _routed_seed_rows(mesh: Mesh, r, v, lens, base: int, rows_local: int,
         rows = torch.cat([_key_rows(s_keys), s_rows[:, None],
                           payload.reshape(-1, W2)[local]], dim=1)
         del payload, local, ids
-        routes.append(_one_way(kernels.route_rows(rows, n, cap, None, s_keys,
-                                                  True)))
+        routes.append(kernels.route_rows(rows, n, cap, None, s_keys, True,
+                                         None, False))
         del rows, s_keys, s_rows
     recv = _exchange(mesh, routes)
     return recv, any(rt.overflow for rt in routes)
@@ -535,8 +529,8 @@ def _owner_join(parts: List[torch.Tensor], geo, M: int, L: int,
     del ok, a, b, ovl
     erows = torch.stack([e_src[:n_e], e_dst[:n_e], e_ovl[:n_e]], 1)
     owner = torch.div(erows[:, 0], v_d, rounding_mode="floor").clamp(0, n - 1)
-    return _one_way(kernels.route_rows(erows, n, edge_cap,
-                                       owner.to(torch.int32))), total
+    return kernels.route_rows(erows, n, edge_cap, owner.to(torch.int32),
+                              None, False, None, False), total
 
 
 def _merge_edges(recv: List[torch.Tensor], M: int, L: int, edge_cap: int,
@@ -591,6 +585,11 @@ def sharded_transitive_reduction(
       3. owner(v) probes each candidate among its (src, dst)-sorted
          edges and marks the edges it removes (K21).
 
+    Each shard builds its vertex row table once (K21's ``reduce_rows``:
+    the first row of each of its v_d vertices in the (src, sl) order,
+    which the (src, dst) order shares), so that steps 2 and 3 search a
+    vertex's run and not the whole shard.
+
     ``lengths_sh``: ragged reads, (ndev, v_d) per-vertex lengths
     range-partitioned as the edges are (``partition_vertex_range``), or a
     list of (v_d,) tensors: an edge's offset is sl = len(src) - ovl, and
@@ -610,7 +609,7 @@ def sharded_transitive_reduction(
     n_expansions = []
     with comm.label("sharded_transitive_reduction"):
         # --- local adjacency, maxsl, and the requests to owner(w) -------
-        adj, routes, is_edge = [], [], []
+        adj, tables, routes, is_edge = [], [], [], []
         for d in range(n):
             e = src[d] != I32_MAX
             local = (src[d].to(torch.int64) - d * v_d)
@@ -623,6 +622,7 @@ def sharded_transitive_reduction(
                 (src[d].to(torch.int64) << 32) | sl.to(torch.int64),
                 stable=True)
             adj.append((ss_key, dst[d][order].contiguous()))
+            tables.append(kernels.reduce_rows(ss_key, d * v_d, v_d))
             seg = torch.where(e, local, v_d)
             maxsl = torch.full((v_d + 1,), -1, dtype=torch.int32,
                                device=src[d].device).scatter_reduce_(
@@ -632,8 +632,9 @@ def sharded_transitive_reduction(
             req = torch.stack([src[d], dst[d], sl, bound], 1).to(torch.int32)
             owner = torch.div(dst[d], v_d, rounding_mode="floor").clamp(
                 0, n - 1).to(torch.int32)
-            routes.append(_one_way(kernels.route_rows(
-                req, n, req_cap, owner, None, False, e & (bound >= 0))))
+            routes.append(kernels.route_rows(
+                req, n, req_cap, owner, None, False, e & (bound >= 0),
+                False))
             is_edge.append(e)
             del sl, order, seg, maxsl, bound, req, owner, local, src_len
         recv = _exchange(mesh, routes)
@@ -643,14 +644,14 @@ def sharded_transitive_reduction(
         routes = []
         for d in range(n):
             cand, ok, total = kernels.reduce_requests(
-                adj[d][0], adj[d][1], recv[d], cand_cap)
+                adj[d][0], adj[d][1], recv[d], cand_cap, tables[d], d * v_d)
             recv[d] = adj[d] = None
             overflow |= total > cand_cap
             n_expansions.append(total)
             owner = torch.div(cand[:, 0], v_d, rounding_mode="floor").clamp(
                 0, n - 1).to(torch.int32)
-            routes.append(_one_way(kernels.route_rows(
-                cand, n, cand_cap, owner, None, False, ok)))
+            routes.append(kernels.route_rows(
+                cand, n, cand_cap, owner, None, False, ok, False))
             del cand, ok, owner
         recv = _exchange(mesh, routes)
         overflow |= any(rt.overflow for rt in routes)
@@ -661,8 +662,8 @@ def sharded_transitive_reduction(
         for d in range(n):
             removed = kernels.reduce_probe(
                 src[d], dst[d], ovl[d], recv[d],
-                read_len if lens is None else lens[d], d * v_d)
-            recv[d] = None
+                read_len if lens is None else lens[d], d * v_d, tables[d])
+            recv[d] = tables[d] = None
             keep = is_edge[d] & ~removed
             kept = int(keep.sum())
             n_edges.append(kept)
@@ -747,12 +748,12 @@ def sharded_contract_unitigs(mesh: Mesh, src_sh, dst_sh, ovl_sh,
         for d in range(n):
             e = src[d] != I32_MAX
             rows = torch.stack([src[d], dst[d], ovl[d]], 1)
-            by_src.append(_one_way(kernels.route_rows(
+            by_src.append(kernels.route_rows(
                 rows, n, route_cap, torch.remainder(src[d], n).to(
-                    torch.int32), None, False, e)))
-            by_dst.append(_one_way(kernels.route_rows(
+                    torch.int32), None, False, e, False))
+            by_dst.append(kernels.route_rows(
                 rows, n, route_cap, torch.remainder(dst[d], n).to(
-                    torch.int32), None, False, e)))
+                    torch.int32), None, False, e, False))
         r_s = _exchange(mesh, by_src)
         r_d = _exchange(mesh, by_dst)
         overflow |= any(r.overflow for r in by_src + by_dst)
@@ -843,10 +844,10 @@ def sharded_contract_unitigs(mesh: Mesh, src_sh, dst_sh, ovl_sh,
             p[d] = torch.where(breaker, own[d], p[d])
             # dissolve the chain edge INTO each breaker at its
             # predecessor's owner
-            routes.append(_one_way(kernels.route_rows(
+            routes.append(kernels.route_rows(
                 pred_c[d][:, None].contiguous(), n, route_cap,
                 torch.remainder(pred_c[d], n).to(torch.int32), None, False,
-                breaker & (pred[d] >= 0))))
+                breaker & (pred[d] >= 0), False))
         del pf, p_at_pf, m
         recv = _exchange(mesh, routes)
         overflow |= any(r.overflow for r in routes)

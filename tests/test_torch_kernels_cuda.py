@@ -1111,8 +1111,10 @@ def test_find_overlaps_stacked_periodic_duplicates(cuda):
 
 def _route_equal(a, b):
     for name in ("send", "dest", "rank", "sent_ok", "offsets"):
-        assert torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()), (
-            name)
+        x, y = getattr(a, name), getattr(b, name)
+        assert (x is None) == (y is None), name
+        if x is not None:
+            assert torch.equal(x.cpu(), y.cpu()), name
     assert a.counts == b.counts and a.overflow == b.overflow
 
 
@@ -1167,21 +1169,75 @@ def test_route_rows_kernel_cap_past_int32(cuda):
         assert not got.overflow and sum(got.counts) == int(valid.sum())
 
 
+@pytest.mark.parametrize("answers", [True, False])
+@pytest.mark.parametrize("same", [True, False])
 @pytest.mark.parametrize("flip", [False, True])
 @pytest.mark.parametrize("n", [1, 3, 8])
-def test_route_rows_kernel_hash(cuda, n, flip):
+def test_route_rows_kernel_hash(cuda, n, flip, same, answers):
     """Owners from the hash of int64 keys (k-mer keys, or 32-base seed
-    keys with their top bit flipped), at keys near the extremes."""
+    keys with their top bit flipped), at keys near the extremes; the rows
+    the keys themselves (the scatter hashes the rows it holds) or a copy
+    of them; both modes."""
     rng = np.random.default_rng(n)
     keys = rng.integers(-2**63, 2**63 - 1, size=4100, dtype=np.int64)
     keys[:4] = [-2**63, 2**63 - 1, 0, -1]
     keys = torch.from_numpy(keys)
     valid = torch.from_numpy(rng.random(4100) < 0.7)
     rows = keys.view(torch.int32).reshape(-1, 2)
-    want = plain.route_rows(rows, n, 700, keys=keys, flip=flip, valid=valid)
-    got = kernels.route_rows(rows.to(cuda), n, 700, keys=keys.to(cuda),
-                             flip=flip, valid=valid.to(cuda))
+    want = plain.route_rows(rows, n, 700, None, keys, flip, valid, answers)
+    gkeys = keys.to(cuda)
+    grows = gkeys.view(torch.int32).reshape(-1, 2) if same else rows.to(cuda)
+    got = kernels.route_rows(grows, n, 700, None, gkeys, flip,
+                             valid.to(cuda), answers)
     _route_equal(got, want)
+
+
+T = kernels.ROUTE_TILE
+# (Q, n, K, owners, cap): K19 at one tile and one row either side of it,
+# several thousand tiles, every row to one owner, every row invalid, and
+# caps that cut inside a tile and across tiles (None: no cut)
+ROUTE_MODE_CASES = [
+    (0, 4, 3, "uniform", None), (1, 1, 1, "uniform", None),
+    (1, 8, 2, "uniform", None), (T - 1, 3, 3, "uniform", None),
+    (T, 5, 4, "uniform", None), (T + 1, 8, 9, "uniform", None),
+    (5000 * T + 17, 4, 3, "uniform", None), (3 * T + 5, 6, 12, "one", None),
+    (3 * T + 5, 2, 1, "invalid", None), (4 * T, 7, 3, "hot", T // 3),
+    (4 * T, 4, 2, "hot", 2 * T + 100), (2 * T + 3, 8, 12, "hot", T + 1),
+    (3 * T + 7, 5, 5, "uniform", None), (4 * T + 1, 6, 6, "hot", T + 9),
+]
+
+
+@pytest.mark.parametrize("Q,n,K,owners,cap", ROUTE_MODE_CASES)
+def test_route_rows_kernel_modes(cuda, Q, n, K, owners, cap):
+    """K19's two modes against the plain version: the two-way route
+    (dest, rank, sent_ok) and the one-way route (none of them; the same
+    send buffer, counts, overflow and offsets)."""
+    rng = np.random.default_rng(Q + 7 * n + K)
+    if owners == "one":
+        owner = np.full(Q, n // 2, np.int32)
+    else:
+        owner = rng.integers(0, n, size=Q).astype(np.int32)
+    if owners == "hot":
+        owner[rng.random(Q) < 0.6] = n - 1
+    valid = rng.random(Q) < (0.0 if owners == "invalid" else 0.9)
+    rows = torch.from_numpy(rng.integers(-2**31, 2**31, size=(Q, K))
+                            .astype(np.int32))
+    owner, valid = torch.from_numpy(owner), torch.from_numpy(valid)
+    c = Q + 1 if cap is None else cap
+    got = {}
+    for answers in (True, False):
+        want = plain.route_rows(rows, n, c, owner, None, False, valid,
+                                answers)
+        got[answers] = kernels.route_rows(
+            rows.to(cuda), n, c, owner.to(cuda), None, False, valid.to(cuda),
+            answers)
+        _route_equal(got[answers], want)
+        assert want.overflow == (cap is not None)
+    _route_equal(got[False], got[True]._replace(dest=None, rank=None,
+                                                sent_ok=None))
+    if owners == "invalid":
+        assert sum(got[True].counts) == 0
+        assert bool((got[True].rank >= 0).all())
 
 
 def test_routed_gather_kernels(cuda):
@@ -1247,16 +1303,96 @@ def test_reduce_requests_kernels(cuda, cand_cap):
     bound = rng.integers(0, 60, size=n_e)
     req = torch.from_numpy(np.stack([src[:n_e], dst[:n_e], sl[:n_e], bound],
                                     1).astype(np.int32))
-    want = plain.reduce_requests(ss_key, ss_dst, req, cand_cap)
+    # one shard of every vertex: its row table
+    row = plain.reduce_rows(ss_key, 0, V)
+    grow = kernels.reduce_rows(ss_key.to(cuda), 0, V)
+    assert torch.equal(grow.cpu(), row)
+    want = plain.reduce_requests(ss_key, ss_dst, req, cand_cap, row, 0)
     got = kernels.reduce_requests(ss_key.to(cuda), ss_dst.to(cuda),
-                                  req.to(cuda), cand_cap)
+                                  req.to(cuda), cand_cap, grow, 0)
     _equal(got, want)
     assert want[2] > 10
     cand = want[0][want[1]]
-    removed = plain.reduce_probe(t(src), t(dst), t(ovl), cand, L)
+    removed = plain.reduce_probe(t(src), t(dst), t(ovl), cand, L, 0, row)
     got = kernels.reduce_probe(t(src).to(cuda), t(dst).to(cuda),
-                               t(ovl).to(cuda), cand.to(cuda), L)
+                               t(ovl).to(cuda), cand.to(cuda), L, 0, grow)
     assert torch.equal(got.cpu(), removed)
+
+
+def _hub_shard(rng, vbase, v_d, hub_degree):
+    """One shard's (src, dst, ovl) edges of [vbase, vbase + v_d) in (src,
+    dst) order, padded: ~8 out-edges a vertex, every third vertex none,
+    one hub with ``hub_degree``; and its (src, sl)-sorted adjacency."""
+    I32 = 2**31 - 1
+    src, dst = [], []
+    for v in range(vbase, vbase + v_d):
+        deg = 0 if v % 3 == 1 else int(rng.integers(1, 16))
+        if v == vbase + v_d // 2:
+            deg = hub_degree
+        nb = np.unique(rng.integers(0, vbase + v_d + 50, size=deg))
+        nb = nb[nb != v]
+        src.append(np.full(nb.shape[0], v))
+        dst.append(nb)
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    ovl = rng.integers(40, 99, size=src.shape[0])
+    pad = 33
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(  # noqa
+        np.int32))
+    src = t(np.concatenate([src, np.full(pad, I32)]))
+    dst = t(np.concatenate([dst, np.full(pad, I32)]))
+    ovl = t(np.concatenate([ovl, np.zeros(pad)]))
+    sl = torch.where(src != I32, 100 - ovl, I32)
+    ss_key, order = torch.sort((src.long() << 32) | sl.long(), stable=True)
+    return src, dst, ovl, ss_key, dst[order].contiguous()
+
+
+@pytest.mark.parametrize("cut", ["none", "inside", "hub"])
+def test_reduce_requests_kernels_row_table(cuda, cut):
+    """K21 with the shard's vertex row table: a hub request whose
+    candidates span many merge-path tiles, runs of thousands of
+    zero-count requests (vertices without edges, bounds below every
+    offset), requests to vertices outside the shard (empty runs),
+    cand_cap inside a request (or inside the hub's), then the
+    probe of the candidates with a read length and with ragged lengths;
+    each launch against the plain version, and the table's launch too."""
+    rng = np.random.default_rng(len(cut))
+    vbase, v_d = 3000, 4000
+    src, dst, ovl, ss_key, ss_dst = _hub_shard(rng, vbase, v_d, 30_000)
+    hub = vbase + v_d // 2
+    R = 60_000
+    w = rng.integers(vbase - 40, vbase + v_d + 40, size=R)
+    w[1000:6000] = vbase + 1            # no out-edges: zero counts
+    w[20_000] = hub
+    bound = rng.integers(0, 62, size=R)
+    bound[7000:12_000] = 0              # below every offset: zero counts
+    bound[20_000] = 10_000
+    v = rng.integers(vbase, vbase + v_d, size=R)
+    req = torch.from_numpy(np.stack([v, w, rng.integers(1, 60, size=R),
+                                     bound], 1).astype(np.int32))
+    row = plain.reduce_rows(ss_key, vbase, v_d)
+    grow = kernels.reduce_rows(ss_key.to(cuda), vbase, v_d)
+    assert torch.equal(grow.cpu(), row)
+    _, _, total = plain.reduce_requests(ss_key, ss_dst, req, 1 << 40, row,
+                                        vbase)
+    counts = plain.reduce_requests(ss_key, ss_dst, req[:20_000], 1 << 40,
+                                   row, vbase)[2]
+    cap = {"none": 1 << 40, "inside": total // 3 + 1,
+           "hub": counts + 12_345}[cut]
+    want = plain.reduce_requests(ss_key, ss_dst, req, cap, row, vbase)
+    got = kernels.reduce_requests(ss_key.to(cuda), ss_dst.to(cuda),
+                                  req.to(cuda), cap, grow, vbase)
+    _equal(got, want)
+    assert want[2] == total > 30_000 and want[0].shape[0] == min(total, cap)
+    cand = want[0][want[1]]
+    lens = torch.from_numpy(rng.integers(90, 110, size=v_d).astype(
+        np.int32))
+    for read_len in (100, lens):
+        removed = plain.reduce_probe(src, dst, ovl, cand, read_len, vbase,
+                                     row)
+        g_len = read_len if isinstance(read_len, int) else read_len.to(cuda)
+        got = kernels.reduce_probe(src.to(cuda), dst.to(cuda), ovl.to(cuda),
+                                   cand.to(cuda), g_len, vbase, grow)
+        assert torch.equal(got.cpu(), removed)
 
 
 @pytest.mark.parametrize("which", ["last", "first"])
@@ -1481,11 +1617,14 @@ def test_reduce_probe_kernel_ragged(cuda, vbase):
     sl = lens[local] - ovl + (rng.random(src.shape[0]) < 0.5)
     cand = np.stack([src, dst, sl], 1).astype(np.int32)
     t = torch.from_numpy
+    key = (t(src).long() << 32) | t(dst).long()
+    row = plain.reduce_rows(key, vbase, v_d)
     want = plain.reduce_probe(t(src), t(dst), t(ovl), t(cand), t(lens),
-                              vbase)
+                              vbase, row)
     got = kernels.reduce_probe(t(src).to(cuda), t(dst).to(cuda),
                                t(ovl).to(cuda), t(cand).to(cuda),
-                               t(lens).to(cuda), vbase)
+                               t(lens).to(cuda), vbase,
+                               kernels.reduce_rows(key.to(cuda), vbase, v_d))
     assert torch.equal(got.cpu(), want)
     assert want.any() and not want.all()
 

@@ -183,8 +183,11 @@ def test_ragged_probe_and_verdicts_match_reference(graph):
         want = np.zeros(src.shape[0], bool)
         want[pos[hit]] = True
         t = torch.from_numpy
+        row = plain.reduce_rows(t(src.astype(np.int64) << 32 | dst),
+                                d * v_d, v_d)
         got = plain.reduce_probe(t(src), t(dst), t(ovl), t(c),
-                                 t(np.ascontiguousarray(lens_d)), d * v_d)
+                                 t(np.ascontiguousarray(lens_d)), d * v_d,
+                                 row)
         np.testing.assert_array_equal(got.numpy(), want)
         marked += int(want.sum())
     assert 0 < marked < int(is_edge.sum())

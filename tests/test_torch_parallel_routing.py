@@ -137,6 +137,47 @@ def test_route_rows_matches_reference(n, cap, hot):
                                       recv[d][recv_valid[d]])
 
 
+@pytest.mark.parametrize("n,cap,hot", [(1, 64, False), (1, 40, False),
+                                       (3, 64, False), (3, 9, True),
+                                       (4, 64, False), (4, 7, True),
+                                       (8, 64, False), (8, 5, True)])
+def test_one_way_route_matches_two_way_and_reference(n, cap, hot):
+    """K19's one-way mode (``answers=False``, the exchanges whose answers
+    do not come back): the same send buffer, counts, overflow and offsets
+    as the two-way route, no dest/rank/sent_ok, and the rows the
+    reference's _route_rows delivers, with hot owners and caps that cut
+    (a single shard's cap below its valid rows too)."""
+    owner, valid, vals = _inputs(n, seed=13 * n + cap, hot=hot)
+    rows = np.stack([vals, vals ^ 0x3C3C, np.arange(n * Q, dtype=np.int32)],
+                    axis=1)
+
+    def body(o, v, x):
+        recv, ok, ovf = ref._route_rows("data", o, v, x, cap, n)
+        return recv[None], ok[None], ovf[None]
+
+    recv, recv_valid, ovf = map(np.asarray, _program(n, body, 3, 3)(
+        jnp.asarray(owner), jnp.asarray(valid), jnp.asarray(rows)))
+    mesh = make_mesh(n, devices="cpu")
+    shards = list(zip(_per_shard(owner, n), _per_shard(valid, n),
+                      _per_shard(rows, n)))
+    one = [plain.route_rows(x, n, cap, o, None, False, v, False)
+           for o, v, x in shards]
+    two = [plain.route_rows(x, n, cap, owner=o, valid=v)
+           for o, v, x in shards]
+    for a, b in zip(one, two):
+        assert a.dest is None and a.rank is None and a.sent_ok is None
+        assert b.dest is not None
+        assert torch.equal(a.send, b.send)
+        assert torch.equal(a.offsets, b.offsets)
+        assert (a.counts, a.overflow) == (b.counts, b.overflow)
+    assert [r.overflow for r in one] == [bool(x) for x in ovf]
+    assert any(r.overflow for r in one) == (hot or (n == 1 and cap < Q))
+    got = sharded._exchange(mesh, one)
+    for d in range(n):
+        np.testing.assert_array_equal(got[d].numpy(),
+                                      recv[d][recv_valid[d]])
+
+
 @pytest.mark.parametrize("n,cap", [(8, 64), (8, 2), (2, 64)])
 def test_dedup_routed_gather_matches_reference(n, cap):
     """_dedup_routed_gather over two cyclic tables: repeated requests (a

@@ -257,8 +257,10 @@ def test_reduce_requests_match_reference(graphs, cand_cap):
     sl_all = np.where(is_edge, L - ovl, 2**31 - 1)
     ss_key, order = torch.sort((t(src).long() << 32) | t(sl_all).long(),
                                stable=True)
+    # one shard of every vertex: its row table
+    row = plain.reduce_rows(ss_key, 0, rs.reads2.shape[0])
     cand, ok, total = plain.reduce_requests(ss_key, t(dst)[order], t(req),
-                                            cand_cap)
+                                            cand_cap, row, 0)
     assert total == want_total
     C = min(total, cand_cap)
     assert cand.shape == (C, 3)
@@ -268,7 +270,140 @@ def test_reduce_requests_match_reference(graphs, cand_cap):
     # the probe over the candidates that reach v's owner (all ok ones)
     _, _, _, want_removed = _reference_phases(src, dst, ovl, req, 1 << 14, L)
     full, full_ok, _ = plain.reduce_requests(ss_key, t(dst)[order], t(req),
-                                             1 << 14)
-    removed = plain.reduce_probe(t(src), t(dst), t(ovl), full[full_ok], L)
+                                             1 << 14, row, 0)
+    removed = plain.reduce_probe(t(src), t(dst), t(ovl), full[full_ok], L,
+                                 0, row)
+    np.testing.assert_array_equal(removed.numpy(), want_removed)
+    assert removed.any()
+
+
+def _shard_phases(src, dst, ovl, req, cand_cap, src_len, probe_len):
+    """Phases 2 and 4 of the reference's sharded_transitive_reduction
+    (sharded.py:493-537) on one shard's padded arrays, with per-edge
+    source lengths ``src_len`` (the adjacency's sl = len(src) - ovl) and
+    the probe's length of each candidate's v, ``probe_len(v)``."""
+    from sage2_tpu.ops.sort import sort_by_keys
+
+    u = lambda x: x.astype(jnp.uint32)  # noqa: E731
+    src, dst, ovl = (jnp.asarray(a) for a in (src, dst, ovl))
+    is_edge = src != 2**31 - 1
+    sl = jnp.where(is_edge, jnp.asarray(src_len) - ovl, 2**31 - 1)
+    ss_src, ss_sl, ss_dst = sort_by_keys([src, sl], [dst])
+    rv, rw, rsl, rbound = (jnp.asarray(req[:, c]) for c in range(4))
+    start = lex_searchsorted(u(ss_src), u(ss_sl), u(rw),
+                             jnp.zeros_like(u(rw)), side="left")
+    upto = lex_searchsorted(u(ss_src), u(ss_sl), u(rw), u(rbound),
+                            side="right")
+    counts = upto - start
+    e1, rank, ok = expand_by_counts(counts, cand_cap)
+    e2 = jnp.minimum(start[e1] + rank, ss_dst.shape[0] - 1)
+    cand = jnp.stack([rv[e1], ss_dst[e2], rsl[e1] + ss_sl[e2]], axis=1)
+    ok = ok & (cand[:, 1] != cand[:, 0])
+    pos = lex_searchsorted(u(src), u(dst), u(cand[:, 0]), u(cand[:, 1]),
+                           side="left")
+    pos_c = jnp.minimum(pos, src.shape[0] - 1)
+    hit = ok & (src[pos_c] == cand[:, 0]) & (dst[pos_c] == cand[:, 1]) & (
+        jnp.asarray(probe_len(np.asarray(cand[:, 0]))) - ovl[pos_c]
+        == cand[:, 2])
+    removed = jnp.zeros(src.shape[0], bool).at[
+        jnp.where(hit, pos_c, src.shape[0])].set(True, mode="drop")
+    return (np.asarray(cand), np.asarray(ok), np.asarray(counts),
+            np.asarray(removed))
+
+
+# (shard of 3, ragged lengths, where cand_cap falls)
+ROW_TABLE_CASES = [(0, False, "none"), (1, False, "inside"),
+                   (2, False, "none"), (1, True, "inside"),
+                   (2, True, "none")]
+
+
+@pytest.mark.parametrize("d,ragged,cut", ROW_TABLE_CASES)
+def test_row_table_phases_match_reference(graphs, d, ragged, cut):
+    """K21's vertex row table and its plain ranges, expansion and probe
+    that start from it, on shard d of 3 (the last shard's range passes
+    the vertex count: the clamp), fixed-length or ragged lengths: the
+    requests of every edge into the shard's range, in source order, give
+    the reference's phase 2 arrays (its searches of the whole adjacency),
+    with cand_cap cutting inside a request or not at all; the probe of
+    the candidates, the reference's phase 4 marks. Vertices without
+    edges have empty runs; requests to them expand to nothing."""
+    rs, res = graphs["reduce"]
+    V, L = rs.reads2.shape
+    n = 3
+    v_d = -(-V // n)
+    vbase = d * v_d
+    I32 = 2**31 - 1
+    src, dst, ovl = (np.asarray(a) for a in (res.src, res.dst, res.ovl))
+    e = src != I32
+    src, dst, ovl = src[e], dst[e], ovl[e]
+    lens = (np.random.default_rng(d).integers(L, L + 25, size=V)
+            if ragged else np.full(V, L)).astype(np.int32)
+    # ragged reads: a read longer than L overlaps its successors by as
+    # much more, so the offsets sl (and the transitive edges) stay
+    ovl = (ovl + lens[src] - L).astype(np.int32)
+    sl = lens[src] - ovl
+    maxsl = np.full(V, -1)
+    np.maximum.at(maxsl, src, sl)
+    bound = maxsl[src] - sl
+    owner = np.clip(dst // v_d, 0, n - 1)
+    take = (owner == d) & (bound >= 0)
+    req = np.stack([src, dst, sl, bound], 1)[take].astype(np.int32)
+    # the shard's own edges, (src, dst) order, padded
+    mine = (src >= vbase) & (src < vbase + v_d)
+    pad = 37
+    s_src = np.concatenate([src[mine], np.full(pad, I32)]).astype(np.int32)
+    s_dst = np.concatenate([dst[mine], np.full(pad, I32)]).astype(np.int32)
+    s_ovl = np.concatenate([ovl[mine], np.zeros(pad)]).astype(np.int32)
+    key = s_src.astype(np.int64) << 32 | s_dst
+    assert (np.diff(key) >= 0).all()
+    s_len = np.concatenate([lens[src[mine]], np.zeros(pad)]).astype(np.int32)
+    local = lens[vbase:vbase + v_d]
+    if local.shape[0] < v_d:            # the last shard's range
+        local = np.concatenate([local, np.zeros(v_d - local.shape[0],
+                                                np.int32)])
+
+    def probe_len(v):
+        return local[np.clip(v - vbase, 0, v_d - 1)] if ragged else L
+
+    _, _, counts, _ = _shard_phases(s_src, s_dst, s_ovl, req, 1 << 16,
+                                    s_len, probe_len)
+    total = int(counts.sum())
+    cand_cap = 1 << 16
+    if cut == "inside":          # inside the largest request's range
+        j = int(np.argmax(counts))
+        assert counts[j] >= 2
+        cand_cap = int(counts[:j].sum()) + int(counts[j]) // 2
+    want_cand, want_ok, _, want_removed = _shard_phases(
+        s_src, s_dst, s_ovl, req, cand_cap, s_len, probe_len)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    s_sl = np.where(s_src != I32, s_len - s_ovl, I32)
+    ss_key, order = torch.sort((t(s_src).long() << 32) | t(s_sl).long(),
+                               stable=True)
+    ss_dst = t(s_dst)[order].contiguous()
+    row = plain.reduce_rows(ss_key, vbase, v_d)
+    np.testing.assert_array_equal(
+        row.numpy(), np.searchsorted(s_src, vbase + np.arange(v_d + 1)))
+    assert (np.diff(row.numpy()) == 0).any()     # vertices without edges
+    if d == n - 1:
+        assert vbase + v_d > V
+    cand, ok, got_total = plain.reduce_requests(ss_key, ss_dst, t(req),
+                                                cand_cap, row, vbase)
+    assert got_total == total
+    C = min(total, cand_cap)
+    assert C == (cand_cap if cut == "inside" else total)
+    np.testing.assert_array_equal(cand.numpy(), want_cand[:C])
+    np.testing.assert_array_equal(ok.numpy(), want_ok[:C])
+    assert not want_ok[C:].any()
+    # the probe of every ok candidate (those with v in the shard's range
+    # hit; the rest have empty runs here and miss), the row table's runs
+    # of the (src, dst) order
+    full, full_ok, _ = plain.reduce_requests(ss_key, ss_dst, t(req),
+                                             1 << 16, row, vbase)
+    probed = full[full_ok]
+    read_len = t(local) if ragged else L
+    removed = plain.reduce_probe(t(s_src), t(s_dst), t(s_ovl), probed,
+                                 read_len, vbase, row)
+    _, _, _, want_removed = _shard_phases(s_src, s_dst, s_ovl, req, 1 << 16,
+                                          s_len, probe_len)
     np.testing.assert_array_equal(removed.numpy(), want_removed)
     assert removed.any()
