@@ -1352,6 +1352,8 @@ def main() -> int:
             fn = WRAPPER.get(key, name)
             wrapper = kern(fn)
             ref = getattr(plain, fn)
+            if fn == "longest_edges":   # a shard's sources only split K14's
+                ref = (lambda *a, _ref=ref: _ref(*a[:7]))   # buckets
 
             # reduce_marks, overlap_join (its containment marks) and the cut
             # (nxt, ovl_next) update an argument in place: the kernel takes a

@@ -36,12 +36,16 @@ Twenty-three kernels (sources in ``kernels/csrc``):
                         launches)
   K13 ``seed_rows``     seed keys, live flags and payload rows of the
                         overlap join, and the live rows in the join's
-                        sort order (five launches around one torch.sort;
-                        ``seed_rows_stacked`` the fixed-capacity mode)
+                        sort order (the rows with their buckets counted,
+                        then the bucketed sort of bucket_sort.cuh: scan,
+                        coarse and fine scatter, sort; an entry slab:
+                        the rows and a compaction; ``seed_rows_stacked``
+                        the fixed-capacity mode)
   K14 ``longest_edges`` longest overlap per (src, dst) of the join's
-                        candidates, compacted and padded (launches around
-                        one torch.sort, two for wide vertex ids;
-                        ``longest_edges_deferred`` keeps every ok row)
+                        candidates, compacted and padded (a histogram,
+                        then the bucketed sort, whose blocks keep the
+                        last row of each pair; ``longest_edges_deferred``
+                        keeps every ok row)
   K15 ``prune_table``   the solid entries of a sorted count table, in
                         table order (count, scan, write)
   K16 ``weak_windows``  flat indices of the weak windows of a correction
@@ -82,7 +86,8 @@ tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 ``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
-``probe_join`` launch two per call, K12-K16 more; ``lookup_directory``,
+``probe_join`` launch two per call, K12-K16 more (K13 and K14 five,
+K13's entry slab two); ``lookup_directory``,
 K2's first launch, builds the directory that K16 and K17 share, and
 ``chain_cut`` counts as a ``chain_links`` launch; the fixed-capacity and
 deferred modes of K3, K13 and K14, find_overlaps_stacked's, count as
@@ -98,9 +103,9 @@ of their sort and of their grouping or row build.
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
 ctypes through a plain C interface. A source's headers (``common.cuh``,
-and ``bucket_search.cuh`` or ``scan.cuh`` for those that include them,
-``HEADERS``) are hashed with it, so an edit to a header rebuilds its
-libraries.
+and ``bucket_search.cuh``, ``scan.cuh`` or ``bucket_sort.cuh`` for
+those that include them, ``HEADERS``) are hashed with it, so an edit to
+a header rebuilds its libraries.
 """
 
 from __future__ import annotations
@@ -115,7 +120,7 @@ from typing import Callable, Dict, Optional, Tuple, Union
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from sage2_tpu_torch.kernels import plain
+from sage2_tpu_torch.kernels import bucket_plan, plain
 from sage2_tpu_torch.utils import native_build
 from sage2_tpu_torch.utils.metrics import mark_part
 
@@ -198,23 +203,26 @@ _ARGTYPES = {
     },
     "seed_rows": {
         "sage2_seed_rows": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P],
-        "sage2_seed_count": [_P, _I64, _I, _I, _I, _P, _P],
-        "sage2_scan_tiles": [_P, _I64, _P, _P],
+                            _P, _P, _P, _P, _I64, _P, _I, _P],
+        "sage2_seed_scan": [_P, _I, _P],
+        "sage2_seed_scatter": [_P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P,
+                               _I64, _P, _I, _P, _P],
+        "sage2_seed_split": [_P, _P, _P, _I, _P],
+        "sage2_seed_big": [_P, _P, _P, _I, _I64, _P, _P, _P],
+        "sage2_seed_sort": [_P, _P, _I, _I64, _P, _P, _P],
         "sage2_seed_compact": [_P, _P, _I64, _I, _I, _I, _I, _I64, _P, _P,
                                _P, _P],
-        "sage2_seed_compact_fixed": [_P, _P, _I64, _I, _I, _P, _P, _P, _P,
-                                     _P],
-        "sage2_seed_gather": [_P, _P, _I64, _P, _P],
     },
     "longest_edges": {
-        "sage2_edge_keys": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
-        "sage2_edge_pairs": [_P, _P, _P, _P, _I64, _P, _P],
-        "sage2_edge_count": [_P, _I64, _I, _P, _P],
-        "sage2_edge_count_deferred": [_P, _I64, _I, _P, _P, _P],
-        "sage2_scan_tiles": [_P, _I64, _P, _P],
-        "sage2_edge_write": [_P, _I64, _I, _I, _I, _P, _P, _P, _P, _P,
-                             _I64, _I, _P, _P, _P, _P],
+        "sage2_edge_hist": [_P, _P, _I64, _I64, _I64, _P, _I, _P],
+        "sage2_edge_scan": [_P, _I, _P],
+        "sage2_edge_scatter": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I,
+                               _P, _I, _P, _P],
+        "sage2_edge_split": [_P, _P, _P, _I, _I64, _I64, _I, _I, _I, _P],
+        "sage2_edge_big": [_P, _P, _P, _I, _I64, _I, _I, _I, _I, _P, _P, _P,
+                           _P],
+        "sage2_edge_sort": [_P, _P, _P, _I, _I64, _I, _I, _I, _I64, _I, _P,
+                            _P, _P, _P],
     },
     "prune_table": {
         "sage2_prune_count": [_P, _I64, _I, _P, _P],
@@ -283,8 +291,10 @@ def nvcc_command() -> list:
 # the headers each source includes besides common.cuh
 HEADERS = {"lookup_counts": ("bucket_search.cuh",),
            "vote_windows": ("bucket_search.cuh",),
-           "dedup_reads": ("scan.cuh",), "seed_rows": ("scan.cuh",),
-           "longest_edges": ("scan.cuh",), "prune_table": ("scan.cuh",),
+           "dedup_reads": ("scan.cuh",),
+           "seed_rows": ("scan.cuh", "bucket_sort.cuh"),
+           "longest_edges": ("scan.cuh", "bucket_sort.cuh"),
+           "prune_table": ("scan.cuh",),
            "weak_windows": ("bucket_search.cuh", "scan.cuh"),
            "fix_windows": ("bucket_search.cuh",)}
 
@@ -1108,9 +1118,12 @@ def gather_along_launch(tbl: torch.Tensor, idx: torch.Tensor, axis: int,
     LAUNCHES["gather_along"] += 1
 
 
-# items a tile of the two-pass scans of K12-K14 (kScanTile in
+# items a tile of the two-pass scans of K12, K15 and K16 (kScanTile in
 # kernels/csrc/scan.cuh)
 SCAN_TILE = 1024
+# rows a tile of K13's entry-slab compaction (kCompactTile in
+# kernels/csrc/seed_rows.cu)
+SEED_COMPACT_TILE = 2048
 
 
 def _tile_scan(n: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1216,13 +1229,13 @@ def _check_seed_rows(L: int, s: int, g: int, n_pos: int, n_ids: int):
         raise ValueError(f"seed rows {n_ids} overflow 31-bit row ids")
 
 
-def _seed_rows_scan(reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw,
-                    split=None):
-    """K13's first passes, shared by ``seed_rows`` and
-    ``seed_rows_stacked``: (keys int64 (M Rw,), live uint8 (M Rw,),
-    payload (M, Rw, Wt + 2) int32, tile counts, total) with the keys,
-    live flags and payload rows from one launch and the live rows of each
-    tile counted and scanned (total 0 where there are no rows)."""
+def _seed_rows_build(reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw,
+                     prior_keys=None, scratch=None, d=0, split=None):
+    """K13's row build, shared by ``seed_rows`` and ``seed_rows_stacked``:
+    (keys int64 (M Rw,), live uint8 (M Rw,), payload (M, Rw, Wt + 2)
+    int32) from one launch, which with a bucket sort's ``scratch`` (2^d
+    buckets) also counts the buckets of the live rows and of
+    ``prior_keys``."""
     M, L = reads2.shape
     _dtype(reads2, torch.int32, "reads2")
     _dtype(valid2, torch.bool, "valid2")
@@ -1238,21 +1251,43 @@ def _seed_rows_scan(reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw,
     keys = torch.empty(n, dtype=torch.int64, device=dev)
     live = torch.empty(n, dtype=torch.uint8, device=dev)
     payload = torch.empty((M, Rw, Wt + 2), dtype=torch.int32, device=dev)
-    counts, total = _tile_scan(n, dev)
-    if n:
-        _launch("seed_rows", "sage2_seed_rows", _ptr(reads2), _ptr(valid2),
-                _ptr(lengths), M, L, s, g, n_pos, trim, t0, Rw, _ptr(keys),
-                _ptr(live), _ptr(payload), _stream())
-        LAUNCHES["seed_rows"] += 1
+    n_prior = 0 if prior_keys is None else prior_keys.shape[0]
+    _launch("seed_rows", "sage2_seed_rows", _ptr(reads2), _ptr(valid2),
+            _ptr(lengths), M, L, s, g, n_pos, trim, t0, Rw, _ptr(keys),
+            _ptr(live), _ptr(payload), _ptr(prior_keys), n_prior,
+            _ptr(scratch), d, _stream())
+    LAUNCHES["seed_rows"] += 1
     mark_part(split, "seed_rows")
-    if n:
-        _launch("seed_rows", "sage2_seed_count", _ptr(live), M, g, n_pos, Rw,
-                _ptr(counts), _stream())
-        LAUNCHES["seed_rows"] += 1
-        _scan_tiles("seed_rows", counts, total)
-    else:
-        total.zero_()
-    return keys, live, payload, counts, total
+    return keys, live, payload
+
+
+def _seed_rows_sort(keys, live, M, g, n_pos, t0, Rw, id_base, prior_keys,
+                    prior_ids, scratch, d, n_cap, fill_to):
+    """K13's bucketed sort of the live rows (and a slab's prior rows)
+    after the row build: the scan, one host read of the live count
+    (none with ``fill_to`` not None, the fixed-capacity buffer's size,
+    filled with dead rows past the live ones), the two scatter passes
+    and the sort (``scratch`` sized for ``n_cap`` rows). Returns (s_keys
+    int64, s_rows int32)."""
+    dev = keys.device
+    _launch("seed_rows", "sage2_seed_scan", _ptr(scratch), d, _stream())
+    n_rows = int(scratch[0]) if fill_to is None else fill_to
+    elems = torch.empty((n_rows, 2), dtype=torch.int64, device=dev)
+    tmp = torch.empty_like(elems)
+    _launch("seed_rows", "sage2_seed_scatter", _ptr(keys), _ptr(live), M, g,
+            n_pos, t0, Rw, id_base, _ptr(prior_keys), _ptr(prior_ids),
+            0 if prior_keys is None else prior_keys.shape[0], _ptr(scratch),
+            d, _ptr(elems), _stream())
+    _launch("seed_rows", "sage2_seed_split", _ptr(elems), _ptr(tmp),
+            _ptr(scratch), d, _stream())
+    s_keys = torch.empty(n_rows, dtype=torch.int64, device=dev)
+    s_rows = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    _launch("seed_rows", "sage2_seed_big", _ptr(elems), _ptr(tmp),
+            _ptr(scratch), d, n_cap, _ptr(s_keys), _ptr(s_rows), _stream())
+    _launch("seed_rows", "sage2_seed_sort", _ptr(tmp), _ptr(scratch), d,
+            fill_to or 0, _ptr(s_keys), _ptr(s_rows), _stream())
+    LAUNCHES["seed_rows"] += 5    # scan, two scatter passes, big, sort
+    return s_keys, s_rows
 
 
 @_on_device
@@ -1267,18 +1302,21 @@ def seed_rows(
     overlap join's seed rows of the (M, L) int32 ``reads2`` in its sort
     order, and the built rows' payload (see plain.seed_rows). Kernel
     K13: the keys, live flags and payload rows in one launch (one warp a
-    read, its words packed in shared memory), the live row ids and
-    their keys compacted in the join's order (two passes around a scan
-    of the tile counts), a stable torch.sort of the keys, and the row
-    ids gathered through its permutation (see
-    kernels/csrc/seed_rows.cu). One host read a call (the live rows).
+    read, its words packed in shared memory) that also counts the live
+    rows' buckets, then the bucketed sort of the unique (key, tag | id)
+    pairs (bucket_sort.cuh: scan, coarse and fine scatter, the buckets
+    past a block by the whole grid, the others a block each; six
+    launches), which gives the stable order of the join's rows without a
+    permutation (see kernels/csrc/seed_rows.cu). One host read a call
+    (the live rows).
 
     ``rows``: "all" (Rw = R = g + n_pos rows a read), "entries" (Rw = g)
     or "queries" (Rw = n_pos); ids are global, (id_base + m) * R + t.
     With "entries" the live rows come back compacted in id order and
-    unsorted (four launches: the streamed join's entry slab); with
-    "queries", ``prior_keys``/``prior_ids`` (a slab's) go before the
-    chunk's live rows into the sort."""
+    unsorted (two launches: the rows and a look-back compaction; the
+    streamed join's entry slab); with "queries", ``prior_keys``/
+    ``prior_ids`` (a slab's) go before the chunk's live rows into the
+    sort."""
     M, L = reads2.shape
     if rows not in plain.SEED_ROW_KINDS:
         raise ValueError(f"unknown seed rows {rows!r}")
@@ -1299,35 +1337,34 @@ def seed_rows(
         _dtype(prior_keys, torch.int64, "prior_keys")
         _dtype(prior_ids, torch.int32, "prior_ids")
     t0, Rw = plain.seed_row_span(rows, g, n_pos)
-    keys, live, payload, counts, total = _seed_rows_scan(
-        reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw, split)
-    dev, n = reads2.device, keys.shape[0]
-    n_prior = 0 if prior_keys is None else prior_keys.shape[0]
-    base = torch.empty(n_prior + n, dtype=torch.int32, device=dev)
-    ckeys = torch.empty(n_prior + n, dtype=torch.int64, device=dev)
-    if n_prior:
-        ckeys[:n_prior].copy_(prior_keys)
-        base[:n_prior].copy_(prior_ids)
-    n_live = 0
-    if n:
-        _launch("seed_rows", "sage2_seed_compact", _ptr(live), _ptr(keys), M,
-                g, n_pos, t0, Rw, id_base, _ptr(counts),
-                base[n_prior:].data_ptr(), ckeys[n_prior:].data_ptr(),
-                _stream())
-        LAUNCHES["seed_rows"] += 1
-        n_live = int(total)
-    del keys, live
-    n_rows = n_prior + n_live
+    dev = reads2.device
+    n = M * Rw
     if rows == "entries":
-        mark_part(split, "row_sort")
-        return ckeys[:n_rows], base[:n_rows], payload
-    s_keys, perm = torch.sort(ckeys[:n_rows], stable=True)
-    del ckeys
-    s_rows = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    if n_rows:
-        _launch("seed_rows", "sage2_seed_gather", _ptr(base), _ptr(perm),
-                n_rows, _ptr(s_rows), _stream())
+        keys, live, payload = _seed_rows_build(
+            reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw, split=split)
+        tiles = max(1, -(-n // SEED_COMPACT_TILE))
+        state = torch.empty(2 + tiles, dtype=torch.int64, device=dev)
+        base = torch.empty(n, dtype=torch.int32, device=dev)
+        ckeys = torch.empty(n, dtype=torch.int64, device=dev)
+        _launch("seed_rows", "sage2_seed_compact", _ptr(live), _ptr(keys), M,
+                g, n_pos, t0, Rw, id_base, _ptr(state), _ptr(base),
+                _ptr(ckeys), _stream())
         LAUNCHES["seed_rows"] += 1
+        n_live = int(state[0])
+        mark_part(split, "row_sort")
+        return ckeys[:n_live], base[:n_live], payload
+    n_prior = 0 if prior_keys is None else prior_keys.shape[0]
+    if n + n_prior >= 1 << 31:
+        raise ValueError(f"{n + n_prior} seed rows overflow K13's tags")
+    d = bucket_plan.bucket_bits(n + n_prior)
+    scratch = torch.empty(bucket_plan.scratch_words(d, n + n_prior),
+                          dtype=torch.int64, device=dev)
+    keys, live, payload = _seed_rows_build(
+        reads2, valid2, lengths, s, g, n_pos, trim, t0, Rw, prior_keys,
+        scratch, d, split)
+    s_keys, s_rows = _seed_rows_sort(keys, live, M, g, n_pos, t0, Rw,
+                                     id_base, prior_keys, prior_ids,
+                                     scratch, d, n + n_prior, None)
     mark_part(split, "row_sort")
     return s_keys, s_rows, payload
 
@@ -1341,94 +1378,81 @@ def seed_rows_stacked(
     int32, n_live 0-d int64): the fixed-capacity mode of ``seed_rows``
     (every row of each read, ids m * R + t) for find_overlaps_stacked.
     The live rows in the join's order come first, dead rows (key
-    INT64_MAX, id -1) fill the buffer behind them, and the whole buffer
-    is sorted stably, so the first ``n_live`` rows are ``seed_rows``'
-    and nothing waits on the host (see plain.seed_rows_stacked). Kernel
-    K13, five launches around one torch.sort."""
+    INT64_MAX, id -1) fill the buffer behind them, so the first
+    ``n_live`` rows are ``seed_rows``' and nothing waits on the host (see
+    plain.seed_rows_stacked). Kernel K13, six launches: the rows with
+    their buckets counted, the scan, the two scatter passes, the big
+    buckets' sort, and the sort, whose blocks also write the dead rows
+    from the live count on."""
     M, L = reads2.shape
     R = g + n_pos
     _check_seed_rows(L, s, g, n_pos, M * R)
     if _on_cpu(reads2, valid2):
         return plain.seed_rows_stacked(reads2, valid2, s, g, n_pos, trim)
-    keys, live, payload, counts, total = _seed_rows_scan(
-        reads2, valid2, None, s, g, n_pos, trim, 0, R)
-    dev, n = reads2.device, M * R
-    base = torch.empty(n, dtype=torch.int32, device=dev)
-    ckeys = torch.empty(n, dtype=torch.int64, device=dev)
-    if n == 0:
-        return ckeys, base, payload, total[0]
-    _launch("seed_rows", "sage2_seed_compact_fixed", _ptr(live), _ptr(keys),
-            M, g, n_pos, _ptr(counts), _ptr(total), _ptr(base), _ptr(ckeys),
-            _stream())
-    LAUNCHES["seed_rows"] += 1
-    del keys, live
-    s_keys, perm = torch.sort(ckeys, stable=True)
-    del ckeys
-    s_rows = torch.empty(n, dtype=torch.int32, device=dev)
-    _launch("seed_rows", "sage2_seed_gather", _ptr(base), _ptr(perm), n,
-            _ptr(s_rows), _stream())
-    LAUNCHES["seed_rows"] += 1
-    return s_keys, s_rows, payload, total[0]
+    n = M * R
+    d = bucket_plan.bucket_bits(n)
+    scratch = torch.empty(bucket_plan.scratch_words(d, n), dtype=torch.int64,
+                          device=reads2.device)
+    keys, live, payload = _seed_rows_build(reads2, valid2, None, s, g, n_pos,
+                                           trim, 0, R, None, scratch, d)
+    s_keys, s_rows = _seed_rows_sort(keys, live, M, g, n_pos, 0, R, 0, None,
+                                     None, scratch, d, n, n)
+    return s_keys, s_rows, payload, scratch[0]
 
 
 @_on_device
 def _longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices: int,
-                   read_len: int, capacity: int, deferred: bool, out):
+                   read_len: int, capacity: int, deferred: bool, out,
+                   sources=None):
     """K14's launches (see ``longest_edges``): (src, dst, ovl, written,
     keepers), ``written`` the 0-d int64 count of the rows written (the
-    keepers, or in the deferred mode the valid rows), ``keepers`` the
+    keepers, or in the deferred mode the ok rows), ``keepers`` the
     deferred mode's keeper count (None otherwise)."""
     n = ok.shape[0]
     _dtype(ok, torch.bool, "ok")
     for t in (cand_a, cand_b, cand_ovl):
         _dtype(t, torch.int32, "candidate arrays")
+    if n >= 1 << 32:
+        raise ValueError(f"{n} candidates overflow K14's bucket counts")
     db, ob = plain.edge_key_bits(n_vertices, read_len)
     wide = 2 * db + ob > 63
     dev = ok.device
-    keys = torch.empty(n, dtype=torch.int64, device=dev)
-    perm1 = perm2 = None
-    if n:
-        _launch("longest_edges", "sage2_edge_keys", _ptr(ok), _ptr(cand_a),
-                _ptr(cand_b), _ptr(cand_ovl), n, db, ob, int(wide),
-                _ptr(keys), _stream())
-        LAUNCHES["longest_edges"] += 1
-    if not wide:
-        keys = torch.sort(keys).values
-    else:
-        perm1 = torch.sort(keys, stable=True).indices
-        if n:
-            _launch("longest_edges", "sage2_edge_pairs", _ptr(ok),
-                    _ptr(cand_a), _ptr(cand_b), _ptr(perm1), n, _ptr(keys),
-                    _stream())
-            LAUNCHES["longest_edges"] += 1
-        keys, perm2 = torch.sort(keys, stable=True)
-    tiles = max(1, -(-n // SCAN_TILE))
-    scratch = (torch.zeros if deferred else torch.empty)(
-        tiles + 2, dtype=torch.int64, device=dev)
-    counts, total = scratch[:tiles], scratch[tiles]
-    keepers = scratch[tiles + 1] if deferred else None
-    if n:
-        if deferred:
-            _launch("longest_edges", "sage2_edge_count_deferred", _ptr(keys),
-                    n, 0 if wide else ob, _ptr(counts), _ptr(keepers),
-                    _stream())
-        else:
-            _launch("longest_edges", "sage2_edge_count", _ptr(keys), n,
-                    0 if wide else ob, _ptr(counts), _stream())
-        LAUNCHES["longest_edges"] += 1
-        _scan_tiles("longest_edges", counts, total)
-    else:
-        total.zero_()
+    lo, hi = _source_range(sources, n_vertices)
+    span = hi - lo
+    d = bucket_plan.edge_bucket_bits(n, span)
+    scratch = torch.empty(bucket_plan.scratch_words(d, n), dtype=torch.int64,
+                          device=dev)
+    _launch("longest_edges", "sage2_edge_hist", _ptr(ok), _ptr(cand_a), n,
+            lo, span, _ptr(scratch), d, _stream())
+    _launch("longest_edges", "sage2_edge_scan", _ptr(scratch), d, _stream())
+    elems = torch.empty((n, 2 if wide else 1), dtype=torch.int64, device=dev)
+    tmp = torch.empty_like(elems)
+    _launch("longest_edges", "sage2_edge_scatter", _ptr(ok), _ptr(cand_a),
+            _ptr(cand_b), _ptr(cand_ovl), n, lo, span, db, ob, int(wide),
+            _ptr(scratch), d, _ptr(elems), _stream())
+    _launch("longest_edges", "sage2_edge_split", _ptr(elems), _ptr(tmp),
+            _ptr(scratch), d, lo, span, db, ob, int(wide), _stream())
     src, dst, ovl = out if out is not None else (
         torch.empty(capacity, dtype=torch.int32, device=dev)
         for _ in range(3))
-    if capacity:
-        _launch("longest_edges", "sage2_edge_write", _ptr(keys), n, db, ob,
-                int(wide), _ptr(perm1), _ptr(perm2), _ptr(cand_ovl),
-                _ptr(counts), _ptr(total), capacity, int(deferred), _ptr(src),
-                _ptr(dst), _ptr(ovl), _stream())
-        LAUNCHES["longest_edges"] += 1
-    return src, dst, ovl, total, keepers
+    _launch("longest_edges", "sage2_edge_big", _ptr(elems), _ptr(tmp),
+            _ptr(scratch), d, n, db, ob, int(wide), int(deferred), _ptr(src),
+            _ptr(dst), _ptr(ovl), _stream())
+    _launch("longest_edges", "sage2_edge_sort", _ptr(elems), _ptr(tmp),
+            _ptr(scratch), d, n, db, ob, int(wide), capacity, int(deferred),
+            _ptr(src), _ptr(dst), _ptr(ovl), _stream())
+    LAUNCHES["longest_edges"] += 6      # two scatter passes, big, sort
+    if deferred:
+        return src, dst, ovl, scratch[0], scratch[1]
+    return src, dst, ovl, scratch[1], None
+
+
+def _source_range(sources, n_vertices: int) -> Tuple[int, int]:
+    """K14's range of source ids, [lo, hi): ``sources`` or all ids."""
+    lo, hi = sources if sources is not None else (0, max(n_vertices, 1))
+    if not 0 <= lo < hi:
+        raise ValueError(f"sources [{lo}, {hi}) is not a range of ids")
+    return lo, hi
 
 
 def _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, out):
@@ -1449,25 +1473,33 @@ def _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, out):
 def longest_edges(
     ok: torch.Tensor, cand_a: torch.Tensor, cand_b: torch.Tensor,
     cand_ovl: torch.Tensor, n_vertices: int, read_len: int, capacity: int,
+    sources: Optional[Tuple[int, int]] = None,
 ):
     """(src, dst, ovl int32 (capacity,), n_edges int): the longest overlap
     of each (src, dst) among the ``ok`` candidates, sorted by (src, dst)
     and padded with (INT32_MAX, INT32_MAX, 0) (see plain.longest_edges;
     vertex ids below ``n_vertices``, overlaps up to ``read_len``).
-    Kernel K14: a launch builds each candidate's key (the composite
-    (src, dst, ovl) key, or ovl where 2 db + ob > 63; -1 where not ok),
-    torch.sort orders it (the wide order: a stable sort by ovl, a launch
-    gathering the (src, dst) keys, a second stable sort), and two passes
-    around a scan of the tile counts mark the last row of each (src,
-    dst) run, compact those rows and fill the padding (see
-    kernels/csrc/longest_edges.cu). One host read a call (n_edges)."""
+    Kernel K14, six launches: the ok candidates' buckets counted (by
+    src), scanned, the candidates scattered to their coarse and then
+    fine buckets as one key (src, dst, ovl), or two words where 2 db +
+    ob > 63, the buckets past a block sorted by the whole grid, and a
+    block a bucket sorts it, keeps the last row of each (src, dst) run
+    at the slot a look-back in bucket order gives, and fills the padding
+    (see kernels/csrc/longest_edges.cu, bucket_sort.cuh). One host read
+    a call (n_edges).
+
+    ``sources``: (lo, hi), the ids the ok candidates' sources lie in
+    where that is narrower than [0, n_vertices) (a mesh shard's own
+    range): the buckets split it in place of all the ids. It moves no
+    row: a source outside it is sorted all the same."""
     _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, None)
+    _source_range(sources, n_vertices)
     if _on_cpu(ok, cand_a, cand_b, cand_ovl):
         return plain.longest_edges(ok, cand_a, cand_b, cand_ovl, n_vertices,
                                    read_len, capacity)
     src, dst, ovl, total, _ = _longest_edges(
         ok, cand_a, cand_b, cand_ovl, n_vertices, read_len, capacity, False,
-        None)
+        None, sources)
     return src, dst, ovl, int(total)
 
 
@@ -1501,8 +1533,9 @@ def longest_edges_deferred(
     order, padded with (INT32_MAX, INT32_MAX, 0); a pair verified at
     several lengths keeps all of its rows, its longest last. n_edges
     counts the pairs (the keepers), n_dups the other rows (see
-    plain.longest_edges_deferred). Kernel K14 with the same launches;
-    the counts stay on the card, so nothing waits on the host."""
+    plain.longest_edges_deferred). Kernel K14 with the same launches,
+    each bucket's rows written at its own slots; the counts stay on the
+    card, so nothing waits on the host."""
     _edge_args(ok, cand_a, cand_b, cand_ovl, capacity, out)
     if _on_cpu(ok, cand_a, cand_b, cand_ovl):
         return plain.longest_edges_deferred(ok, cand_a, cand_b, cand_ovl,

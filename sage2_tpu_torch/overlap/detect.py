@@ -326,7 +326,7 @@ def build_seed_rows(
 
 def _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len: int,
                   capacity: int, n_vertices: int,
-                  defer_dup_compact: bool = False, out=None):
+                  defer_dup_compact: bool = False, out=None, sources=None):
     """Longest overlap per (src, dst), sorted by (src, dst), padded to
     ``capacity`` rows (INT32_MAX, INT32_MAX, 0); vertex ids below
     ``n_vertices``, overlaps up to ``read_len`` (kernel K14, which packs
@@ -340,12 +340,14 @@ def _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len: int,
     ``n_vertices`` >= 2^(31 - bit_length(read_len)) the reference's
     packing does not fit and it returns the compacted list with n_dups 0
     (:1042-1048): so does this. ``out`` (deferred only): three
-    (capacity,) int32 tensors to write into."""
+    (capacity,) int32 tensors to write into. ``sources`` (not deferred):
+    see kernels.longest_edges."""
     if not defer_dup_compact:
         if out is not None:
             raise ValueError("out is taken only with defer_dup_compact")
         return (*kernels.longest_edges(ok, cand_a, cand_b, cand_ovl,
-                                       n_vertices, read_len, capacity), 0)
+                                       n_vertices, read_len, capacity,
+                                       sources), 0)
     if n_vertices >= 1 << (31 - int(read_len).bit_length()):
         src, dst, ovl, n_edges = kernels._longest_edges_unread(
             ok, cand_a, cand_b, cand_ovl, n_vertices, read_len, capacity,
@@ -357,12 +359,15 @@ def _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len: int,
 
 
 def reduce_edge_candidates(ok, cand_a, cand_b, cand_ovl, read_len: int,
-                           n_vertices: int):
+                           n_vertices: int, sources=None):
     """Longest overlap per (src, dst) of the ok candidates, sorted by
     (src, dst) and padded to the candidate count (:488). Returns (src,
-    dst, ovl, n_edges); the first n_edges rows are the reference's."""
+    dst, ovl, n_edges); the first n_edges rows are the reference's.
+    ``sources``: (lo, hi), the ids the sources lie in where narrower than
+    all vertices (a streamed query chunk's reads; see
+    kernels.longest_edges)."""
     return _reduce_fused(ok, cand_a, cand_b, cand_ovl, read_len,
-                         ok.shape[0], n_vertices)[:4]
+                         ok.shape[0], n_vertices, sources=sources)[:4]
 
 
 def _detect(reads2, valid2, min_overlap, seed_len, stride, capacity_of,

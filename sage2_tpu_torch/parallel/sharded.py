@@ -454,7 +454,7 @@ def sharded_find_overlaps(
         del routes
         # --- each source owner's merge and dedup
         out_src, out_dst, out_ovl, n_edges, ovf = _merge_edges(
-            recv, M, L, edge_cap, edge_cap)
+            recv, M, L, m_local, edge_cap, edge_cap)
         overflow |= ovf
         n_edges = comm.psum(n_edges)
         if lens2 is None:
@@ -533,21 +533,27 @@ def _owner_join(parts: List[torch.Tensor], geo, M: int, L: int,
                               None, False, None, False), total
 
 
-def _merge_edges(recv: List[torch.Tensor], M: int, L: int, edge_cap: int,
-                 out_len: int):
-    """Each source owner's merge of the (rows, 3) edges it received: the
-    longest overlap per pair (K14), sorted, cut to ``out_len`` rows with
-    INT32_MAX padding (sharded.py:972-979, sharded_stream.py:521-533).
-    Returns (src, dst, ovl per shard, n_edges per shard, overflow: some
-    shard kept more than ``edge_cap``)."""
+def _merge_edges(recv: List[torch.Tensor], M: int, L: int, v_d: int,
+                 edge_cap: int, out_len: int):
+    """Each source owner's merge of the (rows, 3) edges it received (shard
+    d: sources in [d v_d, (d + 1) v_d), the last shard's up to M): the
+    longest overlap per pair (K14, its buckets over the shard's sources),
+    sorted, cut to ``out_len`` rows with INT32_MAX padding
+    (sharded.py:972-979, sharded_stream.py:521-533). Returns (src, dst,
+    ovl per shard, n_edges per shard, overflow: some shard kept more than
+    ``edge_cap``)."""
     out = ([], [], [])
     n_edges, overflow = [], False
-    for d in range(len(recv)):
+    n = len(recv)
+    for d in range(n):
         er, recv[d] = recv[d], None
         ones = torch.ones(er.shape[0], dtype=torch.bool, device=er.device)
+        lo = max(0, min(d * v_d, M - 1))
+        hi = M if d == n - 1 else max(lo + 1, min(M, (d + 1) * v_d))
         *edges, n_local = kernels.longest_edges(
             ones, er[:, 0].contiguous(), er[:, 1].contiguous(),
-            er[:, 2].contiguous(), M, L, max(out_len, er.shape[0]))
+            er[:, 2].contiguous(), M, L, max(out_len, er.shape[0]),
+            (lo, hi))
         del er, ones
         overflow |= n_local > edge_cap
         n_edges.append(n_local)

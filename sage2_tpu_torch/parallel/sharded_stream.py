@@ -323,7 +323,7 @@ def sharded_find_overlaps_chunked(
         gathered = [torch.cat(p) for p in edges]
         del edges
         src, dst, ovl, n_local, ovf = _merge_edges(
-            gathered, M, L, edge_cap,
+            gathered, M, L, v_d, edge_cap,
             min(edge_cap, len(starts) * n * edge_chunk_cap))
         overflow |= ovf
         n_edges = comm.psum(n_local)

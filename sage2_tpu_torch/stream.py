@@ -301,11 +301,13 @@ def _words(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
     return bitpack.pack_read_words(_rows(rows, dev))
 
 
-def _chunk_edges(ok, cand_a, cand_b, cand_ovl, L: int, M: int):
-    """The longest overlap per (src, dst) of one chunk's candidates (of
-    M vertices), as host arrays in (src, dst) order."""
+def _chunk_edges(ok, cand_a, cand_b, cand_ovl, L: int, M: int, i: int,
+                 j: int):
+    """The longest overlap per (src, dst) of the candidates of the query
+    chunk of reads [i, j) (of M vertices; a candidate's source is its
+    query read), as host arrays in (src, dst) order."""
     src, dst, ovl, n_keep = detect.reduce_edge_candidates(
-        ok, cand_a, cand_b, cand_ovl, L, M)
+        ok, cand_a, cand_b, cand_ovl, L, M, (i, j))
     return tuple(a[:n_keep].cpu().numpy() for a in (src, dst, ovl))
 
 
@@ -414,7 +416,8 @@ def find_overlaps_chunked(
             slab, L, s, g, pa, i, capacity_per_chunk)
         if n_cand > capacity_per_chunk:
             return _overflow(writers or [])
-        part = _chunk_edges(ok, ca, cb, ovl, L, M)
+        part = _chunk_edges(ok, ca, cb, ovl, L, M, i,
+                            min(i + chunk_reads, M))
         del ok, ca, cb, ovl
         n_edges += part[0].shape[0]
         if writers is not None:
@@ -475,7 +478,8 @@ def _find_overlaps_chunked_blocked(
                 capacity_per_chunk)
             if n_cand > capacity_per_chunk:
                 return _overflow(frags.spill_writers())
-            frags.append(ci, _chunk_edges(ok, ca, cb, ovl, L, M))
+            frags.append(ci, _chunk_edges(ok, ca, cb, ovl, L, M, i,
+                                          min(i + chunk_reads, M)))
             del ok, ca, cb, ovl
         del table, slab
     return (*frags.merge(("edges_src", "edges_dst", "edges_ovl"), True),
@@ -593,7 +597,7 @@ def _ragged_chunk(slab: _Slab, reads2, valid, lens, i: int, chunk_reads: int,
     del s_keys, s_rows, payload
     if total > capacity:
         return None
-    return _chunk_edges(ok, ca, cb, ovl, L, M)
+    return _chunk_edges(ok, ca, cb, ovl, L, M, i, j)
 
 
 def find_overlaps_chunked_ragged(

@@ -700,7 +700,9 @@ def test_seed_rows_kernel(cuda, sim, ragged, seed_len, min_overlap):
     args = (r, valid, lens, s, geo.g, geo.n_pos, geo.trim)
     before = kernels.LAUNCHES["seed_rows"]
     got = kernels.seed_rows(*args)
-    assert kernels.LAUNCHES["seed_rows"] == before + 5
+    # the rows, then the bucketed sort: scan, two scatter passes, the big
+    # buckets, the sort
+    assert kernels.LAUNCHES["seed_rows"] == before + 6
     _equal(got, plain.seed_rows(*args))
     assert got[0].numel() > 0
 
@@ -735,7 +737,8 @@ def test_longest_edges_kernel(cuda, case):
     before = kernels.LAUNCHES["longest_edges"]
     got = kernels.longest_edges(*args)
     n_launches = kernels.LAUNCHES["longest_edges"] - before
-    assert n_launches == (5 if wide else 4)
+    # histogram, scan, two scatter passes, the big buckets, the sort
+    assert n_launches == 6
     _equal(got, plain.longest_edges(*args))
     if case == "no_ok":
         assert got[3] == 0 and bool((got[0] == 2**31 - 1).all())
@@ -873,7 +876,7 @@ def test_streamed_join_kernels(cuda, chunk):
                 "entries")
         before = kernels.LAUNCHES["seed_rows"]
         got = kernels.seed_rows(*args)
-        assert kernels.LAUNCHES["seed_rows"] == before + 4
+        assert kernels.LAUNCHES["seed_rows"] == before + 2  # rows, compact
         _equal(got, plain.seed_rows(*args))
         keys.append(got[0])
         ids.append(got[1])
@@ -952,7 +955,7 @@ def test_seed_rows_stacked_kernel(cuda, case):
     args = (r, valid, s, geo.g, geo.n_pos, geo.trim)
     before = kernels.LAUNCHES["seed_rows"]
     got = kernels.seed_rows_stacked(*args)
-    assert kernels.LAUNCHES["seed_rows"] == before + 5
+    assert kernels.LAUNCHES["seed_rows"] == before + 6
     _equal(got, plain.seed_rows_stacked(*args))
     n = int(got[3])
     assert 0 < n < got[0].numel()
@@ -1004,7 +1007,7 @@ def test_longest_edges_deferred_kernel(cuda, case):
     args = (ok, a, b, ovl, V, L, cap)
     before = kernels.LAUNCHES["longest_edges"]
     got = kernels.longest_edges_deferred(*args)
-    assert kernels.LAUNCHES["longest_edges"] - before == (5 if wide else 4)
+    assert kernels.LAUNCHES["longest_edges"] - before == 6
     _equal(got, plain.longest_edges_deferred(*args))
     assert got[3].device.type == got[4].device.type == cuda.type
     if case in ("periodic", "join_dups"):
@@ -1042,6 +1045,128 @@ def test_reduce_fused_deferred_fallback_is_sync_free(cuda):
     _equal(got[:3], want[:3])
     assert got[3].device.type == cuda.type and int(got[3]) == want[3]
     assert int(got[4]) == 0
+
+
+# --- K13 and K14's bucketed sort: skew and odd sizes -------------------------
+
+def _skew_reads(cuda, case):
+    """(reads2, valid2, lengths) for K13's bucketed sort: "one_key" most
+    reads poly-A (24,000 live rows of one key: one bucket past a block's
+    2,048), "all_t" most reads poly-T beside invalid reads (live rows of
+    key INT64_MAX before the stacked mode's dead rows), "many_keys" four
+    big buckets of different sizes (poly-A, -C, -G and -T reads: 9,600,
+    4,800, 2,400 and 2,064 live rows, the last one row past a block's
+    2,048 with the ragged lengths' dead rows aside), "one" a single read,
+    "odd" 1,237 reads (no tile's multiple)."""
+    rng = np.random.default_rng(21)
+    M = {"one_key": 1500, "all_t": 900, "many_keys": 1400, "one": 1,
+         "odd": 1237}[case]
+    L = 100
+    r = rng.integers(0, 4, (M, L)).astype(np.int32)
+    valid = np.ones(M, bool)
+    if case == "one_key":
+        r[: M - 50] = 0
+    if case == "all_t":
+        r[: M // 2] = 3
+        valid[M // 3 : 2 * M // 3] = False
+    if case == "many_keys":
+        r[:600], r[600:900], r[900:1050], r[1050:1179] = 0, 1, 2, 3
+    if case == "odd":
+        valid[::11] = False
+    lens = rng.integers(60, L + 1, M).astype(np.int32)
+    return (torch.from_numpy(r).to(cuda), torch.from_numpy(valid).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("case", ["one_key", "all_t", "many_keys", "one",
+                                  "odd"])
+def test_seed_rows_kernel_skew(cuda, case, ragged):
+    r, valid, lens = _skew_reads(cuda, case)
+    geo = join_geometry(100, 40, 32)
+    args = (r, valid, lens if ragged else None, 32, geo.g, geo.n_pos,
+            geo.trim)
+    before = kernels.LAUNCHES["seed_rows"]
+    got = kernels.seed_rows(*args)
+    assert kernels.LAUNCHES["seed_rows"] == before + 6
+    _equal(got, plain.seed_rows(*args))
+    # a query chunk sorted with a slab of the first half's entry rows
+    h = r.shape[0] // 2
+    e = (r[:h], valid[:h], lens[:h] if ragged else None, *args[3:], 0,
+         "entries")
+    slab = kernels.seed_rows(*e)
+    _equal(slab, plain.seed_rows(*e))
+    q = (r[h:], valid[h:], lens[h:] if ragged else None, *args[3:], h,
+         "queries", slab[0], slab[1])
+    _equal(kernels.seed_rows(*q), plain.seed_rows(*q))
+    if not ragged:
+        st = (r, valid, 32, geo.g, geo.n_pos, geo.trim)
+        before = kernels.LAUNCHES["seed_rows"]
+        got = kernels.seed_rows_stacked(*st)
+        assert kernels.LAUNCHES["seed_rows"] == before + 6
+        _equal(got, plain.seed_rows_stacked(*st))
+        if case == "all_t":     # live all-T rows, then the dead rows
+            n = int(got[3])
+            assert bool((got[0][:n] == plain.I64_MAX).any())
+            assert bool((got[1][n:] == -1).all()) and n < got[0].numel()
+
+
+def _skew_edges(cuda, case):
+    """(ok, a, b, ovl, V, L, cap) for K14's bucketed sort: "hub" one src
+    in most ok rows (a bucket past a block), "hub_wide" the same at ids
+    near 2^30, "hubs" four hubs of 20,000, 5,000, 2,049 and 2,048 ok
+    rows (the last two in one bucket: big buckets of different sizes),
+    "shard" a
+    mesh shard's candidates, sources in [1250, 2500) of 5,000 with a hub,
+    bucketed over that range, "none_ok" 100,000 candidates and none ok,
+    "one" a single candidate, "odd" 13,525 candidates (no tile's
+    multiple) with duplicate pairs. Returns the arguments and the
+    sources' range (None: all ids)."""
+    rng = np.random.default_rng(22)
+    n = {"hub": 60_000, "hub_wide": 60_000, "hubs": 60_000, "shard": 60_000,
+         "none_ok": 100_000, "one": 1, "odd": 13_525}[case]
+    V, L = 5000, 100
+    a = rng.integers(0, V, n)
+    b = rng.integers(0, V, n)
+    ovl = rng.integers(40, L, n)
+    ok = rng.random(n) < 0.65
+    if case in ("hub", "hub_wide"):
+        a[: 50_000] = 7
+    if case == "hubs":
+        ok[:29_097] = True
+        a[:20_000], a[20_000:25_000] = 7, 4000
+        a[25_000:27_049], a[27_049:29_097] = 2500, 2501
+        a[29_097:] = np.where(np.isin(a[29_097:], [7, 4000, 2500, 2501]),
+                              8, a[29_097:])
+    if case == "shard":
+        a = 1250 + a % 1250
+        a[:10_000] = 1300
+    if case == "none_ok":
+        ok[:] = False
+    if case == "one":
+        ok[:] = True
+    if case == "odd":
+        a[: 3000], b[: 3000] = a[3000:6000], b[3000:6000]
+    if case == "hub_wide":
+        V += 1 << 30
+        a, b = a + (1 << 30), b + (1 << 30)
+    t = [torch.from_numpy(x).to(cuda) for x in (
+        ok, a.astype(np.int32), b.astype(np.int32), ovl.astype(np.int32))]
+    return (*t, V, L, n + 99), ((1250, 2500) if case == "shard" else None)
+
+
+@pytest.mark.parametrize("case", ["hub", "hub_wide", "hubs", "shard",
+                                  "none_ok", "one", "odd"])
+def test_longest_edges_kernel_skew(cuda, case):
+    args, sources = _skew_edges(cuda, case)
+    before = kernels.LAUNCHES["longest_edges"]
+    got = kernels.longest_edges(*args, sources=sources)
+    assert kernels.LAUNCHES["longest_edges"] == before + 6
+    _equal(got, plain.longest_edges(*args))
+    got = kernels.longest_edges_deferred(*args)
+    _equal(got, plain.longest_edges_deferred(*args))
+    if case == "none_ok":
+        assert int(got[3]) == 0 and bool((got[0] == 2**31 - 1).all())
 
 
 def _stacked_shards(cuda, K=3, n=20_000):
