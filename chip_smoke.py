@@ -135,7 +135,9 @@ Phases (one flushed line each, with its seconds):
      them. Bit equality of outputs and in-place results asserted,
      median times (CUDA events), the bound from bytes and operations,
      a K2 or K5 row the time of its first launch (the bucket directory,
-     "index_ms") beside the whole call, a K5 row the share of its
+     "index_ms") beside the whole call, a K16 row the time of its
+     round's membership table build ("build_ms", three launches under
+     K16's name in the path's counts), a K5 row the share of its
      (window, position) pairs that the skip leaves to look up
      ("pair_share", on the path's first voting round's input), a P1 row
      the bare launch without the flag read ("kernel_ms") beside the
@@ -151,8 +153,9 @@ Phases (one flushed line each, with its seconds):
      none the path's `steps` chained index_select(p, 0, p)). A K2 row
      takes the pruned table of its path's K16 row and the canonical keys
      of that row's reads (K1, in phase 2): K16 makes those lookups inside
-     its own launch now, and the path launches K2 only for the bucket
-     directory that K16 and K17 share: a K2 row's "launches" are that
+     its own launch now (in its membership table of the solid keys), and
+     the path launches K2 only for the bucket directory that K17 uses
+     (and K16 where it builds no table): a K2 row's "launches" are that
      directory's, printed as such, and its search is timed on inputs
      the path never gave it. A K4 row
      times one whole doubling loop (one launch) and prints its time a
@@ -586,6 +589,7 @@ class RawDeviceCopies:
         self.ctypes, self.rt = ctypes, rt
         self.kept = 0           # bytes held on the card
         self.kept_host = 0      # bytes copied to the host
+        self.copy_s = 0.0       # host seconds spent in copy()
         self.sizes = {}         # bytes of each raw copy
 
     def copy(self, t):
@@ -648,7 +652,11 @@ class Capture:
 
     # wrappers outside KERNELS, and the kernel whose launches they count
     EXTRA = {"lookup_directory": "lookup_counts", "chain_cut": "chain_links",
+             "solid_table": "weak_windows",
              **{w: k.split(":")[0] for k, w in WRAPPER.items()}}
+    # the round's lookup structures (the bucket directory, K16's membership
+    # table): counted, never kept as a call of their kernel
+    BUILDS = ("lookup_directory", "solid_table")
     # the row key of a wrapper's calls where it is not the kernel's name
     # (a call in a branch of BRANCH_AT gets that row's key in ``counted``)
     KEY_OF = {w: k for k, w in WRAPPER.items()
@@ -662,6 +670,7 @@ class Capture:
         self.copies = RawDeviceCopies()
         self.args: dict = {}
         self.phase = None
+        self.since = (0, 0, 0.0)    # copies' (kept, kept_host, copy_s)
         self.depth = 0          # wrapped calls in progress
         self.keeping = True     # False: count only (copies would sync)
         self.entry_base = 0     # the first read of the last seed table
@@ -714,6 +723,9 @@ class Capture:
                 key = next((row for at, row in BRANCH_AT.get(attr, ())
                             if len(args) > max(at) and all(isinstance(
                                 args[i], torch.Tensor) for i in at)), key)
+            if attr == "solid_table":   # the K16 calls' key on this path
+                key = next((k for k in PATHS.get(self.phase, ())
+                            if k.startswith("weak_windows")), key)
             # the streamed join's rows prefer a later entry block (a
             # table and slab of global ids from base > 0) and a query
             # chunk after the first, then the most input elements
@@ -733,14 +745,18 @@ class Capture:
                    else f"{key}:{self.phase}")
             kept = self.args.get(row)
             # the directory alone is no K2 call: its launch counts, and the
-            # K2 row takes other inputs (see phase 2)
+            # K2 row takes other inputs (see phase 2); K16's table alike
             keep = self.keeping and row in KERNEL_INFO and (
-                attr != "lookup_directory") and (
+                attr not in self.BUILDS) and (
                 kept is None or rank > kept[0])
             if keep:        # copied before the call: some update in place
                 self._drop(row)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 copies = [self.copies.copy(a) if isinstance(
                     a, torch.Tensor) else (a, None, None) for a in args]
+                torch.cuda.synchronize()
+                self.copies.copy_s += time.perf_counter() - t0
                 kept = [c[0] for c in copies]
                 handles = [c[1] for c in copies if c[1] is not None]
                 dtypes = [(getattr(a, "dtype", None), c[2])
@@ -797,6 +813,19 @@ class Capture:
         self.launches = dict.fromkeys(self.launches, 0)
         self.calls = dict.fromkeys(self.calls, 0)
         self.phase = phase
+        c = self.copies
+        self.since = (c.kept, c.kept_host, c.copy_s)
+
+    def copies_note(self) -> str:
+        """What keeping phase 2's inputs added since the last reset: bytes
+        on the card and in host memory (past DEVICE_BUDGET) and the host
+        seconds of the copies, which fall inside the stages' times and
+        their device splits."""
+        c = self.copies
+        return (f"kernel inputs kept for phase 2 during this run: "
+                f"{(c.kept - self.since[0]) / 2**30:.3f} GiB to the card, "
+                f"{(c.kept_host - self.since[1]) / 2**30:.3f} GiB to the "
+                f"host, {c.copy_s - self.since[2]:.3f} s of copies")
 
     def path_launches(self, path: str) -> dict:
         """Launches by key since the last reset; raises unless every
@@ -1438,6 +1467,17 @@ def main() -> int:
                             f"{n_windows} valid windows, {pairs} of "
                             f"{all_pairs} (w, j) pairs left by the skip "
                             f"({rows[-1]['pair_share']:.4f})")
+            elif name == "weak_windows":    # the round's membership table
+                reads, _, table, counts, directory, k, threshold = args
+                if kernels.solid_bits(table.numel(), k) is not None:
+                    spare = directory.clone()
+                    rows[-1]["build_ms"] = time_ms(lambda: kern(
+                        "solid_table")(table, counts, k, threshold, spare))
+                    per_step = (f", the round's membership table built in "
+                                f"{rows[-1]['build_ms']:.3f} ms")
+                    del spare
+                else:
+                    per_step = ", no membership table (K2's directory)"
             elif key == "reduce_requests:rows":     # the launch alone
                 ss_key, vbase, v_d = args
                 firsts = (torch.arange(v_d + 1, device=dev) + vbase) << 32
@@ -1613,7 +1653,8 @@ def main() -> int:
     launches_by_key["12"] = capture.path_launches("12")
     report_assembly(f"12 ecoli mesh{MESH_SHARDS}", t0,
                     time.perf_counter() - t0, log, launches, mesh_contigs,
-                    mesh_stats, genome, genome_fraction)
+                    mesh_stats, genome, genome_fraction,
+                    copies=capture.copies_note())
     peaks = {"12": peak_gib()}
     report_mesh("12", log, peaks["12"])
     got = {k: e2e["detail"][k] for k in ("n50", "n_contigs")}
@@ -1653,7 +1694,8 @@ def main() -> int:
         launches_by_key[label] = capture.path_launches(label)
         report_assembly(f"{label} ecoli ragged mesh{MESH_SHARDS}", t0,
                         time.perf_counter() - t0, log, launches, contigs,
-                        stats, genome, genome_fraction)
+                        stats, genome, genome_fraction,
+                        copies=capture.copies_note())
         peaks[label] = peak_gib()
         report_mesh(label, log, peaks[label])
         meshed[label] = (contigs, stats, contained_count(log, label))
@@ -1695,7 +1737,8 @@ def main() -> int:
             spilled = sorted(os.listdir(cfg.spill_dir))
         report_assembly(f"{label} ecoli streamed mesh{MESH_SHARDS}", t0,
                         t_asm, log, launches, contigs, stats, genome,
-                        genome_fraction)
+                        genome_fraction,
+                        copies=capture.copies_note())
         peaks[label] = peak_gib()
         report_mesh(label, log, peaks[label])
         # 14a gathers its edges into the spill store, shard by shard
@@ -1732,7 +1775,8 @@ def main() -> int:
             edges = (z["src"], z["dst"], z["ovl"])
             n_vertices = z["valid2"].shape[0]
     report_assembly("4 ecoli", t0, t_asm, log, launches, contigs, stats,
-                    genome, genome_fraction)
+                    genome, genome_fraction,
+                    copies=capture.copies_note())
     peaks["4"] = peak_gib()
     incore = {"4": (contigs, stats)}
     for label, (m_contigs, m_stats) in (("12", (mesh_contigs, mesh_stats)),
@@ -1763,7 +1807,8 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     launches_by_key["5"] = capture.path_launches("5")
     report_assembly("5 ecoli vote+device", t0, time.perf_counter() - t0,
-                    log, launches, contigs, stats, genome, genome_fraction)
+                    log, launches, contigs, stats, genome, genome_fraction,
+                    copies=capture.copies_note())
     peaks["5"] = peak_gib()
     incore["5"] = (contigs, stats)
 
@@ -1837,7 +1882,8 @@ def main() -> int:
         n_contained = contained_count(log, label)
         report_assembly(f"{label} ecoli ragged", t0,
                         time.perf_counter() - t0, log, launches, contigs,
-                        stats, genome, genome_fraction)
+                        stats, genome, genome_fraction,
+                        copies=capture.copies_note())
         say(f"  n_contained={n_contained} ragged_launches="
             f"{json.dumps(ragged_launches)}")
         incore[label] = (contigs, stats)
@@ -1917,7 +1963,8 @@ def main() -> int:
                 else []
         peaks[label] = peak_gib()
         report_assembly(f"{label} ecoli streamed", t0, t_asm, log, launches,
-                        contigs, stats, genome, genome_fraction)
+                        contigs, stats, genome, genome_fraction,
+                        copies=capture.copies_note())
         want_contigs, want_stats = incore[twin]
         if stats != want_stats or len(contigs) != len(want_contigs) or any(
                 not np.array_equal(a, b)
@@ -2097,9 +2144,10 @@ def contained_count(log, label) -> int:
 
 
 def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
-                    genome_fraction) -> None:
-    """Print an assemble run's stage seconds, launches and contig stats;
-    raise unless genome_fraction >= 0.99."""
+                    genome_fraction, copies: str) -> None:
+    """Print an assemble run's stage seconds, launches and contig stats,
+    and ``copies`` (Capture.copies_note); raise unless genome_fraction >=
+    0.99."""
     stages: dict = {}
     for r in log.records:
         if "seconds" in r:
@@ -2117,6 +2165,7 @@ def report_assembly(label, t0, t_asm, log, launches, contigs, stats, genome,
     if splits:
         say(f"  {'host' if '10' in label else 'device'} split, ms: "
             f"{json.dumps(splits)}")
+    say(f"  {copies}")
     say(f"assembly: n_contigs={stats['n_contigs']} n50={stats['n50']} "
         f"total_bases={stats['total_bases']} genome_fraction={gf:.6f} "
         f"(sage2_tpu reference on this input, default config, for comparison: "

@@ -6,7 +6,9 @@ Twenty-three kernels (sources in ``kernels/csrc``):
   K2 ``lookup_counts``  count of each query key in a count table: bucket
                         directory and bucketed search (two launches)
   K3 ``overlap_join``   run accounting, expansion and verify of the
-                        sorted overlap seed rows (two launches;
+                        sorted overlap seed rows (two launches: the runs
+                        and their first slots by a look-back, then slot
+                        tiles with the payload rows staged;
                         ``overlap_join_stacked`` the fixed-capacity mode)
   K4 ``pointer_jump``   a whole pointer-doubling loop of unitig labeling
                         (one cooperative launch)
@@ -50,7 +52,10 @@ Twenty-three kernels (sources in ``kernels/csrc``):
                         table order (count, scan, write)
   K16 ``weak_windows``  flat indices of the weak windows of a correction
                         sub-pass, keys rolled from the reads and looked up
-                        through K2's bucket directory (mask, scan, write)
+                        in a membership table of the solid keys (mask
+                        with a look-back, write; the table built once a
+                        round by ``table_directory``: ``solid_table``,
+                        three launches)
   K17 ``fix_windows``   the variant lookups, replacement rule and edits
                         at the weak windows (one launch)
   K18 ``chain_links``   degrees, single neighbours, chain links and the
@@ -86,9 +91,11 @@ tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 ``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
-``probe_join`` launch two per call, K12-K16 more (K13 and K14 five,
-K13's entry slab two); ``lookup_directory``,
-K2's first launch, builds the directory that K16 and K17 share, and
+``probe_join`` and ``weak_windows`` launch two per call, K12-K15 more
+(K13 and K14 six, K13's entry slab two); ``lookup_directory``,
+K2's first launch, builds the directory that K16 and K17 share,
+``solid_table`` (three launches under K16's name) K16's membership
+table beside it, and
 ``chain_cut`` counts as a ``chain_links`` launch; the fixed-capacity and
 deferred modes of K3, K13 and K14, find_overlaps_stacked's, count as
 their kernel's launches and read nothing to the host; K19 launches two
@@ -103,9 +110,9 @@ of their sort and of their grouping or row build.
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
 ctypes through a plain C interface. A source's headers (``common.cuh``,
-and ``bucket_search.cuh``, ``scan.cuh`` or ``bucket_sort.cuh`` for
-those that include them, ``HEADERS``) are hashed with it, so an edit to
-a header rebuilds its libraries.
+and ``bucket_search.cuh``, ``scan.cuh``, ``lookback.cuh`` or
+``bucket_sort.cuh`` for those that include them, ``HEADERS``) are hashed
+with it, so an edit to a header rebuilds its libraries.
 """
 
 from __future__ import annotations
@@ -145,13 +152,10 @@ _ARGTYPES = {
         "sage2_lookup_counts": [_P, _P, _I64, _P, _P, _I64, _P, _P],
     },
     "overlap_join": {
-        "sage2_join_count": [_P, _P, _I64, _I, _I, _P, _P, _P],
-        "sage2_join_write": [_P, _P, _I64, _I, _P, _I64, _I, _I, _I, _I64,
-                             _P, _P, _P, _I, _I, _I, _I, _I64, _P, _P, _P,
-                             _P, _P, _P, _P],
-        "sage2_join_count_fixed": [_P, _P, _I64, _P, _I, _I, _P, _P, _P],
-        "sage2_join_write_fixed": [_P, _P, _I, _I64, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I64, _P, _P, _P, _P, _P],
+        "sage2_join_runs": [_P, _P, _I64, _P, _I, _I, _P, _P, _P, _P],
+        "sage2_join_slots": [_P, _P, _I64, _I, _P, _I64, _I, _I, _I, _P, _P,
+                             _P, _P, _I, _I, _I, _I, _I64, _P, _P, _P, _P,
+                             _P, _P],
     },
     "pointer_jump": {
         "sage2_pointer_jump": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P],
@@ -230,9 +234,9 @@ _ARGTYPES = {
         "sage2_prune_write": [_P, _P, _I64, _I, _P, _P, _P, _P],
     },
     "weak_windows": {
-        "sage2_weak_mask": [_P, _P, _I64, _I, _I, _P, _P, _I64, _P, _I, _P,
-                            _P, _P],
-        "sage2_scan_tiles": [_P, _I64, _P, _P],
+        "sage2_solid_table": [_P, _P, _I64, _I, _I, _I, _P, _P, _P],
+        "sage2_weak_mask": [_P, _P, _I64, _I, _I, _P, _P, _I64, _P, _P, _I,
+                            _P, _P, _P],
         "sage2_weak_write": [_P, _I64, _I, _P, _P, _P],
     },
     "fix_windows": {
@@ -290,12 +294,13 @@ def nvcc_command() -> list:
 
 # the headers each source includes besides common.cuh
 HEADERS = {"lookup_counts": ("bucket_search.cuh",),
+           "overlap_join": ("lookback.cuh", "scan.cuh"),
            "vote_windows": ("bucket_search.cuh",),
            "dedup_reads": ("scan.cuh",),
-           "seed_rows": ("scan.cuh", "bucket_sort.cuh"),
-           "longest_edges": ("scan.cuh", "bucket_sort.cuh"),
+           "seed_rows": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
+           "longest_edges": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
            "prune_table": ("scan.cuh",),
-           "weak_windows": ("bucket_search.cuh", "scan.cuh"),
+           "weak_windows": ("bucket_search.cuh", "lookback.cuh"),
            "fix_windows": ("bucket_search.cuh",)}
 
 
@@ -431,23 +436,31 @@ _DIRECTORY = {"lookup_counts": "sage2_lookup_directory",
               "vote_windows": "sage2_vote_directory"}
 
 
+def directory_words(T: int) -> int:
+    """int64 words of K2's bucket directory over a table of T keys."""
+    return 4 + T + (1 << lookup_bits(T)) // 2 + 1
+
+
 @_on_device
 def lookup_directory(table: torch.Tensor, counts: torch.Tensor,
-                     kernel: str = "lookup_counts") -> torch.Tensor:
+                     kernel: str = "lookup_counts",
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The first launch of K2 (or of K5, ``kernel="vote_windows"``, whose
     launch count it adds to) over the sorted unique int64 CUDA ``table``
     and its int32 ``counts``: int64 scratch holding a 4-word header
     (lowest key, span, bucket shift, packed or not), the packed (offset
     below the bucket, count) entries where the bucket width allows, and
-    the bucket directory. The table's span is read on the card, so
-    nothing waits for it."""
+    the bucket directory; in the first ``directory_words(T)`` words of
+    ``out`` where given. The table's span is read on the card, so nothing
+    waits for it."""
     T = table.shape[0]
     if T >= 1 << 31:
         raise ValueError(f"a table of {T} keys overflows the int32 bucket "
                          f"directory")
     bits = lookup_bits(T)
-    scratch = torch.empty(4 + T + (1 << bits) // 2 + 1, dtype=torch.int64,
-                          device=table.device)
+    scratch = (torch.empty(directory_words(T), dtype=torch.int64,
+                           device=table.device)
+               if out is None else out[:directory_words(T)])
     _launch(kernel, _DIRECTORY[kernel], _ptr(table), _ptr(counts), T, bits,
             _ptr(scratch), _stream())
     LAUNCHES[kernel] += 1
@@ -504,7 +517,7 @@ def overlap_join(
     ``slot_limit(total)`` (all without a limit).
 
     ``contained``: None (fixed-length reads), or a (reads,) uint8
-    tensor in which the write pass sets ``contained[b] = 1`` for each
+    tensor in which the slots launch sets ``contained[b] = 1`` for each
     verified pair of those slots that holds read b whole (ragged
     reads).
 
@@ -552,25 +565,56 @@ def overlap_join(
         plain.slots_to_write(0, slot_limit)
         z = empty(0, torch.int32)
         return empty(0, torch.bool), z, z.clone(), z.clone(), 0
-    counts = empty(n, torch.int32)
-    ebase = empty(n, torch.int32)
-    _launch("overlap_join", "sage2_join_count", _ptr(s_keys), _ptr(s_rows),
-            n, R, g, _ptr(counts), _ptr(ebase), _stream())
-    LAUNCHES["overlap_join"] += 1
-    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
-    total = int(offsets[-1])
+    ctl, base, run = _join_runs(s_keys, s_rows, None, R, g)
+    total = int(ctl[0])
     n_out = plain.slots_to_write(total, slot_limit)
-    starts = offsets - counts
     ok = empty(n_out, torch.bool)
     cand = [empty(n_out, torch.int32) for _ in range(3)]
-    ent, e_base, e_stride, qry, q_base, q_stride, q_off = segments
-    _launch("overlap_join", "sage2_join_write", _ptr(s_rows), _ptr(ent),
-            e_base, e_stride, _ptr(qry), q_base, q_stride, q_off,
-            payload.shape[1], n, _ptr(counts), _ptr(ebase), _ptr(starts),
-            R, g, trim, min_overlap, n_out, _ptr(ok), *map(_ptr, cand),
-            _ptr(contained), _ptr(payload_perm), _stream())
-    LAUNCHES["overlap_join"] += 1
+    _join_slots(s_rows, segments, payload.shape[1], payload_perm, ctl, base,
+                run, R, g, trim, min_overlap, n_out, ok, cand, contained)
     return (ok, *cand, total)
+
+
+# rows a tile of K3's runs launch (kCountTile in
+# kernels/csrc/overlap_join.cu), and slots a tile of its slots launch
+# (kSlotTile)
+JOIN_COUNT_TILE = 2048
+JOIN_SLOT_TILE = 128
+
+
+def _join_runs(s_keys, s_rows, n_live, R: int, g: int):
+    """K3's first launch: (ctl, base, run), the total and the run count
+    (ctl[0], ctl[1]) and the records of the runs with candidates (each
+    run's first slot, and its first row and entries), in device
+    memory."""
+    n = s_keys.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"{n} seed rows overflow 31-bit positions")
+    dev = s_keys.device
+    tiles = max(1, -(-n // JOIN_COUNT_TILE))
+    runs = n // 2           # a run with candidates holds two rows at least
+    ctl = torch.empty(3 + 2 * tiles, dtype=torch.int64, device=dev)
+    base = torch.empty(runs + 1, dtype=torch.int64, device=dev)
+    run = torch.empty((max(runs, 1), 2), dtype=torch.int32, device=dev)
+    _launch("overlap_join", "sage2_join_runs", _ptr(s_keys), _ptr(s_rows), n,
+            _ptr(n_live), R, g, _ptr(ctl), _ptr(base), _ptr(run), _stream())
+    LAUNCHES["overlap_join"] += 1
+    return ctl, base, run
+
+
+def _join_slots(s_rows, segments, W2: int, perm, ctl, base, run, R: int,
+                g: int, trim: int, min_overlap: int, n_out: int, ok, cand,
+                contained) -> None:
+    """K3's second launch: the first ``n_out`` candidate slots (those
+    past the total, in the fixed-capacity mode, not ok with a, b and ovl
+    0)."""
+    ent, e_base, e_stride, qry, q_base, q_stride, q_off = segments
+    _launch("overlap_join", "sage2_join_slots", _ptr(s_rows), _ptr(ent),
+            e_base, e_stride, _ptr(qry), q_base, q_stride, q_off, W2,
+            _ptr(perm), _ptr(ctl), _ptr(base), _ptr(run), R, g, trim,
+            min_overlap, n_out, _ptr(ok),
+            *map(_ptr, cand), _ptr(contained), _stream())
+    LAUNCHES["overlap_join"] += 1
 
 
 @_on_device
@@ -585,7 +629,7 @@ def overlap_join_stacked(
     tensor) rows are live. The count stays on the card: the first
     min(total, capacity) slots are the candidates, the rest not ok with
     a, b and ovl 0 (see plain.overlap_join_stacked). Kernel K3, two
-    launches around a torch.cumsum; nothing waits on the host."""
+    launches; nothing waits on the host."""
     if _on_cpu(s_keys, s_rows, payload, n_live):
         return plain.overlap_join_stacked(s_keys, s_rows, payload, n_live, R,
                                           g, trim, min_overlap, capacity)
@@ -603,21 +647,11 @@ def overlap_join_stacked(
         for c in cand:
             c.zero_()
         return (ok, *cand, torch.zeros((), dtype=torch.int64, device=dev))
-    counts = torch.empty(n, dtype=torch.int32, device=dev)
-    ebase = torch.empty(n, dtype=torch.int32, device=dev)
-    _launch("overlap_join", "sage2_join_count_fixed", _ptr(s_keys),
-            _ptr(s_rows), n, _ptr(n_live), R, g, _ptr(counts), _ptr(ebase),
-            _stream())
-    LAUNCHES["overlap_join"] += 1
-    offsets = torch.cumsum(counts, 0, dtype=torch.int64)
-    starts = offsets - counts
-    total = offsets[-1]
-    _launch("overlap_join", "sage2_join_write_fixed", _ptr(s_rows),
-            _ptr(payload), payload.shape[1], n, _ptr(counts), _ptr(ebase),
-            _ptr(starts), _ptr(total), R, g, trim, min_overlap, capacity,
-            _ptr(ok), *map(_ptr, cand), _stream())
-    LAUNCHES["overlap_join"] += 1
-    return (ok, *cand, total)
+    ctl, base, run = _join_runs(s_keys, s_rows, n_live, R, g)
+    _join_slots(s_rows, (payload, 0, R, payload, 0, R, 0), payload.shape[1],
+                None, ctl, base, run, R, g, trim, min_overlap, capacity, ok,
+                cand, None)
+    return (ok, *cand, ctl[0])
 
 
 _JUMP_OPS = {"none": 0, "min": 1, "add": 2}
@@ -1581,16 +1615,81 @@ def prune_table(keys: torch.Tensor, counts: torch.Tensor,
     return out_keys, out_counts
 
 
-def table_directory(table: torch.Tensor,
-                    counts: torch.Tensor) -> Optional[torch.Tensor]:
-    """K2's bucket directory over a count table (``lookup_directory``),
-    for K16 and K17 to share; None for CPU tensors, whose plain versions
-    search the table itself."""
+# K16's membership table of the solid keys (kernels/csrc/weak_windows.cu):
+# keys an average bucket holds at most, and the int64 words before the
+# buckets (built, k, threshold, bits)
+SOLID_LOAD = 6
+SOLID_HEADER = 4
+
+
+def solid_bits(T: int, k: int) -> Optional[int]:
+    """log2 of the bucket count of K16's membership table over a table of
+    T keys of k-mers: the fewest buckets that hold SOLID_LOAD keys or
+    fewer on average (3-6), at most 2^(2k); None where no table is built
+    (an empty table, or buckets that would keep more than 31 bits of
+    their keys: 2k - bits > 31)."""
+    if T == 0:
+        return None
+    bits = min(2 * k, (-(-T // SOLID_LOAD) - 1).bit_length())
+    return bits if 2 * k - bits <= 31 else None
+
+
+def solid_offset(T: int) -> int:
+    """The int64 word of a round's directory (``table_directory``) where
+    K16's membership table starts: after K2's directory, on a 32-byte
+    boundary."""
+    return -(-directory_words(T) // 4) * 4
+
+
+def solid_words(T: int, bits: int) -> int:
+    """int64 words of K16's membership table: the header, 2^bits buckets
+    of eight uint32 keys, the overflow lists (at most T + 2 uint32)."""
+    return SOLID_HEADER + (4 << bits) + (T + 2) // 2
+
+
+@_on_device
+def solid_table(table: torch.Tensor, counts: torch.Tensor, k: int,
+                threshold: int, directory: torch.Tensor) -> None:
+    """K16's membership table of the keys of the sorted int64 ``table``
+    whose int32 ``counts`` reach ``threshold``, written into
+    ``directory`` from ``solid_offset(T)`` on (``table_directory`` sizes
+    it; ``solid_bits`` must not be None). Three launches under K16's
+    name: bucket counts, overflow lists, placement."""
+    T = table.shape[0]
+    bits = solid_bits(T, k)
+    work = torch.empty(3 * (1 << bits) + 1, dtype=torch.int32,
+                       device=table.device)
+    _launch("weak_windows", "sage2_solid_table", _ptr(table), _ptr(counts), T,
+            k, threshold, bits, _ptr(directory[solid_offset(T):]), _ptr(work),
+            _stream())
+    LAUNCHES["weak_windows"] += 3
+
+
+def table_directory(table: torch.Tensor, counts: torch.Tensor,
+                    k: Optional[int] = None,
+                    threshold: Optional[int] = None) -> Optional[torch.Tensor]:
+    """The round's lookup structures over a count table, in one int64
+    tensor, for K16 and K17 to share: K2's bucket directory
+    (``lookup_directory``), and with ``k`` and ``threshold`` K16's
+    membership table of the solid keys behind it (``solid_table``) where
+    ``threshold`` is at least 1 (below it no key is weak, and a key absent
+    from the table is solid) and ``solid_bits`` allows one; K16 without it
+    looks up through K2's directory. None for CPU tensors, whose plain
+    versions search the table itself."""
     if _on_cpu(table, counts):
         return None
     _dtype(table, torch.int64, "table")
     _dtype(counts, torch.int32, "counts")
-    return lookup_directory(table, counts)
+    T = table.shape[0]
+    bits = None if k is None or threshold is None or threshold < 1 \
+        else solid_bits(T, k)
+    if bits is None:
+        return lookup_directory(table, counts)
+    directory = torch.empty(solid_offset(T) + solid_words(T, bits),
+                            dtype=torch.int64, device=table.device)
+    lookup_directory(table, counts, "lookup_counts", directory)
+    solid_table(table, counts, k, threshold, directory)
+    return directory
 
 
 def _window_checks(reads: torch.Tensor, k: int) -> Tuple[int, int, int]:
@@ -1627,10 +1726,12 @@ def weak_windows(
     weak windows of the (N, L) int32 ``reads``: windows whose canonical
     key counts below ``threshold`` in the sorted int64 ``table`` (int32
     ``counts``; 0 where absent), with (N,) int32 ``lengths`` only those
-    inside their read. ``directory``: the table's bucket directory from
-    ``table_directory`` (None for CPU tensors). Kernel K16: mask, scan
-    and write launches (see kernels/csrc/weak_windows.cu); one host read
-    a call (the weak count, to size the output)."""
+    inside their read. ``directory``: the round's ``table_directory``
+    (None for CPU tensors); its membership table of the solid keys is
+    used where it was built for this ``k`` and ``threshold``, else K2's
+    directory. Kernel K16: mask (with a look-back for the tiles' first
+    slots) and write launches (see kernels/csrc/weak_windows.cu); one
+    host read a call (the weak count, to size the output)."""
     N, L, P = _window_checks(reads, k)
     tensors = (reads, table, counts) + (
         () if lengths is None else (lengths,))
@@ -1650,24 +1751,26 @@ def weak_windows(
     if N == 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
     directory = _directory_checked(directory)
+    T = table.shape[0]
+    off = solid_offset(T)
+    solid = directory[off:] if directory.numel() > off else None
     mask = torch.empty((N, -(-P // 32)), dtype=torch.int32, device=dev)
     tiles = -(-N // WEAK_TILE_READS)
-    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
-    tile_counts, total = scratch[:tiles], scratch[tiles:]
+    # each tile's first slot, the total, the ticket and the status words
+    scan = torch.empty(2 * tiles + 2, dtype=torch.int64, device=dev)
     _launch("weak_windows", "sage2_weak_mask", _ptr(reads), _ptr(lengths), N,
-            L, k, _ptr(table), _ptr(counts), table.shape[0], _ptr(directory),
-            threshold, _ptr(mask), _ptr(tile_counts), _stream())
+            L, k, _ptr(table), _ptr(counts), T, _ptr(directory), _ptr(solid),
+            threshold, _ptr(mask), _ptr(scan), _stream())
     LAUNCHES["weak_windows"] += 1
-    _scan_tiles("weak_windows", tile_counts, total)
-    out = torch.empty(int(total), dtype=torch.int64, device=dev)
-    _launch("weak_windows", "sage2_weak_write", _ptr(mask), N, P,
-            _ptr(tile_counts), _ptr(out), _stream())
+    out = torch.empty(int(scan[tiles]), dtype=torch.int64, device=dev)
+    _launch("weak_windows", "sage2_weak_write", _ptr(mask), N, P, _ptr(scan),
+            _ptr(out), _stream())
     LAUNCHES["weak_windows"] += 1
     return out
 
 
 # reads a tile of K16 (kTileReads in kernels/csrc/weak_windows.cu)
-WEAK_TILE_READS = 32
+WEAK_TILE_READS = 128
 
 
 @_on_device

@@ -18,7 +18,7 @@
 //   scan       bucket_scan_kernel: the coarse counts become each coarse
 //              bucket's first slot and cursor, a block a tile of 2,048
 //              counts, in ticket order, with a decoupled look-back
-//              (Merrill & Garland) over the tiles' status words; the total
+//              (lookback.cuh) over the tiles' status words; the total
 //              goes to the scratch's word 0, where the host may read it.
 //              (Not scan.cuh's one-block scan.)
 //   pass 1     coarse_scatter_kernel: a block a tile of rows counts them
@@ -77,16 +77,18 @@
 
 #include <tuple>
 
+#include "lookback.cuh"
 #include "scan.cuh"
 
 namespace bsort {
 
 namespace cg = cooperative_groups;
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint64_t kAggregate = uint64_t{1} << 62;
-constexpr uint64_t kPrefix = uint64_t{2} << 62;
-constexpr uint64_t kValue = kAggregate - 1;
+using lookback::block_ticket;
+using lookback::kFull;
+using lookback::kValue;
+using lookback::load_relaxed;
+using lookback::tile_prefix;
 constexpr int kCountsPerThread = 8;
 constexpr int kCountTile = kThreads * kCountsPerThread;   // scan: 2,048
 constexpr int kMaxBits = 20;
@@ -229,76 +231,6 @@ __host__ __device__ inline Big big_of(int64_t* base, int d, int64_t n) {
 inline cudaError_t clear_scratch(void* scratch, int d, cudaStream_t s) {
   return cudaMemsetAsync(static_cast<int64_t*>(scratch) + 1, 0,
                          zeroed_words(d) * sizeof(int64_t), s);
-}
-
-__device__ __forceinline__ void store_release(unsigned long long* a,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(a), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_relaxed(
-    const unsigned long long* a) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(a)
-               : "memory");
-  return v;
-}
-
-// The sum of the values of the tiles before `tile` (one whole warp; 32
-// predecessors a round trip, lane 0 the nearest).
-__device__ uint64_t look_back(const unsigned long long* status, int64_t tile,
-                              int lane) {
-  uint64_t run = 0;
-  for (int64_t end = tile - 1;; end -= 32) {
-    const int64_t t = end - lane;
-    unsigned long long w = kPrefix;          // before tile 0: a prefix of 0
-    if (t >= 0) w = load_relaxed(status + t);
-    while (!__all_sync(kFull, (w >> 62) != 0)) {
-      if ((w >> 62) == 0) w = load_relaxed(status + t);
-    }
-    const unsigned pm = __ballot_sync(kFull, (w >> 62) == 2);
-    const int stop = pm ? __ffs(pm) - 1 : 31;
-    uint64_t v = lane <= stop ? (w & kValue) : 0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    run += v;
-    if (pm) return run;
-  }
-}
-
-// Publishes this block's `aggregate` as tile `tile` of a decoupled
-// look-back and returns the tiles before it, to every thread. The tiles
-// are handed out by a ticket, so every earlier tile's block has started
-// and none waits on a later one. Every thread of the block calls it.
-__device__ uint64_t tile_prefix(unsigned long long* status, int64_t tile,
-                                uint64_t aggregate) {
-  __shared__ uint64_t s_excl;
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    uint64_t excl = 0;
-    if (tile == 0) {
-      if (lane == 0) store_release(status, kPrefix | aggregate);
-    } else {
-      if (lane == 0) store_release(status + tile, kAggregate | aggregate);
-      excl = look_back(status, tile, lane);
-      if (lane == 0) store_release(status + tile, kPrefix | (excl + aggregate));
-    }
-    if (lane == 0) s_excl = excl;
-  }
-  __syncthreads();
-  const uint64_t excl = s_excl;
-  __syncthreads();
-  return excl;
-}
-
-// The block's ticket from counter `t` (every thread gets it).
-__device__ __forceinline__ unsigned block_ticket(unsigned* t) {
-  __shared__ unsigned s_ticket;
-  if (threadIdx.x == 0) s_ticket = atomicAdd(t, 1u);
-  __syncthreads();
-  const unsigned v = s_ticket;
-  __syncthreads();
-  return v;
 }
 
 // The scan: each coarse bucket's first slot, its cursor, the total.

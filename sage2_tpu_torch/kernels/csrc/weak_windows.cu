@@ -9,8 +9,35 @@
 // phase 4 of chip_smoke.py (2.3 M reads of 100, k = 25) the three key
 // arrays alone were 1.4 GB each; here no key leaves the SM.
 //
-// Three launches around the scan of scan.cuh, over tiles of kTileReads
-// reads (one warp takes kReadsPerWarp of them, one at a time):
+// A window is weak where its canonical key counts below the threshold,
+// that is where the key is not among the table's solid keys (count at
+// least the threshold): a lookup needs membership, not a count. Once a
+// round (kernels.table_directory, beside K2's bucket directory, which
+// K17 keeps using) three launches build a membership table of the solid
+// keys of k-mers of B = 2k bits:
+//
+//   layout  2^bits buckets of one 32-byte sector, eight uint32 words;
+//           bits puts about 3-6 keys in a bucket (kernels.solid_bits).
+//           A key x goes by its mix h = ((x ^ (x >> B/2)) * kMix) mod 2^B,
+//           a bijection of the B-bit keys, to bucket h >> (B - bits), and
+//           the bucket holds h's low B - bits bits: exact, and below 2^31
+//           where B - bits <= 31 (else the wrapper builds no table).
+//           Mixing first spreads the canonical keys, whose density falls
+//           from twice the mean at the low end of their span to zero at
+//           its top, evenly over the buckets. Unused words are kEmpty; a
+//           bucket of more than eight keys keeps seven and in its last
+//           word kLink | the offset of an overflow list (its length, then
+//           its other keys).
+//   build   solid count: each solid key's bucket counted (atomics);
+//           solid links: each overfull bucket's list allocated (atomics
+//           on one cursor); solid place: each solid key into its bucket
+//           or its list. Keys outside [0, 2^B) can match no window and
+//           are left out. The table's first words say for which k and
+//           threshold it was built: a call with others looks up through
+//           K2's directory, as does a call without the table.
+//
+// Two launches a call, over tiles of kTileReads = 128 reads (one warp
+// takes kReadsPerWarp of them, one at a time), in ticket order:
 //
 //   mask   the lanes load the read's codes into shared memory (coalesced)
 //          and pack the read and its reverse complement into 16-base words
@@ -18,32 +45,50 @@
 //          2k bits of the read's words at base w, its RC key those of the
 //          RC read's words at base L - k - w (two shifts a word, no rolling),
 //          so lane l can take windows l, l + 32, ...: four words of windows
-//          a round, their canonical keys looked up together through the
-//          bucket directory of K2 (bucket_search.cuh; built once a round by
-//          kernels.lookup_directory over the pruned table). A ballot of the
-//          weak verdicts is one 32-window word of the read's weak mask;
-//          the tile's weak windows are counted;
-//   scan   sage2_scan_tiles: each tile's first slot, and the total in a
-//          device scalar, which the wrapper reads once to size the output;
+//          a round, their canonical keys looked up together: one sector of
+//          the membership table each (an overfull bucket's list beside it
+//          where the key is not among its seven), or through K2's
+//          directory (bucket_search.cuh). A ballot of the weak verdicts is
+//          one 32-window word of the read's weak mask; the tile's weak
+//          windows are counted and a decoupled look-back (lookback.cuh,
+//          128 tiles a round trip: with 32-read tiles the look-back's
+//          chain, not the lookups, bounded the launch) gives each tile
+//          its first slot, and the last the total, which the wrapper
+//          reads once to size the output;
 //   write  each block recounts its reads' weak windows from their masks,
 //          scans them, and each warp writes its read's weak windows'
 //          flat indices r * P + w in ascending order (a warp scan of the
 //          mask words' popcounts gives each word its first slot).
 //
-// Bound: lookups, that is random sectors of L2 (the pruned table's
-// packed entries and directory, ~49 MB at phase 4); the reads (4 bytes a
-// base), the mask (one bit a window, twice) and the indices (8 bytes a
-// weak window) are the bytes.
+// Bound: lookups, random sectors of L2 (one a window, 32 MB of buckets
+// at phase 4's ~5 M solid keys); the reads (4 bytes a base), the mask
+// (one bit a window, twice) and the indices (8 bytes a weak window) are
+// the bytes.
 
 #include "bucket_search.cuh"
-#include "scan.cuh"
+#include "lookback.cuh"
 
 namespace {
 
 constexpr int kWarpsPerTile = kThreads / 32;
-constexpr int kReadsPerWarp = 4;
+constexpr int kReadsPerWarp = 16;
 constexpr int kTileReads = kWarpsPerTile * kReadsPerWarp;
 constexpr int kBatch = 4;     // mask words (32 windows each) a round
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// the membership table of the solid keys (see the header)
+constexpr int kWays = 8;                 // keys a bucket (one sector)
+constexpr uint32_t kEmpty = 0xffffffffu;
+constexpr uint32_t kLink = 0x80000000u;
+constexpr uint64_t kMix = 0x9E3779B97F4A7C15ull;
+constexpr int kSolidHeader = 4;          // int64 words: built, k, threshold,
+                                         // bits
+
+// The mix of a key of B bits (2 < B <= 62): a bijection of [0, 2^B).
+__device__ __forceinline__ uint64_t solid_mix(uint64_t x, int B) {
+  x ^= x >> (B / 2);
+  return (x * kMix) & ((uint64_t{1} << B) - 1);
+}
 
 // bases [q, q + 16) of packed words (W uint32), zero past the last word
 __device__ __forceinline__ uint32_t word_at_u32(const uint32_t* w, int W,
@@ -88,12 +133,73 @@ __device__ __forceinline__ void pack_read(const int32_t* __restrict__ read,
   __syncwarp();
 }
 
+// The weak verdicts of C canonical keys by their counts through K2's
+// bucket directory: Keys is Int64Keys or PackedKeys (bucket_search.cuh).
 template <typename Keys>
+struct CountLookup {
+  Keys keys;
+  const int32_t* __restrict__ dir;
+  BucketSpan span;
+  int threshold;
+
+  template <int C>
+  __device__ __forceinline__ void weak(const int64_t (&q)[C],
+                                       const bool (&live)[C],
+                                       bool (&out)[C]) const {
+    int32_t pos[C];
+    bucket_find<C>(keys, dir, span, q, live, pos);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      out[c] = live[c] && (pos[c] >= 0 ? keys.count(pos[c]) : 0) < threshold;
+    }
+  }
+};
+
+// The weak verdicts of C canonical keys by membership in the table of
+// the solid keys: a key is weak where it is absent.
+struct SolidLookup {
+  const uint4* __restrict__ buckets;   // two a bucket
+  const uint32_t* __restrict__ lists;  // the overflow lists
+  int B, low;                          // key bits, bits kept in a bucket
+
+  template <int C>
+  __device__ __forceinline__ void weak(const int64_t (&q)[C],
+                                       const bool (&live)[C],
+                                       bool (&out)[C]) const {
+    uint4 w0[C], w1[C];
+    uint32_t v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const uint64_t h = solid_mix(static_cast<uint64_t>(q[c]), B);
+      const uint64_t b = live[c] ? h >> low : 0;
+      v[c] = static_cast<uint32_t>(h & ((uint64_t{1} << low) - 1));
+      w0[c] = __ldg(buckets + 2 * b);
+      w1[c] = __ldg(buckets + 2 * b + 1);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      bool found = w0[c].x == v[c] || w0[c].y == v[c] || w0[c].z == v[c] ||
+                   w0[c].w == v[c] || w1[c].x == v[c] || w1[c].y == v[c] ||
+                   w1[c].z == v[c] || w1[c].w == v[c];
+      const uint32_t link = w1[c].w;
+      if (!found && (link & kLink) && link != kEmpty) {  // an overfull one
+        const uint32_t* list = lists + (link & ~kLink);
+        const uint32_t n = __ldg(list);
+        for (uint32_t i = 1; i <= n && !found; ++i) found = __ldg(list + i) == v[c];
+      }
+      out[c] = live[c] && !found;
+    }
+  }
+};
+
+// Look-back words of the mask launch (int64): [0] the ticket, then one
+// status word a tile (zeroed by the launcher).
+template <typename Lookup>
 __device__ __forceinline__ void mask_tile(
-    const Keys& keys, const int32_t* __restrict__ dir, const BucketSpan& span,
-    const int32_t* __restrict__ reads, const int32_t* __restrict__ lengths,
-    int64_t N, int L, int k, int threshold, uint32_t* __restrict__ mask,
-    int64_t* __restrict__ tile_counts) {
+    const Lookup& lookup, const int32_t* __restrict__ reads,
+    const int32_t* __restrict__ lengths, int64_t N, int L, int k,
+    uint32_t* __restrict__ mask, int64_t* __restrict__ tile_offsets,
+    int64_t* __restrict__ total, int64_t* __restrict__ scan) {
   extern __shared__ uint32_t smem[];
   __shared__ int tile_weak;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -103,20 +209,20 @@ __device__ __forceinline__ void mask_tile(
   uint32_t* fw = smem + warp * (2 * W + (L + 3) / 4);
   uint32_t* rw = fw + W;
   uint8_t* code = reinterpret_cast<uint8_t*>(rw + W);
+  const int64_t tile =
+      lookback::block_ticket(reinterpret_cast<unsigned*>(scan));
   if (threadIdx.x == 0) tile_weak = 0;
   __syncthreads();
   int n_weak = 0;
   for (int i = 0; i < kReadsPerWarp; ++i) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * kTileReads +
-                      warp * kReadsPerWarp + i;
+    const int64_t r = tile * kTileReads + warp * kReadsPerWarp + i;
     if (r >= N) break;
     const int len = lengths == nullptr ? L : __ldg(lengths + r);
     const int Pv = len - k + 1 < P ? (len - k + 1 > 0 ? len - k + 1 : 0) : P;
     pack_read(reads + r * L, L, W, lane, code, fw, rw);
     for (int j0 = 0; j0 < PW; j0 += kBatch) {
       int64_t q[kBatch];
-      bool live[kBatch];
-      int32_t pos[kBatch];
+      bool live[kBatch], weak[kBatch];
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
         const int w = 32 * (j0 + b) + lane;
@@ -128,12 +234,10 @@ __device__ __forceinline__ void mask_tile(
           q[b] = c < f ? c : f;
         }
       }
-      bucket_find<kBatch>(keys, dir, span, q, live, pos);
+      lookup.template weak<kBatch>(q, live, weak);
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
-        const bool weak =
-            live[b] && (pos[b] >= 0 ? keys.count(pos[b]) : 0) < threshold;
-        const uint32_t bits = __ballot_sync(kFullMask, weak);
+        const uint32_t bits = __ballot_sync(kFullMask, weak[b]);
         if (j0 + b < PW) {
           if (lane == 0) mask[r * PW + j0 + b] = bits;
           n_weak += __popc(bits);
@@ -144,25 +248,53 @@ __device__ __forceinline__ void mask_tile(
   }
   if (lane == 0) atomicAdd(&tile_weak, n_weak);
   __syncthreads();
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = tile_weak;
+  const uint64_t before = lookback::tile_prefix<4>(
+      reinterpret_cast<unsigned long long*>(scan + 1), tile, tile_weak);
+  if (threadIdx.x == 0) {
+    tile_offsets[tile] = static_cast<int64_t>(before);
+    if (tile == gridDim.x - 1)
+      *total = static_cast<int64_t>(before) + tile_weak;
+  }
 }
 
+// solid: the membership table (its header first) or NULL; it is used
+// where it was built for this k and threshold (uniform over the grid).
 __global__ void __launch_bounds__(kThreads)
     weak_mask_kernel(const int32_t* __restrict__ reads,
                      const int32_t* __restrict__ lengths, int64_t N, int L,
                      int k, const int64_t* __restrict__ table,
                      const int32_t* __restrict__ counts, int64_t T,
-                     const int64_t* __restrict__ scratch, int threshold,
+                     const int64_t* __restrict__ scratch,
+                     const int64_t* __restrict__ solid, int threshold,
                      uint32_t* __restrict__ mask,
-                     int64_t* __restrict__ tile_counts) {
+                     int64_t* __restrict__ tile_offsets,
+                     int64_t* __restrict__ total,
+                     int64_t* __restrict__ scan) {
+  if (solid != nullptr && ldg_key(solid) == 1 && ldg_key(solid + 1) == k &&
+      ldg_key(solid + 2) == threshold) {
+    const int bits = static_cast<int>(ldg_key(solid + 3));
+    const auto* buckets =
+        reinterpret_cast<const uint4*>(solid + kSolidHeader);
+    const SolidLookup lookup{
+        buckets, reinterpret_cast<const uint32_t*>(buckets + (2ll << bits)),
+        2 * k, 2 * k - bits};
+    mask_tile(lookup, reads, lengths, N, L, k, mask, tile_offsets, total,
+              scan);
+    return;
+  }
   const BucketSpan span = load_span(scratch);
   const int32_t* dir = dir_of(scratch, T);
   if (ldg_key(scratch + 3)) {         // packed (uniform over the grid)
-    mask_tile(PackedKeys{packed_of(scratch), suffix_mask(span.shift)}, dir,
-              span, reads, lengths, N, L, k, threshold, mask, tile_counts);
+    const CountLookup<PackedKeys> lookup{
+        PackedKeys{packed_of(scratch), suffix_mask(span.shift)}, dir, span,
+        threshold};
+    mask_tile(lookup, reads, lengths, N, L, k, mask, tile_offsets, total,
+              scan);
   } else {
-    mask_tile(Int64Keys{table, counts}, dir, span, reads, lengths, N, L, k,
-              threshold, mask, tile_counts);
+    const CountLookup<Int64Keys> lookup{Int64Keys{table, counts}, dir, span,
+                                        threshold};
+    mask_tile(lookup, reads, lengths, N, L, k, mask, tile_offsets, total,
+              scan);
   }
 }
 
@@ -196,8 +328,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (warp == 0) {    // the tile's reads in order: their first slots
-    const int n = read_first[lane];
-    read_first[lane] = warp_scan(n, lane) - n;
+    constexpr int kPerLane = kTileReads / 32;
+    int n[kPerLane], sum = 0;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      n[i] = read_first[lane * kPerLane + i];
+      sum += n[i];
+    }
+    int run = warp_scan(sum, lane) - sum;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      read_first[lane * kPerLane + i] = run;
+      run += n[i];
+    }
   }
   __syncthreads();
   const int64_t tile0 = tile_offsets[blockIdx.x];
@@ -227,34 +370,151 @@ static inline int64_t weak_tiles(int64_t N) {
   return t < 1 ? 1 : t;
 }
 
+// --- the membership table's build ------------------------------------------
+
+struct SolidBuild {
+  const int64_t* __restrict__ table;
+  const int32_t* __restrict__ counts;
+  int64_t T;
+  int B, bits, threshold;
+
+  // the bucket and the kept bits of entry i, or false where it is not a
+  // solid key of [0, 2^B)
+  __device__ __forceinline__ bool at(int64_t i, uint64_t* bucket,
+                                     uint32_t* v) const {
+    const int64_t key = ldg_key(table + i);
+    if (__ldg(counts + i) < threshold || key < 0 ||
+        static_cast<uint64_t>(key) >> B != 0)
+      return false;
+    const uint64_t h = solid_mix(static_cast<uint64_t>(key), B);
+    *bucket = h >> (B - bits);
+    *v = static_cast<uint32_t>(h & ((uint64_t{1} << (B - bits)) - 1));
+    return true;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+    solid_count_kernel(SolidBuild sb, int k, int64_t* __restrict__ solid,
+                       uint32_t* __restrict__ fill) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    solid[0] = 1;
+    solid[1] = k;
+    solid[2] = sb.threshold;
+    solid[3] = sb.bits;
+  }
+  SAGE2_GRID_STRIDE(i, sb.T) {
+    uint64_t b;
+    uint32_t v;
+    if (sb.at(i, &b, &v)) atomicAdd(fill + b, 1u);
+  }
+}
+
+// An overfull bucket's list: its length, then its keys past the seventh.
+__global__ void __launch_bounds__(kThreads)
+    solid_links_kernel(const uint32_t* __restrict__ fill, int64_t nb,
+                       uint32_t* __restrict__ link, uint32_t* __restrict__ top) {
+  SAGE2_GRID_STRIDE(b, nb) {
+    const uint32_t c = fill[b];
+    if (c > kWays) link[b] = atomicAdd(top, c - (kWays - 2));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    solid_place_kernel(SolidBuild sb, const uint32_t* __restrict__ fill,
+                       const uint32_t* __restrict__ link,
+                       uint32_t* __restrict__ cursor,
+                       uint32_t* __restrict__ buckets,
+                       uint32_t* __restrict__ lists) {
+  SAGE2_GRID_STRIDE(i, sb.T) {
+    uint64_t b;
+    uint32_t v;
+    if (!sb.at(i, &b, &v)) continue;
+    const uint32_t slot = atomicAdd(cursor + b, 1u);
+    const uint32_t c = fill[b];
+    if (c <= kWays || slot < kWays - 1) {
+      buckets[b * kWays + slot] = v;
+      continue;
+    }
+    const uint32_t off = link[b];
+    lists[off + 1 + slot - (kWays - 1)] = v;
+    if (slot == kWays - 1) {
+      buckets[b * kWays + kWays - 1] = kLink | off;
+      lists[off] = c - (kWays - 1);
+    }
+  }
+}
+
 }  // namespace
+
+// table: (T,) sorted unique int64 keys, counts (T,) int32; solid: the
+// membership table's int64 words (kernels.solid_words: the header,
+// 2^bits buckets of four words, the lists' (T + 2) / 2); work: (3 *
+// 2^bits + 1,) uint32, zeroed here. Three launches: count, links, place.
+SAGE2_EXPORT int sage2_solid_table(const void* table, const void* counts,
+                                   int64_t T, int k, int threshold, int bits,
+                                   void* solid, void* work, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int64_t nb = int64_t{1} << bits;
+  auto* words = static_cast<int64_t*>(solid);
+  auto* buckets = reinterpret_cast<uint32_t*>(words + kSolidHeader);
+  auto* fill = static_cast<uint32_t*>(work);
+  uint32_t* link = fill + nb;
+  uint32_t* cursor = link + nb;
+  uint32_t* top = cursor + nb;
+  cudaError_t rc = cudaMemsetAsync(buckets, 0xff, nb * kWays * 4, s);
+  if (rc == cudaSuccess) rc = cudaMemsetAsync(fill, 0, nb * 4, s);
+  if (rc == cudaSuccess) rc = cudaMemsetAsync(cursor, 0, (nb + 1) * 4, s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const SolidBuild sb{static_cast<const int64_t*>(table),
+                      static_cast<const int32_t*>(counts), T, 2 * k, bits,
+                      threshold};
+  solid_count_kernel<<<sage2_blocks(T), kThreads, 0, s>>>(sb, k, words, fill);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  solid_links_kernel<<<sage2_blocks(nb), kThreads, 0, s>>>(fill, nb, link,
+                                                           top);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  solid_place_kernel<<<sage2_blocks(T), kThreads, 0, s>>>(
+      sb, fill, link, cursor, buckets, buckets + nb * kWays);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // reads: (N, L) int32 codes 0-3; lengths: (N,) int32 or NULL; table: (T,)
 // sorted unique int64 canonical keys (1 < k <= 31), counts (T,) int32,
 // scratch: their bucket directory (bucket_search.cuh, built by
-// sage2_lookup_directory); mask: (N, ceil(P / 32)) uint32 out, bit w % 32
-// of word w / 32 set where window w is weak; tile_counts: the weak windows
-// of each tile of kTileReads reads (scan.cuh).
+// sage2_lookup_directory); solid: the membership table
+// (sage2_solid_table) or NULL; mask: (N, ceil(P / 32)) uint32 out, bit
+// w % 32 of word w / 32 set where window w is weak; scan: (2 tiles + 2,)
+// int64, tiles = max(1, ceil(N / kTileReads)): each tile's first slot
+// out, the total out, then the ticket and the look-back's status words
+// (zeroed here).
 SAGE2_EXPORT int sage2_weak_mask(const void* reads, const void* lengths,
                                  int64_t N, int L, int k, const void* table,
                                  const void* counts, int64_t T,
-                                 const void* scratch, int threshold,
-                                 void* mask, void* tile_counts,
+                                 const void* scratch, const void* solid,
+                                 int threshold, void* mask, void* scan,
                                  void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int64_t tiles = weak_tiles(N);
+  auto* words = static_cast<int64_t*>(scan);
+  const cudaError_t rc =
+      cudaMemsetAsync(words + tiles + 1, 0, (tiles + 1) * 8, s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   const int W = (L + 15) / 16;
   const size_t smem =
       kWarpsPerTile * (2 * W + (L + 3) / 4) * sizeof(uint32_t);
-  weak_mask_kernel<<<static_cast<unsigned>(weak_tiles(N)), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  weak_mask_kernel<<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(
       static_cast<const int32_t*>(reads),
       static_cast<const int32_t*>(lengths), N, L, k,
       static_cast<const int64_t*>(table), static_cast<const int32_t*>(counts),
-      T, static_cast<const int64_t*>(scratch), threshold,
-      static_cast<uint32_t*>(mask), static_cast<int64_t*>(tile_counts));
+      T, static_cast<const int64_t*>(scratch),
+      static_cast<const int64_t*>(solid), threshold,
+      static_cast<uint32_t*>(mask), words, words + tiles, words + tiles + 1);
   return static_cast<int>(cudaGetLastError());
 }
 
-// mask: sage2_weak_mask's; tile_offsets: the scanned tile counts; out:
+// mask: sage2_weak_mask's; tile_offsets: its scan's first words; out:
 // (n_weak,) int64, the weak windows' flat indices r * P + w, ascending.
 SAGE2_EXPORT int sage2_weak_write(const void* mask, int64_t N, int P,
                                   const void* tile_offsets, void* out,

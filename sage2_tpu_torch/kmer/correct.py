@@ -12,13 +12,14 @@ Single window: a base is corrected when the k-mer covering it is weak
 (count below threshold) and exactly one alternative base makes that
 k-mer solid.
 Each round recounts, prunes the table to its solid entries (kernel K15),
-builds the pruned table's bucket directory once (K2's first launch), and
-runs a FORWARD sub-pass (variants of each window's last base) and then a
+builds the pruned table's bucket directory once (K2's first launch) and
+beside it a membership table of its solid keys (K16's build), and runs a
+FORWARD sub-pass (variants of each window's last base) and then a
 BACKWARD sub-pass (first base), each in two phases:
 
   phase 1  the flat indices of the weak windows (kernel K16: each
-           window's canonical key from the read, its lookup through the
-           directory, the weak mask, the indices in order);
+           window's canonical key from the read, its membership among the
+           solid keys, the weak mask, the indices in order);
   phase 2  the 4 variant keys of each weak window, their lookups, the
            replacement rule and the edits (kernel K17).
 
@@ -53,8 +54,8 @@ def _phase1_kernel(reads: torch.Tensor, pruned: KmerTable, threshold: int,
                    directory: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flat (row-major) indices of the weak windows, ascending; with
     ``lengths`` only windows inside their read (kernel K16).
-    ``directory``: the pruned table's bucket directory
-    (kernels.table_directory), shared by the round's sub-passes."""
+    ``directory``: the pruned table's bucket directory and membership
+    table (kernels.table_directory), shared by the round's sub-passes."""
     return kernels.weak_windows(reads, lengths, pruned.keys, pruned.count,
                                 directory, pruned.k, threshold)
 
@@ -73,12 +74,14 @@ def twophase_round(reads: torch.Tensor, pruned: KmerTable, k: int,
                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One forward + backward round of the single_window rule against an
     already-pruned table: K16 and K17 for each sub-pass, around one
-    bucket directory of the table."""
+    bucket directory of the table and K16's membership table of its
+    solid keys."""
     if pruned.k != k:
         raise ValueError(f"table of {pruned.k}-mers for k = {k}")
     if lengths is not None:
         lengths = lengths.to(torch.int32).contiguous()
-    directory = kernels.table_directory(pruned.keys, pruned.count)
+    directory = kernels.table_directory(pruned.keys, pruned.count, k,
+                                        threshold)
     for which in ("last", "first"):
         widx = _phase1_kernel(reads, pruned, threshold, lengths, directory)
         reads = _phase2_kernel(reads, pruned, threshold, which, widx,

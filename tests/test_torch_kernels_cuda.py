@@ -51,6 +51,8 @@ from torch_kernel_cases import (
     VOTE_CASES,
     bucket_geometry,
     chain_case,
+    crowded_bucket_table,
+    kmer_codes,
     lookup_case,
     marks_graph,
     oracle_lookup,
@@ -58,6 +60,7 @@ from torch_kernel_cases import (
     reduce_case,
     seed_case,
     slot_splits,
+    solid_mix,
     vote_case,
 )
 from torch_one_thread import one_thread  # noqa: F401
@@ -791,7 +794,7 @@ def test_weak_and_fix_windows_kernels(cuda, case, k):
         _equal([got], [plain.fix_windows(r, widx, keys, counts, None, k,
                                          threshold, which)])
     assert kernels.LAUNCHES["lookup_counts"] == before["lookup_counts"] + 1
-    assert kernels.LAUNCHES["weak_windows"] == before["weak_windows"] + 3
+    assert kernels.LAUNCHES["weak_windows"] == before["weak_windows"] + 2
     assert kernels.LAUNCHES["fix_windows"] == before["fix_windows"] + (
         2 if widx.numel() else 0)
     # on the card each needs the round's directory
@@ -1896,3 +1899,229 @@ def test_streamed_mesh_assembly_on_one_card(cuda, ragged, tmp_path):
     assert m_stats == stats and len(m_contigs) == len(contigs) >= 1
     for a, b in zip(m_contigs, contigs):
         np.testing.assert_array_equal(a, b)
+
+
+# --- K3's run-major slots and K16's membership table ------------------------
+
+def _hot_reads(n_hot, ragged, seed=21):
+    """(reads2 (M, 100) int32, valid2, lengths or None): simulated reads of
+    a 30 kbp genome and ``n_hot`` poly-A reads, whose seeds make one run
+    of 8 n_hot entry and 8 n_hot query rows, more than a slots tile of K3
+    stages (2 x 128 rows), spread over many slot tiles."""
+    g = simulate_genome(30_000, seed=seed)
+    r, _ = simulate_reads(g, read_len=100, coverage=10, error_rate=0.002,
+                          seed=seed + 1)
+    r = np.concatenate([r.astype(np.int32),
+                        np.zeros((n_hot, 100), np.int32)])
+    valid = np.ones(len(r), bool)
+    valid[::11] = False
+    lens = None
+    if ragged:
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(60, 101, len(r)).astype(np.int32)
+        lens[-n_hot:] = 100
+        r[np.arange(100)[None, :] >= lens[:, None]] = 0
+        lens = torch.from_numpy(lens)
+    return torch.from_numpy(r), torch.from_numpy(valid), lens
+
+
+def _hot_join(cuda, ragged, n_hot=48):
+    r, valid, lens = _hot_reads(n_hot, ragged)
+    geo = join_geometry(100, 40, 32)
+    s_keys, s_rows, payload = build_seed_rows(
+        r.to(cuda), valid.to(cuda), 32, geo,
+        None if lens is None else lens.to(cuda))
+    return r.shape[0], geo, (s_keys, s_rows, payload.reshape(-1, geo.Wt + 2),
+                             geo.R, geo.g, geo.trim, 40)
+
+
+@pytest.mark.parametrize("limit", [None, "inside"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_overlap_join_kernel_hot_run(cuda, ragged, limit):
+    """K3 over a run larger than a slots tile stages, with runs across
+    slot tiles everywhere; a slot limit that cuts inside a query of the
+    hot run writes and marks only the slots below it (the marks of the
+    slots past it stay unset)."""
+    M, geo, args = _hot_join(cuda, ragged)
+    keys = args[0]
+    _, counts = torch.unique_consecutive(keys, return_counts=True)
+    assert int(counts.max()) > 2 * kernels.JOIN_SLOT_TILE
+    full = plain.overlap_join(*args)
+    total = full[4]
+    assert total > 100 * kernels.JOIN_SLOT_TILE
+    slot_limit = None
+    if limit == "inside":       # a query's candidates cut in two
+        a = full[1]
+        same = torch.nonzero(a[1:] == a[:-1]).flatten() + 1
+        slot_limit = int(same[len(same) // 2])
+    cont = [torch.zeros(M, dtype=torch.uint8, device=cuda) for _ in range(2)]
+    marks = (None, None) if not ragged else cont
+    before = kernels.LAUNCHES["overlap_join"]
+    got = kernels.overlap_join(*args, marks[0], slot_limit)
+    assert kernels.LAUNCHES["overlap_join"] == before + 2
+    _equal(got, plain.overlap_join(*args, marks[1], slot_limit))
+    if ragged:
+        assert torch.equal(cont[0], cont[1])
+        assert cont[0].any() or slot_limit is not None
+    if slot_limit is not None:
+        assert got[0].shape[0] == slot_limit < total
+        if ragged:              # the marks of the full join hold more
+            every = torch.zeros(M, dtype=torch.uint8, device=cuda)
+            plain.overlap_join(*args, every)
+            assert int(every.sum()) > int(cont[0].sum())
+
+
+@pytest.mark.parametrize("capacity", ["below", "above"])
+def test_overlap_join_stacked_kernel_hot_run(cuda, capacity):
+    """The fixed-capacity mode over the hot run: exactly C slots, the
+    candidates below min(total, C) and not-ok slots past the total."""
+    r, valid, _ = _hot_reads(48, False)
+    geo = join_geometry(100, 40, 32)
+    keys, rows, payload, n_live = kernels.seed_rows_stacked(
+        r.to(cuda), valid.to(cuda), 32, geo.g, geo.n_pos, geo.trim)
+    flat = payload.reshape(-1, geo.Wt + 2)
+    total = int(plain.overlap_join_stacked(keys, rows, flat, n_live, geo.R,
+                                           geo.g, geo.trim, 40, 1)[4])
+    C = total // 3 if capacity == "below" else total + 1000
+    args = (keys, rows, flat, n_live, geo.R, geo.g, geo.trim, 40, C)
+    got = kernels.overlap_join_stacked(*args)
+    _equal(got, plain.overlap_join_stacked(*args))
+    assert int(got[4]) == total and got[0].shape[0] == C
+    if capacity == "above":
+        assert not got[0][total:].any() and not got[1][total:].any()
+
+
+def test_overlap_join_kernel_hot_run_streamed_and_meshed(cuda):
+    """The hot run through the streamed join's two-segment payload (an
+    entry slab and a query chunk) and the meshed join's permutation."""
+    r, valid, lens = _hot_reads(48, True)
+    M = r.shape[0]
+    geo = join_geometry(100, 40, 32)
+    g, n_pos, W2 = geo.g, geo.n_pos, geo.Wt + 2
+    rc, vc, lc = r.to(cuda), valid.to(cuda), lens.to(cuda)
+    e_keys, e_ids, e_pay = kernels.seed_rows(rc, vc, lc, 32, g, n_pos,
+                                             geo.trim, 0, "entries")
+    q0 = M // 2
+    s_keys, s_rows, q_pay = kernels.seed_rows(
+        rc[q0:], vc[q0:], lc[q0:], 32, g, n_pos, geo.trim, q0, "queries",
+        e_keys, e_ids)
+    args = (s_keys, s_rows, q_pay.reshape(-1, W2), geo.R, g, geo.trim, 40)
+    cont = [torch.zeros(M, dtype=torch.uint8, device=cuda) for _ in range(2)]
+    tail = (e_pay.reshape(-1, W2), 0, q0)
+    got = kernels.overlap_join(*args, cont[0], None, *tail)
+    _equal(got, plain.overlap_join(*args, cont[1], None, *tail))
+    assert torch.equal(cont[0], cont[1]) and got[4] > 0
+    # meshed: the in-core rows with their payload in a shuffled order
+    _, _, margs = _hot_join(cuda, True)
+    keys, rows, flat = margs[:3]
+    shuffle = torch.randperm(rows.shape[0], device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(5))
+    received = flat[rows.long()][shuffle]
+    perm = torch.argsort(shuffle)
+    pargs = (keys, rows, received) + margs[3:]
+    cont = [torch.zeros(M, dtype=torch.uint8, device=cuda) for _ in range(2)]
+    got = kernels.overlap_join(*pargs, cont[0], None, None, 0, 0, perm)
+    _equal(got, plain.overlap_join(*pargs, cont[1], None, None, 0, 0, perm))
+    _equal(got[:4], plain.overlap_join(*margs)[:4])
+    assert torch.equal(cont[0], cont[1]) and cont[0].any()
+
+
+def _solid_part(directory, T):
+    off = kernels.solid_offset(T)
+    return directory[off:] if directory.numel() > off else None
+
+
+@pytest.mark.parametrize("case", VOTE_CASES)
+def test_weak_windows_kernel_membership(cuda, case):
+    """K16 through the membership table of the solid keys (k = 15: every
+    non-empty table gets one; k31: none, K2's directory): equal to
+    plain.weak_windows, fixed and ragged ("short" holds reads shorter
+    than k), filtered by the threshold ("unpruned"), none weak ("clean"),
+    the empty table; the build's three launches once, two a call; K17
+    takes the same directory; a call at another threshold than the
+    table's looks up through K2's directory, as does a table asked for at
+    threshold 0."""
+    k = 31 if case == "k31" else 15
+    reads, lengths, keys, counts, k, threshold, _ = vote_case(case, k=k)
+    r, t_keys, t_counts = (torch.from_numpy(x).to(cuda)
+                           for x in (reads, keys, counts))
+    lens = None if lengths is None else torch.from_numpy(lengths).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    directory = kernels.table_directory(t_keys, t_counts, k, threshold)
+    bits = kernels.solid_bits(len(keys), k)
+    assert (bits is None) == (case in ("empty", "k31"))
+    assert (_solid_part(directory, len(keys)) is None) == (bits is None)
+    assert kernels.LAUNCHES["lookup_counts"] == before["lookup_counts"] + 1
+    assert kernels.LAUNCHES["weak_windows"] == before["weak_windows"] + (
+        0 if bits is None else 3)
+    if bits is not None:        # the header: built, k, threshold, bits
+        head = _solid_part(directory, len(keys))[:4].tolist()
+        assert head == [1, k, threshold, bits]
+    mid = dict(kernels.LAUNCHES)
+    widx = kernels.weak_windows(r, lens, t_keys, t_counts, directory, k,
+                                threshold)
+    assert kernels.LAUNCHES["weak_windows"] == mid["weak_windows"] + 2
+    want = plain.weak_windows(r, lens, t_keys, t_counts, None, k, threshold)
+    _equal([widx], [want])
+    assert (widx.numel() == 0) == (case == "clean")
+    if case == "empty":         # every valid window is weak
+        valid = (reads.shape[1] - k + 1) * reads.shape[0]
+        assert widx.numel() == valid
+    for which in ("last", "first"):
+        _equal([kernels.fix_windows(r, widx, t_keys, t_counts, directory, k,
+                                    threshold, which)],
+               [plain.fix_windows(r, widx, t_keys, t_counts, None, k,
+                                  threshold, which)])
+    other = kernels.weak_windows(r, lens, t_keys, t_counts, directory, k,
+                                 threshold + 1)
+    _equal([other], [plain.weak_windows(r, lens, t_keys, t_counts, None, k,
+                                        threshold + 1)])
+    # at threshold 0 no window is weak, a key absent from the table
+    # included: no membership table is built, K2's directory decides
+    zero = kernels.table_directory(t_keys, t_counts, k, 0)
+    assert _solid_part(zero, len(keys)) is None
+    for d in (zero, directory):
+        got = kernels.weak_windows(r, lens, t_keys, t_counts, d, k, 0)
+        _equal([got], [plain.weak_windows(r, lens, t_keys, t_counts, None,
+                                          k, 0)])
+        assert got.numel() == 0
+
+
+def test_weak_windows_kernel_overflow_bucket(cuda):
+    """A bucket of more than eight solid keys: seven in its sector, the
+    rest in its overflow list (its last word links it); reads whose
+    windows hit each of the bucket's keys, solid or filtered out by the
+    threshold, and keys absent from the table; then a table without the
+    bucket's keys.""" 
+    k = 11
+    keys, counts, crowd = crowded_bucket_table(k, 5, 24)
+    rng = np.random.default_rng(4)
+    # a read a crowd key: the key's k-mer inside random flanks
+    reads = rng.integers(0, 4, (len(crowd) + 8, 40)).astype(np.int32)
+    for i, x in enumerate(crowd.tolist()):
+        reads[i, 10:10 + k] = kmer_codes(x, k)
+    r, t_keys, t_counts = (torch.from_numpy(x).to(cuda)
+                           for x in (reads, keys, counts))
+    directory = kernels.table_directory(t_keys, t_counts, k, 2)
+    bits = kernels.solid_bits(len(keys), k)
+    low = 2 * k - bits
+    solid = _solid_part(directory, len(keys))
+    words = solid[4:4 + (4 << bits)].view(torch.int32).view(-1, 8).cpu()
+    link = int(words[5, 7]) & 0xFFFFFFFF
+    n_in = sum(1 for x, c in zip(keys.tolist(), counts.tolist())
+               if c >= 2 and solid_mix(x, 2 * k) >> low == 5)
+    assert n_in > 8 and link >> 31 == 1
+    widx = kernels.weak_windows(r, None, t_keys, t_counts, directory, k, 2)
+    want = plain.weak_windows(r, None, t_keys, t_counts, None, k, 2)
+    _equal([widx], [want])
+    P = 40 - k + 1
+    hit = set(widx.tolist())
+    for i, c in enumerate(counts[np.searchsorted(keys, crowd)].tolist()):
+        assert ((i * P + 10) in hit) == (c < 2)
+    # a table without the crowd's keys
+    none = torch.from_numpy(np.setdiff1d(keys, crowd)).to(cuda)
+    ones = torch.full_like(none, 3, dtype=torch.int32)
+    d2 = kernels.table_directory(none, ones, k, 2)
+    got = kernels.weak_windows(r[len(crowd):], None, none, ones, d2, k, 2)
+    _equal([got], [plain.weak_windows(r[len(crowd):], None, none, ones, None,
+                                      k, 2)])

@@ -440,3 +440,65 @@ def chain_case(case: str, seed: int = 0):
     dst = np.array([b for _, b in e] + [I32] * pad, np.int32)
     ovl = np.array([edges[x] for x in e] + [0] * pad, np.int32)
     return src, dst, ovl, V
+
+
+# K16's membership table of the solid keys (kernels/csrc/weak_windows.cu):
+# a key x of B = 2k bits goes by its mix to bucket mix(x) >> (B - bits)
+SOLID_MIX = 0x9E3779B97F4A7C15
+
+
+def solid_mix(x: int, B: int) -> int:
+    """The kernel's mix of a B-bit key: x ^= x >> B/2, then times
+    SOLID_MIX mod 2^B (a bijection of [0, 2^B))."""
+    x ^= x >> (B // 2)
+    return (x * SOLID_MIX) & ((1 << B) - 1)
+
+
+def solid_unmix(h: int, B: int) -> int:
+    """The key whose mix is h: the inverse multiply, then x ^= x >> B/2
+    undone."""
+    x = (h * pow(SOLID_MIX, -1, 1 << B)) & ((1 << B) - 1)
+    y = x
+    for _ in range(3):
+        y = x ^ (y >> (B // 2))
+    return y
+
+
+def kmer_codes(key: int, k: int) -> np.ndarray:
+    """The k codes (0-3) of a 2k-bit key, first base in the top bits."""
+    return np.array([(key >> (2 * (k - 1 - i))) & 3 for i in range(k)],
+                    np.int32)
+
+
+def crowded_bucket_table(k: int, bucket: int, n_crowd: int, seed: int = 0):
+    """(keys, counts, crowd): a sorted table of canonical k-mer keys whose
+    membership table (kernels.solid_bits of its size) puts ``n_crowd`` of
+    them in one bucket, past its eight words; the crowd's counts alternate
+    3 and 1 (threshold 2 keeps half), the rest count 3."""
+    from sage2_tpu_torch.kernels import solid_bits
+
+    rng = np.random.default_rng(seed)
+    B = 2 * k
+
+    def canonical(x):
+        rc = sum((3 - ((x >> (2 * i)) & 3)) << (2 * (k - 1 - i))
+                 for i in range(k))
+        return x <= rc
+
+    base = [int(x) for x in rng.integers(0, 1 << B, 4000) if canonical(int(x))]
+    bits = solid_bits(len(base) + 4 * n_crowd, k)
+    low = B - bits
+    crowd = []
+    for v in range(1, 1 << low):
+        x = solid_unmix(bucket << low | v, B)
+        if canonical(x):
+            crowd.append(x)
+            if len(crowd) == n_crowd:
+                break
+    keys = np.unique(np.array(base + crowd, np.int64))
+    if solid_bits(len(keys), k) != bits:
+        raise ValueError("the table's size changed its bucket count")
+    counts = np.full(len(keys), 3, np.int32)
+    where = np.searchsorted(keys, np.array(crowd, np.int64))
+    counts[where[1::2]] = 1
+    return keys, counts, np.array(crowd, np.int64)
