@@ -1022,10 +1022,14 @@ def work(key: str, args: tuple, total=0):
     if name == "reduce_counts":
         keys, src, dst, ovl, V, read_len = args
         E = keys.numel()
-        steps = max(1, math.ceil(math.log2(E + 1)))
+        real = int((src != 2**31 - 1).sum())
         lens = read_len.numel() * 4 if hasattr(read_len, "numel") else 0
-        return (E * 8 + E * 12 + (3 * V + 1) * 4 + E * 4 + lens,
-                (V + 1) * 3 * steps * 4 + E * (steps * 4 + 10))
+        # the real rows' keys and edge arrays in (the padding rows after
+        # them need not be read: the sorted order puts them last), the
+        # tables and every count out; a shift and two compares a key for
+        # the row table, and the counts' reads of the dst runs
+        return (real * 8 + real * 12 + (3 * V + 1) * 4 + E * 4 + lens,
+                real * 3 + run_count_ops(keys, src, dst, ovl, V, read_len))
     if name == "reduce_marks":
         return marks_work(args, total)
     if name == "canonical_reads":
@@ -1179,6 +1183,33 @@ def run_steps(row) -> int:
     longest run)."""
     longest = int((row[1:] - row[:-1]).max()) if row.numel() > 1 else 0
     return max(1, math.ceil(math.log2(longest + 1)))
+
+
+def run_count_ops(keys, src, dst, ovl, V: int, read_len) -> int:
+    """Operations of K6's edge launch on this call's data: 10 a real edge,
+    and for each edge whose bound maxsl[src] - (len(src) - ovl) is not
+    negative the reading of its dst's run: 32 a 16-byte chunk of the
+    8-bit copy for a run of up to 128 rows, else 4 a step of a bisection
+    (ceil(log2(run + 1)) steps; a bound past 254 bisects too)."""
+    import torch
+
+    real = src != 2**31 - 1
+    if not keys.numel() or not bool(real.any()):
+        return 0
+    vk = torch.arange(V + 1, dtype=torch.int64, device=keys.device) << 32
+    row = torch.searchsorted(keys, vk)
+    run = row[1:] - row[:-1]
+    last = keys[(row[1:] - 1).clamp(min=0)] & 0xFFFFFFFF
+    maxsl = torch.where(run > 0, last, -1)
+    v = src[real].long()
+    n = read_len[v].long() if hasattr(read_len, "numel") else read_len
+    bound = maxsl[v] - (n - ovl[real].long())
+    w = dst[real].long()
+    chunks = ((row[1:] + 15) >> 4) - (row[:-1] >> 4)
+    steps = torch.ceil(torch.log2(run.double() + 1)).long()
+    per = torch.where((run[w] <= 128) & (bound < 255), chunks[w] * 32,
+                      steps[w] * 4)
+    return int(per[bound >= 0].sum()) + int(real.sum()) * 10
 
 
 def table_bytes(row, reads: int) -> int:

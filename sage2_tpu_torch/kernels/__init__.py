@@ -19,7 +19,10 @@ Twenty-three kernels (sources in ``kernels/csrc``):
                         window position's votes) and ``vote_apply`` (the
                         rule)
   K6 ``reduce_counts``  run bounds and expansion counts of the device
-                        transitive reduction (two launches)
+                        transitive reduction (two launches: the vertex
+                        row table with each vertex's largest sl, K21's
+                        loop, and an 8-bit copy of the sl; then each
+                        edge's count from its dst's run alone)
   K7 ``reduce_marks``   expansion, membership probe and removal marks of
                         the device transitive reduction, one slot range
   K8 ``canonical_reads`` reverse complement, packed words and canonical
@@ -110,9 +113,10 @@ of their sort and of their grouping or row build.
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use, one
 ``.so`` per source, all compiled at once (``load_all``), and bound with
 ctypes through a plain C interface. A source's headers (``common.cuh``,
-and ``bucket_search.cuh``, ``scan.cuh``, ``lookback.cuh`` or
-``bucket_sort.cuh`` for those that include them, ``HEADERS``) are hashed
-with it, so an edit to a header rebuilds its libraries.
+and ``bucket_search.cuh``, ``scan.cuh``, ``lookback.cuh``,
+``bucket_sort.cuh`` or ``vertex_rows.cuh`` for those that include them,
+``HEADERS``) are hashed with it, so an edit to a header rebuilds its
+libraries.
 """
 
 from __future__ import annotations
@@ -168,9 +172,9 @@ _ARGTYPES = {
         "sage2_vote_apply": [_P, _P, _I64, _I, _P, _P],
     },
     "reduce_counts": {
-        "sage2_reduce_vertices": [_P, _P, _I64, _I64, _P, _P, _P, _P],
-        "sage2_reduce_edges": [_P, _P, _P, _P, _I64, _I, _P, _P, _P, _P,
-                               _P],
+        "sage2_reduce_table": [_P, _I64, _I64, _P, _P, _P, _P],
+        "sage2_reduce_counts": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _P,
+                                _P, _P, _P],
     },
     "reduce_marks": {
         "sage2_reduce_marks": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
@@ -294,6 +298,8 @@ def nvcc_command() -> list:
 
 # the headers each source includes besides common.cuh
 HEADERS = {"lookup_counts": ("bucket_search.cuh",),
+           "reduce_counts": ("vertex_rows.cuh",),
+           "reduce_requests": ("vertex_rows.cuh",),
            "overlap_join": ("lookback.cuh", "scan.cuh"),
            "vote_windows": ("bucket_search.cuh",),
            "dedup_reads": ("scan.cuh",),
@@ -833,7 +839,11 @@ def reduce_counts(
     vertex's first row in the (src, dst) order) and ``counts`` (E,)
     (each edge's expansion count); see kernels/csrc/reduce_counts.cu.
     ``read_len``: the read length, or a (V,) int32 tensor of per-vertex
-    lengths (ragged reads); an edge's sl is len(src) - ovl."""
+    lengths (ragged reads); an edge's sl is len(src) - ovl. Kernel K6, two
+    launches: the vertex row table (with maxsl and each real key's sl in
+    8 bits, saturated), then the counts, each from its dst's run alone;
+    on the card ``start`` is a view of ``startd``'s first V entries,
+    since both orders sort by src first."""
     L, lens = _lens(read_len)
     tensors = (keys, src, dst, ovl) + (() if lens is None else (lens,))
     if _on_cpu(*tensors):
@@ -847,14 +857,20 @@ def reduce_counts(
     def empty(n):
         return torch.empty(n, dtype=torch.int32, device=src.device)
 
-    start, maxsl, startd, counts = empty(V), empty(V), empty(V + 1), empty(E)
-    _launch("reduce_counts", "sage2_reduce_vertices", _ptr(keys), _ptr(src),
-            E, V, _ptr(start), _ptr(maxsl), _ptr(startd), _stream())
+    # one vertex row table serves both orders: start is its first V rows
+    startd, maxsl, counts = empty(V + 1), empty(V), empty(E)
+    start = startd[:V]
+    # each real key's sl in 8 bits, saturated (read in 16-byte chunks)
+    sl8 = torch.empty(-(-E // 16) * 16, dtype=torch.uint8,
+                      device=src.device)
+    _launch("reduce_counts", "sage2_reduce_table", _ptr(keys), E, V,
+            _ptr(startd), _ptr(maxsl), _ptr(sl8), _stream())
     LAUNCHES["reduce_counts"] += 1
     if E:
-        _launch("reduce_counts", "sage2_reduce_edges", _ptr(keys),
-                _ptr(src), _ptr(dst), _ptr(ovl), E, L, _ptr(lens),
-                _ptr(start), _ptr(maxsl), _ptr(counts), _stream())
+        _launch("reduce_counts", "sage2_reduce_counts", _ptr(keys),
+                _ptr(sl8), _ptr(src), _ptr(dst), _ptr(ovl), E, V, L,
+                _ptr(lens), _ptr(startd), _ptr(maxsl), _ptr(counts),
+                _stream())
         LAUNCHES["reduce_counts"] += 1
     return start, maxsl, startd, counts
 

@@ -15,10 +15,11 @@
 //
 //   rows    the shard's vertex row table, once a reduction pass: row[i]
 //           = the first adjacency row whose src >= vbase + i, i in [0,
-//           v_d]. A warp 32 vertices: their first row by one 32-way
-//           search, then the rows from there in coalesced batches of
-//           128 (each row's predecessor from the lane before) until a
-//           src past the warp's vertices: row i writes the starts of
+//           v_d] (the loop of vertex_rows.cuh, which K6 shares). A
+//           warp 32 vertices: their first row by one 32-way search,
+//           then the rows from there in coalesced batches of 128 (each
+//           row's predecessor from the lane before) until a src past
+//           the warp's vertices: row i writes the starts of
 //           the vertices after row i - 1's src up to its own, so a
 //           vertex's row is read about once and every start written
 //           once; a batch inside one vertex's run (a hub) jumps to its
@@ -70,33 +71,15 @@
 // with its vertex's run of dst (and ovl at a hit).
 
 #include "common.cuh"
+#include "vertex_rows.cuh"
 
 namespace {
 
 constexpr int kSlotsPerThread = 8;
 constexpr int kTile = kThreads * kSlotsPerThread;   // merge-path items
-constexpr int kRowsPer = 4;           // rows a lane of a table batch
 constexpr unsigned kFull = 0xffffffffu;
 
-// a + #{i in [a, b): pred(i)} for a predicate true on a prefix of [a, b):
-// one warp, 32 probes a round (all lanes call it; the result is uniform).
-template <typename Pred>
-__device__ __forceinline__ int64_t warp_partition(int64_t a, int64_t b,
-                                                  const Pred& pred) {
-  const int lane = threadIdx.x & 31;
-  while (b - a > 32) {
-    const int64_t n = b - a;
-    const int64_t probe = a + n * (lane + 1) / 32 - 1;    // lane 31: b - 1
-    const int t = __popc(__ballot_sync(kFull, pred(probe)));
-    // probe t - 1 holds, probe t does not: the cut is in between
-    const int64_t lo = t == 0 ? a : a + n * t / 32;
-    const int64_t hi = t == 32 ? b : a + n * (t + 1) / 32 - 1;
-    a = lo;
-    b = hi;
-  }
-  const bool in = a + lane < b && pred(a + lane);
-  return a + __popc(__ballot_sync(kFull, in));
-}
+using vertex_rows::warp_partition;
 
 // [lo, hi): the rows of vertex v in an order sorted by src first, from
 // the table of [vbase, vbase + v_d); empty for a vertex outside it.
@@ -114,50 +97,8 @@ __device__ __forceinline__ void run_of(const int64_t* __restrict__ row,
 __global__ void reduce_rows_kernel(const int64_t* __restrict__ ss_key,
                                    int64_t E, int64_t vbase, int64_t v_d,
                                    int64_t* __restrict__ row) {
-  // a warp 32 vertices [vlo, vhi] of the table: their first row by a
-  // 32-way search, then the rows from there, 32 x kRowsPer a batch (lane
-  // l rows l, l + 32, ...: each load instruction reads 256 contiguous
-  // bytes), until a src past vhi; row i starts the chunk's vertices
-  // after row i - 1's src up to its own, row E (src: the table's end)
-  // those after the last src. A batch of one vertex's rows (a hub)
-  // jumps to the run's end by another search.
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (static_cast<int64_t>(gridDim.x) * kThreads) >> 5;
-  for (int64_t u0 = ((blockIdx.x * static_cast<int64_t>(kThreads) +
-                      threadIdx.x) >> 5) * 32;
-       u0 <= v_d; u0 += warps * 32) {
-    const int64_t vlo = vbase + u0;
-    const int64_t vhi = vbase + (u0 + 31 < v_d ? u0 + 31 : v_d);
-    int64_t w0 = warp_partition(0, E, [&](int64_t i) {
-      return __ldg(ss_key + i) < (vlo << 32);
-    });
-    int64_t last = vlo - 1;           // the src of row w0 - 1, clipped
-    while (last < vhi) {              // warp-uniform: a shuffled value
-      int64_t src[kRowsPer];
-      for (int k = 0; k < kRowsPer; ++k) {
-        const int64_t i = w0 + 32 * k + lane;
-        src[k] = i < E ? __ldg(ss_key + i) >> 32 : vbase + v_d;
-      }
-      const int64_t head = __shfl_sync(kFull, src[0], 0);
-      for (int k = 0; k < kRowsPer; ++k) {
-        int64_t prev = __shfl_up_sync(kFull, src[k], 1);
-        if (lane == 0) prev = last;
-        last = __shfl_sync(kFull, src[k], 31);
-        const int64_t i = w0 + 32 * k + lane;
-        if (i > E) continue;
-        const int64_t a = prev + 1 > vlo ? prev + 1 : vlo;
-        const int64_t b = src[k] < vhi ? src[k] : vhi;
-        for (int64_t v = a; v <= b; ++v) row[v - vbase] = i;
-      }
-      w0 += 32 * kRowsPer;
-      if (head == last && last < vhi) {   // inside one vertex's run
-        const int64_t next = (last + 1) << 32;
-        w0 = warp_partition(w0, E, [&](int64_t i) {
-          return __ldg(ss_key + i) < next;
-        });
-      }
-    }
-  }
+  // the table's loop of vertex_rows.cuh, shared with K6
+  vertex_rows::build<int64_t, false>(ss_key, E, vbase, v_d, row, nullptr);
 }
 
 __global__ void reduce_ranges_kernel(const int64_t* __restrict__ ss_key,

@@ -81,21 +81,29 @@
 // vote launches and one apply launch, with K22 building each position's
 // variant keys and the routed lookup (K19, K2, K20) between them:
 //
-//   vote_add    window position j: one thread a (read, window) reads its
-//               4 counts (16 bytes, coalesced), and adds its 4 solid
-//               verdicts, one byte each, to the packed votes of base
-//               w + j (four uint8 counters in one 32-bit word; at most k
-//               <= 31 windows vote, so no byte carries). For a fixed j
-//               each (read, window) owns its base: no atomics. A window
-//               past its read's end adds nothing.
+//   vote_add    window position j: a warp a read (its valid window count
+//               lengths[r] - (k - 1), or P, loaded once), a lane its
+//               windows w = lane, lane + 32, ...: the read and window
+//               come from the warp's and lane's 32-bit coordinates, not
+//               from a division of a flat (read, window) index (64-bit
+//               division is a software routine of tens of instructions
+//               on the card). A lane loads up to 4 windows' counts (16
+//               bytes each, coalesced, evict-first) before it writes,
+//               and adds each window's 4 solid verdicts, one byte each,
+//               to the packed votes of base w + j (four uint8 counters
+//               in one 32-bit word; at most k <= 31 windows vote, so no
+//               byte carries). For a fixed j each (read, window) owns its
+//               base: no atomics. A window past its read's end reads no
+//               counts and adds nothing.
 //   vote_apply  one thread a base: the replace rule of step 5 on its
 //               votes. A base at or past a ragged read's end has no valid
 //               covering window, so vote_add left its votes 0 and it
 //               keeps its code with no mask.
 //
-// Bound: bytes. vote_add reads 16 bytes of counts a window and reads and
-// writes 4 bytes of votes; vote_apply reads the base and its votes and
-// writes the base.
+// Bound: bytes. vote_add reads 16 bytes of counts a valid window and
+// reads and writes 4 bytes of votes (24 bytes: 0.357 ms for the ~49.8 M
+// valid windows of a 13b shard's call at 3.35 TB/s); vote_apply reads the
+// base and its votes and writes the base.
 
 #include "bucket_search.cuh"
 #include "common.cuh"
@@ -405,22 +413,46 @@ SAGE2_EXPORT int sage2_vote_windows(const void* reads, const void* lengths,
 
 namespace {
 
-__global__ void vote_add_kernel(uint32_t* __restrict__ votes,
-                                const int4* __restrict__ counts,
-                                const int32_t* __restrict__ lengths,
-                                int64_t n_reads, int L, int k, int j,
-                                int threshold) {
+constexpr int kVoteBatch = 4;    // windows a lane of vote_add loads at once
+
+// A warp a read: its valid window count loaded once, then its windows in
+// steps of 32 x kVoteBatch, the batch's counts loaded before any vote is
+// written (kVoteBatch independent 16-byte loads a lane in flight).
+__global__ void __launch_bounds__(kThreads) vote_add_kernel(
+    uint32_t* __restrict__ votes, const int4* __restrict__ counts,
+    const int32_t* __restrict__ lengths, int64_t n_reads, int L, int k,
+    int j, int threshold) {
+  const int lane = threadIdx.x & 31;
   const int P = L - k + 1;
-  SAGE2_GRID_STRIDE(i, n_reads * P) {
-    const int64_t r = i / P;
-    const int w = static_cast<int>(i % P);
-    if (lengths != nullptr && w >= lengths[r] - (k - 1)) continue;
-    const int4 c = counts[i];
-    const uint32_t add = static_cast<uint32_t>(c.x >= threshold) |
-                         static_cast<uint32_t>(c.y >= threshold) << 8 |
-                         static_cast<uint32_t>(c.z >= threshold) << 16 |
-                         static_cast<uint32_t>(c.w >= threshold) << 24;
-    if (add) votes[r * L + w + j] += add;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                   (threadIdx.x >> 5);
+       r < n_reads; r += static_cast<int64_t>(gridDim.x) * kWarpsPerBlock) {
+    int Pv = P;
+    if (lengths != nullptr) {
+      const int n = __ldg(lengths + r) - (k - 1);
+      if (n < Pv) Pv = n;
+    }
+    const int4* c = counts + r * P;
+    uint32_t* out = votes + r * L + j;
+    for (int w0 = lane; w0 < Pv; w0 += 32 * kVoteBatch) {
+      int4 x[kVoteBatch];
+#pragma unroll
+      for (int t = 0; t < kVoteBatch; ++t) {
+        const int w = w0 + 32 * t;
+        x[t] = w < Pv ? __ldcs(c + w) : make_int4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int t = 0; t < kVoteBatch; ++t) {
+        const int w = w0 + 32 * t;
+        if (w >= Pv) break;
+        const uint32_t add =
+            static_cast<uint32_t>(x[t].x >= threshold) |
+            static_cast<uint32_t>(x[t].y >= threshold) << 8 |
+            static_cast<uint32_t>(x[t].z >= threshold) << 16 |
+            static_cast<uint32_t>(x[t].w >= threshold) << 24;
+        if (add) out[w] += add;
+      }
+    }
   }
 }
 
@@ -457,8 +489,10 @@ __global__ void vote_apply_kernel(const int32_t* __restrict__ reads,
 SAGE2_EXPORT int sage2_vote_add(void* votes, const void* counts,
                                 const void* lengths, int64_t n_reads, int L,
                                 int k, int j, int threshold, void* stream) {
-  const int64_t n = n_reads * (L - k + 1);
-  vote_add_kernel<<<sage2_blocks(n), kThreads, 0,
+  int64_t grid = (n_reads + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (grid > (int64_t{1} << 20)) grid = int64_t{1} << 20;
+  if (grid < 1) grid = 1;
+  vote_add_kernel<<<static_cast<int>(grid), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(votes), static_cast<const int4*>(counts),
       static_cast<const int32_t*>(lengths), n_reads, L, k, j, threshold);

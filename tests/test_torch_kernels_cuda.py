@@ -43,6 +43,8 @@ from sage2_tpu_torch.overlap import (
 from sage2_tpu_torch.overlap.detect import build_seed_rows, join_geometry
 from torch_kernel_cases import (
     CHAIN_CASES,
+    COUNTS_CASES,
+    I32_MAX,
     DEDUP_CASES,
     MARKS_READ_LEN,
     REDUCE_CASES,
@@ -51,6 +53,7 @@ from torch_kernel_cases import (
     VOTE_CASES,
     bucket_geometry,
     chain_case,
+    counts_case,
     crowded_bucket_table,
     kmer_codes,
     lookup_case,
@@ -311,6 +314,88 @@ def test_reduce_kernels(cuda):
         a = kernels.reduce_marks(removed.clone(), *rest, j0, j1)
         assert kernels.LAUNCHES["reduce_marks"] == before + (j1 > j0)
         _equal([a], [plain.reduce_marks(removed.clone(), *rest, j0, j1)])
+
+
+def _counts_inputs(cuda, src, dst, ovl, V, read_len, key_len=None):
+    """K6's inputs on the card: the edges, the caller's sorted (src, sl)
+    keys (sl from ``key_len``, by default ``read_len``) and the length
+    argument."""
+    src, dst, ovl = (torch.from_numpy(a).to(cuda) for a in (src, dst, ovl))
+    lens = (torch.from_numpy(read_len).to(cuda)
+            if isinstance(read_len, np.ndarray) else read_len)
+    kl = lens if key_len is None else key_len
+    length = (kl[src.clamp(0, V - 1).long()] if isinstance(kl, torch.Tensor)
+              else kl)
+    keys, _ = sort_by_pair(src, torch.where(src != I32_MAX, length - ovl,
+                                            I32_MAX))
+    return keys, src, dst, ovl, V, lens
+
+
+def _check_counts(args):
+    before = kernels.LAUNCHES["reduce_counts"]
+    got = kernels.reduce_counts(*args)
+    assert kernels.LAUNCHES["reduce_counts"] == before + 2
+    _equal(got, plain.reduce_counts(*(a.cpu() if isinstance(
+        a, torch.Tensor) else a for a in args)))
+    return got
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("case", COUNTS_CASES + ("longer", "saturated",
+                                                  "mixed"))
+def test_reduce_counts_kernel_cases(cuda, case, ragged):
+    """K6 on tests/torch_kernel_cases.py's graphs (a hub, runs of vertices
+    without edges, sl ties, the last vertex with edges, all padding, sl
+    and bounds on both sides of the 8-bit copy's 255), and on its random
+    graph as "longer" (the counts read lengths 40 longer than the keys'
+    sl came from: negative bounds), "saturated" (lengths 70,000 longer:
+    every sl saturated in the copy) and "mixed" (one vertex's sl
+    saturated): each output bit-equal to the plain version's."""
+    base = "random" if case in ("longer", "saturated", "mixed") else case
+    src, dst, ovl, V, read_len = counts_case(base, ragged)
+    key_len = None
+    if case == "longer":
+        key_len = torch.from_numpy(read_len).to(cuda) if ragged else read_len
+        read_len = read_len + 40
+    elif case == "saturated":
+        read_len = read_len + 70_000
+    elif case == "mixed":
+        lens = (read_len if ragged else np.full(V, read_len)).astype(np.int32)
+        lens[int(src[0])] += 70_000
+        read_len = lens
+    _check_counts(_counts_inputs(cuda, src, dst, ovl, V, read_len, key_len))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_reduce_counts_kernel_hub(cuda, ragged):
+    """A hub of 20,000 out-edges (its rows span many batches of the row
+    table's loop, which jumps the run by a search) that 3,000 edges point
+    at (their bisections take 15 steps), runs of hundreds of vertices
+    without edges (warps with no rows of their own), and the last vertex
+    with edges, against the plain version."""
+    rng = np.random.default_rng(41)
+    V, hub = 5000, 1234
+    some = np.r_[0:300, 2000:2400, 4000:V]     # the others: no edges
+    s = np.r_[np.full(20_000, hub), rng.choice(some, 3000),
+              np.full(200, V - 1), rng.choice(some, 30_000)]
+    d = np.r_[rng.integers(0, V, 20_000), np.full(3000, hub),
+              rng.integers(0, V, 200), rng.integers(0, V, 30_000)]
+    d[rng.random(d.shape[0]) < 0.1] = V - 1
+    lens = rng.integers(80, 121, V).astype(np.int32)
+    sl = rng.integers(1, 60, s.shape[0])
+    order = np.lexsort((d, s))
+    s, d, sl = s[order], d[order], sl[order]
+    read_len = lens if ragged else 100
+    length = lens[s] if ragged else 100
+    pad = np.full(77, I32_MAX)
+    src = np.r_[s, pad].astype(np.int32)
+    dst = np.r_[d, pad].astype(np.int32)
+    ovl = np.r_[length - sl, np.zeros(77)].astype(np.int32)
+    start, maxsl, startd, counts = _check_counts(
+        _counts_inputs(cuda, src, dst, ovl, V, read_len))
+    assert int(startd[hub + 1] - startd[hub]) == 20_000
+    assert int(maxsl[2500]) == -1 and int(maxsl[V - 1]) >= 0
+    assert int(counts.max()) > 1000
 
 
 @pytest.mark.parametrize("split", ["one", "mid-hub", "edge-first",
@@ -1705,6 +1790,35 @@ def test_vote_add_and_apply_kernels(cuda, k, ragged):
     assert (want != r).any()
     assert torch.equal(want, plain.vote_windows(r, t.keys, t.count, k, 2,
                                                 lens))
+
+
+@pytest.mark.parametrize("L,k", [(40, 11), (150, 25), (300, 31)])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_vote_add_kernel_every_position(cuda, ragged, L, k):
+    """vote_add at every window position j on votes that start nonzero,
+    with counts around the threshold (equal to it too), P = 30, 126 and
+    270 windows (none a multiple of a warp's 128-window step); ragged:
+    lengths below k (no window), of exactly k (one), of L (all) and
+    between; each launch bit-equal to the plain version."""
+    rng = np.random.default_rng(L + k)
+    N, P, thr = 333, L - k + 1, 3
+    lens = None
+    if ragged:
+        lens = rng.integers(1, L + 1, N).astype(np.int32)
+        lens[:40] = np.arange(40) % (k - 1) + 1
+        lens[40:60], lens[60:80] = k, L
+        lens = torch.from_numpy(lens)
+    votes = torch.from_numpy(rng.integers(0, 4, (N, L, 4)).astype(np.uint8))
+    gvotes = votes.to(cuda)
+    glens = None if lens is None else lens.to(cuda)
+    for j in range(k):
+        counts = torch.from_numpy(
+            rng.integers(0, 2 * thr, (N, P, 4)).astype(np.int32))
+        plain.vote_add(votes, counts, j, k, thr, lens)
+        kernels.vote_add(gvotes, counts.to(cuda), j, k, thr, glens)
+        assert torch.equal(gvotes.cpu(), votes), j
+    if ragged:
+        assert not (votes[:40].int() > 3).any()
 
 
 @pytest.mark.parametrize("k", [11, 25, 31])

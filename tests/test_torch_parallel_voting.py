@@ -95,6 +95,62 @@ def test_routed_vote_matches_voting_round(ragged):
         assert (want[past] == reads[past]).all()
 
 
+VOTE_EDGES = ("below_k", "exact_k", "full_L", "at_threshold")
+
+
+@pytest.mark.parametrize("case", VOTE_EDGES)
+def test_routed_vote_edge_cases(case):
+    """vote_add chained over j, then vote_apply, against the reference's
+    voting_round on the ragged input of the test above with the edges of
+    vote_add's window mask: 16 reads shorter than k (lengths 1 to k - 1:
+    no valid window), of exactly k bases (one window) or of the full L
+    (every window), the bases past a length zeroed; or every count
+    mapped to threshold or threshold - 1 (0 stays 0) on both sides, so
+    that the solid test meets counts equal to the threshold."""
+    reads, lens = _reads(True, seed=331)
+    reads, lens = reads.copy(), lens.copy()
+    L = reads.shape[1]
+    edge = {"below_k": np.arange(16) % (K - 1) + 1,
+            "exact_k": np.full(16, K), "full_L": np.full(16, L)}.get(case)
+    if edge is not None:
+        lens[:16] = edge
+    reads[np.arange(L)[None, :] >= lens[:, None]] = 0
+    jl = jnp.asarray(lens)
+    table = count_kmers(jnp.asarray(reads), K, jl)
+
+    def at_threshold(c):
+        return c if case != "at_threshold" else (
+            (c > 0) * (THR - c % 2))
+
+    want = np.asarray(voting_round(
+        jnp.asarray(reads),
+        lambda ch, cl: at_threshold(lookup_counts(table, ch, cl)), K, THR,
+        jl))
+    n = int(table.n_unique)
+    keys = torch.from_numpy((np.asarray(table.hi[:n]).astype(np.int64) << 32)
+                            | np.asarray(table.lo[:n]).astype(np.int64))
+    counts = torch.from_numpy(np.asarray(table.count[:n]).astype(np.int32))
+    r, tl = torch.from_numpy(reads), torch.from_numpy(lens)
+    votes = torch.zeros(r.shape + (4,), dtype=torch.uint8)
+    at_thr = 0
+    for j in range(K):
+        cnt = at_threshold(plain._count_of(keys, counts,
+                                           plain.window_variants(r, K, j)))
+        at_thr += int((cnt == THR).sum())
+        plain.vote_add(votes, cnt, j, K, THR, tl)
+    np.testing.assert_array_equal(plain.vote_apply(r, votes).numpy(), want)
+    assert (want != reads).any()
+    v = votes.numpy()
+    if case == "below_k":
+        assert not v[:16].any()
+    elif case == "exact_k":
+        assert v[:16, :K].any() and not v[:16, K:].any()
+    elif case == "full_L":
+        assert v[:16, -1].any()
+    else:
+        assert at_thr > 0
+
+
 @pytest.mark.parametrize("k", [11, 25])
 def test_window_variants_every_position_matches_reference(k):
     rng = np.random.default_rng(k)

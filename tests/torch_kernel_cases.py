@@ -1,7 +1,7 @@
 """Inputs shared by the CPU and the CUDA tests of kernels K2
 (``kernels.lookup_counts``, with the geometry of its bucket directory,
-kernels/csrc/bucket_search.cuh), K5, K7 and K12-K14, made with numpy
-from a seed.
+kernels/csrc/bucket_search.cuh), K5, K6, K7 and K12-K14, made with
+numpy from a seed.
 
 Imports neither JAX nor sage2_tpu, so the CUDA tests can use it on a
 machine without JAX."""
@@ -271,6 +271,82 @@ def slot_splits(offsets: np.ndarray, src: np.ndarray, n_reads: int = 1500):
 # complement, reverse palindromes, one read, poly-T reads; ragged reads
 # whose words agree and whose lengths differ, and a width whose key
 # string ends inside its last word
+COUNTS_CASES = ("hub", "empty_runs", "tie", "last", "padding", "random",
+                "long")
+COUNTS_READ_LEN = 100
+I32_MAX = 2**31 - 1
+
+
+def counts_case(case: str, ragged: bool, seed: int = 21):
+    """(src, dst, ovl, n_vertices, read_len) of a K6 case: int32 edges
+    sorted by (src, dst), padding rows (INT32_MAX, INT32_MAX, 0) at the
+    tail; read_len COUNTS_READ_LEN, or (V,) int32 lengths in [80, 120]
+    when ``ragged`` (long: 500, or lengths in [450, 550]). Edges are made
+    as (src, dst, sl) and ovl = len(src) - sl, so a case's sl ties hold
+    under either length:
+
+      * hub: vertex 7 with out-edges to 30 vertices (a long run to
+        bisect) and 25 vertices' edges into it;
+      * empty_runs: vertices without out-edges at the start (0-4), in a
+        run (15-20) and at the end (35-39), all of them also dst;
+      * tie: bounds equal to an sl of dst's run (the upper bound's tie),
+        repeated sl in a run, and a bound below dst's smallest sl;
+      * last: the last vertex with out-edges, and many edges into it;
+      * padding: every row padding;
+      * random: 60 vertices, 300 random edges;
+      * long: 60 vertices, 300 random edges of sl in [1, 400): bounds
+        and sl on both sides of 255 (K6's 8-bit copy saturates there)."""
+    rng = np.random.default_rng(seed + COUNTS_CASES.index(case))
+    V = {"hub": 40, "empty_runs": 40, "tie": 12, "last": 30,
+         "padding": 6, "random": 60, "long": 60}[case]
+    edges = []                          # (src, dst, sl)
+
+    def rand(n, srcs, dsts, lo=1, hi=60):
+        for _ in range(n):
+            edges.append((int(rng.choice(srcs)), int(rng.choice(dsts)),
+                          int(rng.integers(lo, hi))))
+
+    every = np.arange(V)
+    if case == "hub":
+        for d in rng.choice(np.delete(every, 7), 30, replace=False):
+            edges.append((7, int(d), int(rng.integers(1, 60))))
+        for s in rng.choice(np.delete(every, 7), 25, replace=False):
+            edges.append((int(s), 7, int(rng.integers(1, 60))))
+        rand(80, every, every)
+    elif case == "empty_runs":
+        out = np.setdiff1d(every, np.r_[0:5, 15:21, 35:40])
+        rand(120, out, every)
+    elif case == "tie":
+        # 1 -> 2 at sl 10 with maxsl(1) = 30: bound 20 in 2's run, which
+        # holds sl 19, 20, 20 and 21; 1 -> 3 at sl 30: bound 0, below
+        # every sl of 3's run
+        edges += [(1, 2, 10), (1, 3, 30), (2, 4, 19), (2, 5, 20),
+                  (2, 6, 20), (2, 7, 21), (3, 8, 5), (3, 9, 6),
+                  (4, 2, 3), (4, 5, 23), (5, 2, 3), (5, 6, 1), (6, 7, 2)]
+    elif case == "last":
+        for d in rng.choice(V - 1, 12, replace=False):
+            edges.append((V - 1, int(d), int(rng.integers(1, 60))))
+        for s in rng.choice(V - 1, 20, replace=False):
+            edges.append((int(s), V - 1, int(rng.integers(1, 60))))
+        rand(60, every[:-1], every)
+    elif case == "random":
+        rand(300, every, every)
+    elif case == "long":
+        rand(300, every, every, 1, 400)
+    long = 400 if case == "long" else 0
+    lens = (rng.integers(80 + long, 121 + long, V).astype(np.int32)
+            if ragged else None)
+    e = np.array(edges, np.int64).reshape(-1, 3)
+    order = np.lexsort((e[:, 1], e[:, 0]))
+    e = e[order]
+    length = (lens[e[:, 0]] if ragged else COUNTS_READ_LEN + long)
+    pad = 5 if case != "padding" else 8
+    src = np.r_[e[:, 0], np.full(pad, I32_MAX)].astype(np.int32)
+    dst = np.r_[e[:, 1], np.full(pad, I32_MAX)].astype(np.int32)
+    ovl = np.r_[length - e[:, 2], np.zeros(pad)].astype(np.int32)
+    return src, dst, ovl, V, (lens if ragged else COUNTS_READ_LEN + long)
+
+
 DEDUP_CASES = ("all_equal", "rc_of_another", "palindromes", "single",
                "poly_t", "ragged_poly_t", "ragged_same_words", "ragged_wide")
 # K14 (the longest overlap per pair)
