@@ -145,7 +145,13 @@ Phases (one flushed line each, with its seconds):
      device times of that launch and of torch.gather, each enqueued
      behind a spin of the card ("device_ms", "library_device_ms"),
      and one PyTorch call computing the same function where there is
-     one (torch.searchsorted beside K2 and beside K9's bucket table,
+     one. Two rows take inputs made from another row's (DERIVED):
+     "fix_windows:fallback", phase 4's K17 call through K2's directory
+     alone (no membership table), and "dedup_reads:skew", phase 4's K12
+     call with the first 32 bases of every tenth read set to A (a run
+     of 230,000 equal leading words, sorted by the whole grid; K8 run
+     again on them); their "launches" are their kernel's on phase 4
+     (torch.searchsorted beside K2 and beside K9's bucket table,
      torch.gather beside P1, torch.unique_consecutive beside K11,
      torch.unique(dim=0) of the canonical words (the length first for
      ragged reads) beside K12, torch.masked_select of the keys and
@@ -309,6 +315,11 @@ KERNEL_INFO = {
                             "sage2_tpu/kmer/correct.py:270", "8a"),
     "fix_windows": (_CSRC + "fix_windows.cu",
                     "sage2_tpu/kmer/correct.py:293", "4"),
+    # rows whose inputs phase 2 makes from another row's (DERIVED)
+    "fix_windows:fallback": (_CSRC + "fix_windows.cu",
+                             "sage2_tpu/kmer/correct.py:293", "4"),
+    "dedup_reads:skew": (_CSRC + "dedup_reads.cu",
+                         "sage2_tpu/overlap/prepare.py:67", "4"),
     "chain_links": (_CSRC + "chain_links.cu",
                     "sage2_tpu/graph/traverse.py:40", "4"),
     "chain_links:cut": (_CSRC + "chain_links.cu",
@@ -362,6 +373,10 @@ KERNEL_INFO = {
     "overlap_join:ragged_perm": (_CSRC + "overlap_join.cu",
                                  "sage2_tpu/parallel/sharded.py:957", "13a"),
 }
+# the rows whose inputs are made from another row's (derived_inputs), and
+# that row
+DERIVED = {"fix_windows:fallback": "fix_windows",
+           "dedup_reads:skew": "dedup_reads"}
 # the wrapper of each row whose kernel is called through another wrapper
 # than its own name
 WRAPPER = {"chain_links:cut": "chain_cut",
@@ -1072,11 +1087,10 @@ def work(key: str, args: tuple, total=0):
         n_keys = -(-(2 * L + (0 if lengths is None else L.bit_length()))
                    // 64)
         # the canonical words (one of the two), the flags and lengths
-        # in; the representatives' codes in and the unique rows,
+        # in; the unique rows (their codes are the sorted words'),
         # multiplicities, vertices and lengths out; a comparison of each
         # key at each of log2 N levels of the sort
-        return (fwd_w.numel() * 8 + N + lens + total * L * 4
-                + N * (L * 4 + 8) + lens,
+        return (fwd_w.numel() * 8 + N + lens + N * (L * 4 + 8) + lens,
                 N * n_keys * max(1, math.ceil(math.log2(N))) * 2)
     if name == "seed_rows":
         reads2, valid2, lengths, s, g, n_pos, trim = args[:7]
@@ -1392,9 +1406,11 @@ def main() -> int:
         ``rows``. Each row's kept inputs are freed after it."""
         t0 = time.perf_counter()
         say(f"card before phase {label}: {card_state()}")
-        # K2's rows first: they read their path's K16 row's inputs
-        order = sorted(selected, key=lambda item: not base_key(
-            item[0]).startswith("lookup_counts"))
+        # K2's rows first, then the derived rows: they read other rows'
+        # inputs
+        order = sorted(selected, key=lambda item: (
+            not base_key(item[0]).startswith("lookup_counts"),
+            item[0] not in DERIVED))
         for row, (source, replaces, path) in order:
             t1 = time.perf_counter()
             key = base_key(row)
@@ -1403,6 +1419,8 @@ def main() -> int:
             k2_dir = name == "lookup_counts" and path not in MESH_PATHS
             if k2_dir:
                 args = k2_inputs(capture, path)
+            elif row in DERIVED:
+                args = derived_inputs(row, capture.peek(DERIVED[row]), kern)
             else:
                 args = capture.inputs(row)      # freed after its row
             if key == "longest_edges:deferred":
@@ -1466,7 +1484,7 @@ def main() -> int:
             nbytes, ops = work(key, args, total)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / OPS_PER_S * 1e3
-            n_launches = launches_by_key[path][key]
+            n_launches = launches_by_key[path][DERIVED.get(row, key)]
             rows.append({
                 "name": row, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launches,
@@ -1478,6 +1496,9 @@ def main() -> int:
             shape = [tuple(a.shape) for a in args
                      if isinstance(a, torch.Tensor)]
             per_step = ""
+            if row in DERIVED:
+                rows[-1]["launches_of"] = (f"{DERIVED[row]} on phase {path}"
+                                           " (inputs made from its row's)")
             if name == "lookup_counts":         # K2's first launch alone
                 if k2_dir:      # the path's K2 launches: directory launches
                     rows[-1]["launches_of"] = "bucket directory"
@@ -2217,6 +2238,22 @@ def with_duplicates(args: tuple) -> tuple:
     ok, a, b = (torch.cat([x, x[pick]]) for x in (ok, a, b))
     ovl = torch.cat([ovl, ovl[pick] - 1])
     return ok, a, b, ovl, n_vertices, read_len, capacity + pick.numel()
+
+
+def derived_inputs(row: str, args: tuple, kern) -> tuple:
+    """The inputs of a DERIVED row from its base row's ``args`` (``kern``:
+    the kernel wrappers as they are): K17's call with K2's bucket
+    directory alone, so that every variant is looked up through it; K12's
+    with every tenth read's first 32 bases set to A, and K8's outputs for
+    those reads."""
+    if row == "fix_windows:fallback":
+        reads, widx, table, counts, _, *rest = args
+        return (reads, widx, table, counts,
+                kern("lookup_directory")(table, counts), *rest)
+    reads, lengths = args[:2]
+    skew = reads.clone()
+    skew[::10, :32] = 0
+    return (skew, lengths) + tuple(kern("canonical_reads")(skew, lengths))
 
 
 def k2_inputs(capture, path: str) -> tuple:

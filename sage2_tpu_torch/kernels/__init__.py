@@ -60,7 +60,8 @@ Twenty-three kernels (sources in ``kernels/csrc``):
                         round by ``table_directory``: ``solid_table``,
                         three launches)
   K17 ``fix_windows``   the variant lookups, replacement rule and edits
-                        at the weak windows (one launch)
+                        at the weak windows (each tile's range of them,
+                        then a tile of reads a block: two launches)
   K18 ``chain_links``   degrees, single neighbours, chain links and the
                         initial parents of unitig labeling (one
                         cooperative launch); ``chain_cut`` the cycle cut
@@ -200,14 +201,17 @@ _ARGTYPES = {
         "sage2_gather_along": [_P, _P, _I64, _I64, _I, _P, _P, _P],
     },
     "dedup_reads": {
-        "sage2_dedup_keys": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P,
+        "sage2_dedup_range": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                              _I, _P, _P, _I, _P, _P],
+        "sage2_dedup_hist": [_P, _I64, _I, _P, _P, _I, _P],
+        "sage2_dedup_scan": [_P, _I, _P],
+        "sage2_dedup_scatter": [_P, _I64, _I, _P, _P, _I, _P, _P],
+        "sage2_dedup_split": [_P, _P, _I, _I, _P, _P, _P],
+        "sage2_dedup_big": [_P, _P, _P, _I, _I64, _I, _P],
+        "sage2_dedup_sort": [_P, _P, _P, _I, _I64, _I, _P, _I64, _P, _P, _P,
                              _P, _P, _P],
-        "sage2_dedup_heads": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _P, _P,
-                              _P, _P],
-        "sage2_scan_tiles": [_P, _I64, _P, _P],
-        "sage2_dedup_assign": [_P, _P, _P, _P, _I64, _P, _P, _P],
-        "sage2_dedup_rows": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P,
-                             _P, _P],
+        "sage2_dedup_rows": [_P, _P, _I, _P, _P, _P, _I64, _I, _I, _I, _P,
+                             _P, _P, _P],
     },
     "seed_rows": {
         "sage2_seed_rows": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I,
@@ -244,8 +248,10 @@ _ARGTYPES = {
         "sage2_weak_write": [_P, _I64, _I, _P, _P, _P],
     },
     "fix_windows": {
-        "sage2_fix_windows": [_P, _I, _I, _P, _P, _I64, _P, _I, _I, _P,
-                              _I64, _P, _P],
+        "sage2_fix_tiles": [_I64, _I, _P],
+        "sage2_fix_starts": [_P, _I64, _I64, _I, _I, _P, _P],
+        "sage2_fix_windows": [_P, _I64, _I, _I, _P, _P, _I64, _P, _P, _I,
+                              _I, _P, _P, _P, _P],
     },
     "chain_links": {
         "sage2_chain_links": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
@@ -302,12 +308,13 @@ HEADERS = {"lookup_counts": ("bucket_search.cuh",),
            "reduce_requests": ("vertex_rows.cuh",),
            "overlap_join": ("lookback.cuh", "scan.cuh"),
            "vote_windows": ("bucket_search.cuh",),
-           "dedup_reads": ("scan.cuh",),
+           "dedup_reads": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
            "seed_rows": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
            "longest_edges": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
            "prune_table": ("scan.cuh",),
-           "weak_windows": ("bucket_search.cuh", "lookback.cuh"),
-           "fix_windows": ("bucket_search.cuh",)}
+           "weak_windows": ("bucket_search.cuh", "lookback.cuh",
+                            "solid_table.cuh"),
+           "fix_windows": ("bucket_search.cuh", "solid_table.cuh")}
 
 
 def _specs():
@@ -1168,8 +1175,7 @@ def gather_along_launch(tbl: torch.Tensor, idx: torch.Tensor, axis: int,
     LAUNCHES["gather_along"] += 1
 
 
-# items a tile of the two-pass scans of K12, K15 and K16 (kScanTile in
-# kernels/csrc/scan.cuh)
+# items a tile of K15's two-pass scan (kScanTile in kernels/csrc/scan.cuh)
 SCAN_TILE = 1024
 # rows a tile of K13's entry-slab compaction (kCompactTile in
 # kernels/csrc/seed_rows.cu)
@@ -1202,11 +1208,15 @@ def dedup_reads(
     canonical reads in canonical orientation, zero past its length and
     on rows from n_unique on; ``mult`` (N,) int32 the group sizes;
     ``vertex_of_read`` (N,) int32; ``lens_u`` (N,) int32 or None.
-    Kernel K12: for each of the ceil((2 L + lb) / 64) keys, from the
-    last, a launch gathers the key through the current order and a
-    stable torch.sort orders it; then four grouping launches (heads,
-    the scan of the group ids, their assignment, the unique rows; see
-    kernels/csrc/dedup_reads.cu). One host read a call (n_unique)."""
+    Kernel K12: each read's whole key string (its length, then its
+    canonical words) with its index sorted once by the bucketed sort of
+    bucket_sort.cuh (range, histogram, scan, coarse scatter, fine split,
+    big buckets, sort; seven launches a pass), whose sort launch also
+    groups equal strings and writes every output but the unique rows,
+    which one more launch unpacks from the sorted strings (reads of codes
+    0-3); a string longer than the widest element goes in passes
+    (bucket_plan.dedup_passes; see kernels/csrc/dedup_reads.cu). One
+    host read a call (n_unique)."""
     N, L = reads.shape
     W = -(-L // 16)
     if rc.shape != reads.shape or fwd_w.shape != (N, W) or (
@@ -1225,6 +1235,8 @@ def dedup_reads(
     _dtype(take_rc, torch.bool, "take_rc")
     if lengths is not None:
         _dtype(lengths, torch.int32, "lengths")
+    if N >= 1 << 31:
+        raise ValueError(f"{N} reads overflow K12's 31-bit indices")
     dev = reads.device
     lens_u = None if lengths is None else torch.empty_like(lengths)
     uniq = torch.empty_like(reads)
@@ -1235,38 +1247,48 @@ def dedup_reads(
         mark_part(split, "group")
         return uniq, mult, vertex_of_read, 0, lens_u
     lb = 0 if lengths is None else L.bit_length()
-    n_keys = -(-(2 * L + lb) // 64)
-    order = perm = None
-    col = torch.empty(N, dtype=torch.int64, device=dev)
-    for c in reversed(range(n_keys)):
-        nxt = torch.empty(N, dtype=torch.int64, device=dev)
-        _launch("dedup_reads", "sage2_dedup_keys", _ptr(fwd_w), _ptr(rc_w),
-                _ptr(take_rc), _ptr(lengths), N, W, L, lb, c, _ptr(order),
-                _ptr(perm), _ptr(nxt), _ptr(col), _stream())
-        LAUNCHES["dedup_reads"] += 1
-        order, perm = nxt, torch.sort(col, stable=True).indices
-    mark_part(split, "sort")
-    del col
-    s_order = torch.empty(N, dtype=torch.int64, device=dev)
-    heads = torch.empty(N, dtype=torch.uint8, device=dev)
-    counts, total = _tile_scan(N, dev)
-    _launch("dedup_reads", "sage2_dedup_heads", _ptr(order), _ptr(perm),
-            _ptr(fwd_w), _ptr(rc_w), _ptr(take_rc), _ptr(lengths), N, W, L,
-            _ptr(s_order), _ptr(heads), _ptr(counts), _stream())
-    LAUNCHES["dedup_reads"] += 1
-    del order, perm
-    _scan_tiles("dedup_reads", counts, total)
-    head_pos = torch.empty(N, dtype=torch.int64, device=dev)
-    _launch("dedup_reads", "sage2_dedup_assign", _ptr(s_order), _ptr(heads),
-            _ptr(counts), _ptr(take_rc), N, _ptr(head_pos),
-            _ptr(vertex_of_read), _stream())
-    LAUNCHES["dedup_reads"] += 1
-    _launch("dedup_reads", "sage2_dedup_rows", _ptr(s_order), _ptr(head_pos),
-            _ptr(total), _ptr(reads), _ptr(rc), _ptr(take_rc), _ptr(lengths),
-            N, L, _ptr(uniq), _ptr(mult), _ptr(lens_u), _stream())
+    passes = bucket_plan.dedup_passes(L, lb)
+    d = bucket_plan.dedup_bucket_bits(N, lengths is not None)
+    scratch = torch.empty(bucket_plan.scratch_words(d, N), dtype=torch.int64,
+                          device=dev)
+    ctl = torch.empty(2, dtype=torch.int64, device=dev)
+    prev = None
+    for i, (s0, ns, NW) in enumerate(passes):
+        gid = None if i + 1 == len(passes) else torch.empty(
+            N, dtype=torch.int32, device=dev)
+        elems = torch.empty((N, NW), dtype=torch.int64, device=dev)
+        tmp = torch.empty_like(elems)
+        # the elements built in read order into tmp, then bucketed
+        _launch("dedup_reads", "sage2_dedup_range", _ptr(fwd_w), _ptr(rc_w),
+                _ptr(take_rc), _ptr(lengths), _ptr(prev), N, W, L, lb, s0,
+                ns, NW, _ptr(ctl), _ptr(scratch), d, _ptr(tmp), _stream())
+        _launch("dedup_reads", "sage2_dedup_hist", _ptr(tmp), N, NW,
+                _ptr(ctl), _ptr(scratch), d, _stream())
+        _launch("dedup_reads", "sage2_dedup_scan", _ptr(scratch), d,
+                _stream())
+        _launch("dedup_reads", "sage2_dedup_scatter", _ptr(tmp), N, NW,
+                _ptr(ctl), _ptr(scratch), d, _ptr(elems), _stream())
+        _launch("dedup_reads", "sage2_dedup_split", _ptr(ctl), _ptr(scratch),
+                d, NW, _ptr(elems), _ptr(tmp), _stream())
+        _launch("dedup_reads", "sage2_dedup_big", _ptr(elems), _ptr(tmp),
+                _ptr(scratch), d, N, NW, _stream())
+        if gid is None:
+            mark_part(split, "sort")
+            reps = torch.empty((N, NW), dtype=torch.int64, device=dev)
+        _launch("dedup_reads", "sage2_dedup_sort", _ptr(elems), _ptr(tmp),
+                _ptr(scratch), d, N, NW, _ptr(lengths), N, _ptr(mult),
+                _ptr(vertex_of_read), _ptr(lens_u),
+                _ptr(reps if gid is None else None), _ptr(gid), _stream())
+        # range, histogram, scan, coarse scatter, fine split, big, sort
+        LAUNCHES["dedup_reads"] += 7
+        prev = gid
+    del elems, tmp
+    _launch("dedup_reads", "sage2_dedup_rows", _ptr(reps), _ptr(scratch), NW,
+            _ptr(reads), _ptr(rc), _ptr(lengths), N, L, lb, len(passes) == 1,
+            _ptr(uniq), _ptr(mult), _ptr(lens_u), _stream())
     LAUNCHES["dedup_reads"] += 1
     mark_part(split, "group")
-    return uniq, mult, vertex_of_read, int(total), lens_u
+    return uniq, mult, vertex_of_read, int(scratch[1]), lens_u
 
 
 def _check_seed_rows(L: int, s: int, g: int, n_pos: int, n_ids: int):
@@ -1801,8 +1823,18 @@ def fix_windows(
     "last", 0 for "first") becomes the one variant whose canonical key
     counts at least ``threshold`` in the table when the current base's
     does not and no other variant ties it (sage2_tpu/kmer/correct.py
-    _phase2_kernel). ``directory`` as for weak_windows. Kernel K17, one
-    launch (see kernels/csrc/fix_windows.cu)."""
+    _phase2_kernel). ``directory`` as for weak_windows: its membership
+    table of the solid keys decides where it was built for this ``k``
+    and ``threshold``, K2's directory only where two or more variants
+    are solid, or for every variant where there is no membership table.
+    On the card ``widx`` must be ascending and distinct, as
+    ``weak_windows`` gives it (and the reference's _phase1_kernel, a
+    sort), and a read at most about 51,600 bases long on an H100 (a tile
+    holds one read's codes and packed words in a block's shared memory;
+    longer reads raise ValueError); the plain version takes any order and
+    length. Kernel K17, two launches: each tile's range of ``widx``, then
+    a tile of reads a block, which writes the copy itself (see
+    kernels/csrc/fix_windows.cu); no launch without weak windows."""
     if which not in ("last", "first"):
         raise ValueError(f"which must be 'last' or 'first', got {which!r}")
     N, L, P = _window_checks(reads, k)
@@ -1815,15 +1847,28 @@ def fix_windows(
     _dtype(widx, torch.int64, "widx")
     _dtype(table, torch.int64, "table")
     _dtype(counts, torch.int32, "counts")
-    out = reads.clone()
+    tiles = ctypes.c_int64()
+    _launch("fix_windows", "sage2_fix_tiles", N, L, ctypes.addressof(tiles))
+    if tiles.value < 0:
+        raise ValueError(f"fix_windows on the card: a read of {L} bases "
+                         f"does not fit a block's shared memory")
     n = widx.shape[0]
-    if n:
-        directory = _directory_checked(directory)
-        _launch("fix_windows", "sage2_fix_windows", _ptr(reads), L, k,
-                _ptr(table), _ptr(counts), table.shape[0], _ptr(directory),
-                threshold, k - 1 if which == "last" else 0, _ptr(widx), n,
-                _ptr(out), _stream())
-        LAUNCHES["fix_windows"] += 1
+    if n == 0:
+        return reads.clone()
+    directory = _directory_checked(directory)
+    T = table.shape[0]
+    off = solid_offset(T)
+    solid = directory[off:] if directory.numel() > off else None
+    out = torch.empty_like(reads)
+    starts = torch.empty(tiles.value + 1, dtype=torch.int64,
+                         device=reads.device)
+    _launch("fix_windows", "sage2_fix_starts", _ptr(widx), n, N, L, k,
+            _ptr(starts), _stream())
+    _launch("fix_windows", "sage2_fix_windows", _ptr(reads), N, L, k,
+            _ptr(table), _ptr(counts), T, _ptr(directory), _ptr(solid),
+            threshold, k - 1 if which == "last" else 0, _ptr(widx),
+            _ptr(starts), _ptr(out), _stream())
+    LAUNCHES["fix_windows"] += 2
     return out
 
 

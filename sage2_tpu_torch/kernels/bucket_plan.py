@@ -62,3 +62,44 @@ def scratch_words(d: int, n: int) -> int:
     big = n // (BLOCK + 1)
     big_tiles = n // BLOCK + big + 1
     return base + MAX_GRID + MAX_GRID // 2 + 3 + big + (big_tiles + 1) // 2
+
+
+# K12's sort of whole key strings (kernels/csrc/dedup_reads.cu): the
+# element widths (int64 words) it is built for, and the 32-bit string
+# words a pass of a string too long for one element takes (the widest
+# element's halves less the previous pass's group id and the read's index)
+DEDUP_WIDTHS = (2, 4, 6, 8)
+DEDUP_SEGMENT = 2 * DEDUP_WIDTHS[-1] - 2
+# canonical first words crowd the low half of their range (twice the mean
+# at its low end), and ragged reads' lengths lead them: buckets for this
+# many times the reads
+DEDUP_SKEW = 2
+DEDUP_SKEW_RAGGED = 4
+
+
+def dedup_string_words(L: int, lb: int) -> int:
+    """32-bit words of a read's key string: lb bits of its length, then
+    2 L bits of its canonical codes."""
+    return -(-(2 * L + lb) // 32)
+
+
+def dedup_passes(L: int, lb: int) -> list:
+    """K12's passes, in launch order, as (s0, ns, NW): the string words
+    [s0, s0 + ns) a pass sorts and its element's int64 words. One pass
+    where the string and the index fit the widest element (the narrowest
+    that holds them); else segments of DEDUP_SEGMENT words from the last
+    to the first, each pass after the first also sorting by the previous
+    pass's group id."""
+    S = dedup_string_words(L, lb)
+    if S + 1 <= 2 * DEDUP_WIDTHS[-1]:
+        NW = min(w for w in DEDUP_WIDTHS if 2 * w >= S + 1)
+        return [(0, S, NW)]
+    return [(s0, min(DEDUP_SEGMENT, S - s0), DEDUP_WIDTHS[-1])
+            for s0 in reversed(range(0, S, DEDUP_SEGMENT))]
+
+
+def dedup_bucket_bits(n: int, ragged: bool) -> int:
+    """d of K12's bucket sort of n reads: ``bucket_bits`` of DEDUP_SKEW
+    (ragged: DEDUP_SKEW_RAGGED) times n, so that the crowded buckets
+    still fit a block."""
+    return bucket_bits((DEDUP_SKEW_RAGGED if ragged else DEDUP_SKEW) * n)

@@ -1,15 +1,17 @@
-// The bucketed sort shared by K13 (seed_rows.cu) and K14
-// (longest_edges.cu), in place of a torch.sort of their keys.
+// The bucketed sort shared by K12 (dedup_reads.cu), K13 (seed_rows.cu) and
+// K14 (longest_edges.cu), in place of a torch.sort of their keys.
 //
-// Both kernels sort keys that are unique or carry their whole row, so the
+// The kernels sort keys that are unique or carry their whole row, so the
 // order needs no stability and no permutation travels with it: K13 sorts
 // (seed key, tag | id) pairs, K14 the composite (src, dst, ovl) key (or
 // (src << 32 | dst, ovl) for wide vertex ids), whose equal keys are equal
-// rows. An element is a K64 (one word) or a K128 (two words, compared
-// hi first). Each element has a fine bucket, a monotone function of its
-// key with 2^d values (K13 the key's top d bits, K14 (src - lo) * 2^d /
-// span over the sources' range); the fine buckets' top dc bits (dc =
-// min(d, 8)) are its coarse bucket. The passes, each its own launch:
+// rows, K12 a read's whole key string with its index. An element is a K64
+// (one word), a K128 (two words, compared hi first) or a KW<NW> (NW words,
+// compared in order). Each element has a fine bucket, a monotone function
+// of its key with 2^d values (K13 the key's top d bits, K14 (src - lo) *
+// 2^d / span over the sources' range, K12 its first word's offset above
+// the smallest, scaled to the words' range); the fine buckets' top dc bits
+// (dc = min(d, 8)) are its coarse bucket. The passes, each its own launch:
 //
 //   histogram  the kernel that builds the keys counts each kept row's
 //              coarse bucket in shared memory, a block's counts added to
@@ -114,17 +116,48 @@ __device__ __forceinline__ bool less(const K128& a, const K128& b) {
   return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
 }
 
-// Above every element the kernels make (they keep it so: K14's keys are
-// below 2^63 or have a lo below 2^64 - 1, K13's tags below 2^32 - 1).
-template <class K>
-__device__ __forceinline__ K key_max();
-template <>
-__device__ __forceinline__ K64 key_max<K64>() {
-  return {~0ull};
+// NW words (NW even, so that an element loads as 16-byte vectors),
+// compared in order, word 0 first.
+template <int NW>
+struct __align__(16) KW {
+  static_assert(NW % 2 == 0, "KW loads 16 bytes at a time");
+  uint64_t w[NW];
+};
+
+template <int NW>
+__device__ __forceinline__ bool less(const KW<NW>& a, const KW<NW>& b) {
+#pragma unroll
+  for (int i = 0; i + 1 < NW; ++i) {
+    if (a.w[i] != b.w[i]) return a.w[i] < b.w[i];
+  }
+  return a.w[NW - 1] < b.w[NW - 1];
 }
+
+// Above every element the kernels make (they keep it so: K14's keys are
+// below 2^63 or have a lo below 2^64 - 1, K13's tags below 2^32 - 1, K12's
+// last word below 2^64 - 1).
+template <class K>
+struct KeyMax;
 template <>
-__device__ __forceinline__ K128 key_max<K128>() {
-  return {~0ull, ~0ull};
+struct KeyMax<K64> {
+  __device__ __forceinline__ static K64 get() { return {~0ull}; }
+};
+template <>
+struct KeyMax<K128> {
+  __device__ __forceinline__ static K128 get() { return {~0ull, ~0ull}; }
+};
+template <int NW>
+struct KeyMax<KW<NW>> {
+  __device__ __forceinline__ static KW<NW> get() {
+    KW<NW> e;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) e.w[i] = ~0ull;
+    return e;
+  }
+};
+template <class K>
+__device__ __forceinline__ K key_max() {
+  return KeyMax<K>::get();
 }
 
 // elements through the read-only cache (of a buffer the kernel does not
@@ -135,6 +168,17 @@ __device__ __forceinline__ K64 ldg(const K64* p) {
 __device__ __forceinline__ K128 ldg(const K128* p) {
   const ulonglong2 v = __ldg(reinterpret_cast<const ulonglong2*>(p));
   return {v.x, v.y};
+}
+template <int NW>
+__device__ __forceinline__ KW<NW> ldg(const KW<NW>* p) {
+  KW<NW> e;
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) {
+    const ulonglong2 v = __ldg(reinterpret_cast<const ulonglong2*>(p) + i);
+    e.w[2 * i] = v.x;
+    e.w[2 * i + 1] = v.y;
+  }
+  return e;
 }
 
 // Buckets are 2^d fine buckets grouped by their top bits into 2^dc coarse
@@ -666,6 +710,10 @@ struct Padded {
 
 __device__ __forceinline__ uint64_t first_word(const K64& e) { return e.k; }
 __device__ __forceinline__ uint64_t first_word(const K128& e) { return e.hi; }
+template <int NW>
+__device__ __forceinline__ uint64_t first_word(const KW<NW>& e) {
+  return e.w[0];
+}
 
 // min and max of v over the block (every thread gets both)
 __device__ __forceinline__ void block_min_max(uint64_t* lo, uint64_t* hi) {
@@ -1046,17 +1094,36 @@ __device__ __forceinline__ uint64_t wait_prefix(
   return incl;
 }
 
-// Launches a bucket-sort kernel (kThreads * kItems elements of shared
-// memory and the padding a block), `grid` blocks.
-template <class K, class Kernel, class... Args>
-cudaError_t launch_sort(Kernel kernel, int64_t grid, cudaStream_t stream,
-                        Args... args) {
-  constexpr size_t smem = (kBlock + kThreads) * sizeof(K);
-  // all of the SM's shared memory, so that as many blocks fit as the
-  // registers allow
-  const cudaError_t e = cudaFuncSetAttribute(
+// The shared memory of a sort's block: kThreads * kItems elements and the
+// padding, and `extra` bytes of the kernel's own.
+template <class K>
+__host__ __device__ constexpr size_t sort_smem(size_t extra = 0) {
+  return (kBlock + kThreads) * sizeof(K) + extra;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory beside its
+// static shared memory (past 48 KB in all it must opt in), and all of the
+// SM's shared memory, so that as many blocks fit as the registers allow.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  }
+  return e;
+}
+
+// Launches a bucket-sort kernel (sort_smem<K>(extra) bytes of shared
+// memory a block), `grid` blocks.
+template <class K, size_t kExtra = 0, class Kernel, class... Args>
+cudaError_t launch_sort(Kernel kernel, int64_t grid, cudaStream_t stream,
+                        Args... args) {
+  constexpr size_t smem = sort_smem<K>(kExtra);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
@@ -1068,12 +1135,8 @@ cudaError_t launch_sort(Kernel kernel, int64_t grid, cudaStream_t stream,
 template <class K, class... P, class... A>
 cudaError_t launch_big(void (*kernel)(P...), cudaStream_t stream,
                        A... args) {
-  constexpr size_t smem = (kBlock + kThreads) * sizeof(K);
-  // all of the SM's shared memory, so that as many blocks fit as the
-  // registers allow
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
+  constexpr size_t smem = sort_smem<K>();
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;

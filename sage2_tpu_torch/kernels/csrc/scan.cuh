@@ -1,5 +1,5 @@
-// Two-pass scans over tiles, shared by K12-K14 (dedup_reads.cu,
-// seed_rows.cu, longest_edges.cu).
+// Two-pass scans over tiles (K15, prune_table.cu), and the block scan that
+// K12-K14 (through bucket_sort.cuh), K3 and K15 share.
 //
 // A tile is kScanTile consecutive items, kScanItems consecutive ones a
 // thread, one block a tile. Pass 1 (each kernel's own) counts a tile's

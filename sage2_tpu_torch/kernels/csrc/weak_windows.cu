@@ -13,21 +13,15 @@
 // that is where the key is not among the table's solid keys (count at
 // least the threshold): a lookup needs membership, not a count. Once a
 // round (kernels.table_directory, beside K2's bucket directory, which
-// K17 keeps using) three launches build a membership table of the solid
-// keys of k-mers of B = 2k bits:
+// K17 reads only to settle its ties) three launches build a membership
+// table of the solid keys of k-mers of B = 2k bits:
 //
-//   layout  2^bits buckets of one 32-byte sector, eight uint32 words;
-//           bits puts about 3-6 keys in a bucket (kernels.solid_bits).
-//           A key x goes by its mix h = ((x ^ (x >> B/2)) * kMix) mod 2^B,
-//           a bijection of the B-bit keys, to bucket h >> (B - bits), and
-//           the bucket holds h's low B - bits bits: exact, and below 2^31
-//           where B - bits <= 31 (else the wrapper builds no table).
-//           Mixing first spreads the canonical keys, whose density falls
-//           from twice the mean at the low end of their span to zero at
-//           its top, evenly over the buckets. Unused words are kEmpty; a
-//           bucket of more than eight keys keeps seven and in its last
-//           word kLink | the offset of an overflow list (its length, then
-//           its other keys).
+//   layout  2^bits buckets of one 32-byte sector (solid_table.cuh, which
+//           K17 shares); bits puts about 3-6 keys in a bucket
+//           (kernels.solid_bits). Mixing the keys first spreads the
+//           canonical keys, whose density falls from twice the mean at the
+//           low end of their span to zero at its top, evenly over the
+//           buckets.
 //   build   solid count: each solid key's bucket counted (atomics);
 //           solid links: each overfull bucket's list allocated (atomics
 //           on one cursor); solid place: each solid key into its bucket
@@ -67,6 +61,7 @@
 
 #include "bucket_search.cuh"
 #include "lookback.cuh"
+#include "solid_table.cuh"
 
 namespace {
 
@@ -75,40 +70,6 @@ constexpr int kReadsPerWarp = 16;
 constexpr int kTileReads = kWarpsPerTile * kReadsPerWarp;
 constexpr int kBatch = 4;     // mask words (32 windows each) a round
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// the membership table of the solid keys (see the header)
-constexpr int kWays = 8;                 // keys a bucket (one sector)
-constexpr uint32_t kEmpty = 0xffffffffu;
-constexpr uint32_t kLink = 0x80000000u;
-constexpr uint64_t kMix = 0x9E3779B97F4A7C15ull;
-constexpr int kSolidHeader = 4;          // int64 words: built, k, threshold,
-                                         // bits
-
-// The mix of a key of B bits (2 < B <= 62): a bijection of [0, 2^B).
-__device__ __forceinline__ uint64_t solid_mix(uint64_t x, int B) {
-  x ^= x >> (B / 2);
-  return (x * kMix) & ((uint64_t{1} << B) - 1);
-}
-
-// bases [q, q + 16) of packed words (W uint32), zero past the last word
-__device__ __forceinline__ uint32_t word_at_u32(const uint32_t* w, int W,
-                                                int q) {
-  const int i = q >> 4, r = q & 15;
-  const uint32_t cur = i < W ? w[i] : 0u;
-  if (r == 0) return cur;
-  const uint32_t nxt = i + 1 < W ? w[i + 1] : 0u;
-  return (cur << (2 * r)) | (nxt >> (32 - 2 * r));
-}
-
-// the exact 2k-bit key (k <= 31) of the k bases from q of packed words
-__device__ __forceinline__ int64_t key_at(const uint32_t* w, int W, int q,
-                                          int k) {
-  const uint32_t hi = word_at_u32(w, W, q);
-  if (k <= 16) return static_cast<int64_t>(hi >> (32 - 2 * k));
-  const uint32_t lo = word_at_u32(w, W, q + 16) >> (32 - 2 * (k - 16));
-  return static_cast<int64_t>((static_cast<uint64_t>(hi) << (2 * (k - 16))) |
-                              lo);
-}
 
 // one warp: the codes of a read into shared memory, then its words and
 // its reverse complement's words (codes 3 - read[L - 1 - i])
@@ -120,16 +81,7 @@ __device__ __forceinline__ void pack_read(const int32_t* __restrict__ read,
     code[p] = static_cast<uint8_t>(__ldcs(read + p));
   }
   __syncwarp();
-  for (int t = lane; t < W; t += 32) {
-    uint32_t f = 0, c = 0;
-    for (int i = 0; i < 16; ++i) {
-      const int j = 16 * t + i;
-      f = (f << 2) | (j < L ? code[j] : 0u);
-      c = (c << 2) | (j < L ? 3u - code[L - 1 - j] : 0u);
-    }
-    fw[t] = f;
-    rw[t] = c;
-  }
+  for (int t = lane; t < W; t += 32) pack_word(code, L, t, fw + t, rw + t);
   __syncwarp();
 }
 
@@ -151,43 +103,6 @@ struct CountLookup {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       out[c] = live[c] && (pos[c] >= 0 ? keys.count(pos[c]) : 0) < threshold;
-    }
-  }
-};
-
-// The weak verdicts of C canonical keys by membership in the table of
-// the solid keys: a key is weak where it is absent.
-struct SolidLookup {
-  const uint4* __restrict__ buckets;   // two a bucket
-  const uint32_t* __restrict__ lists;  // the overflow lists
-  int B, low;                          // key bits, bits kept in a bucket
-
-  template <int C>
-  __device__ __forceinline__ void weak(const int64_t (&q)[C],
-                                       const bool (&live)[C],
-                                       bool (&out)[C]) const {
-    uint4 w0[C], w1[C];
-    uint32_t v[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const uint64_t h = solid_mix(static_cast<uint64_t>(q[c]), B);
-      const uint64_t b = live[c] ? h >> low : 0;
-      v[c] = static_cast<uint32_t>(h & ((uint64_t{1} << low) - 1));
-      w0[c] = __ldg(buckets + 2 * b);
-      w1[c] = __ldg(buckets + 2 * b + 1);
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      bool found = w0[c].x == v[c] || w0[c].y == v[c] || w0[c].z == v[c] ||
-                   w0[c].w == v[c] || w1[c].x == v[c] || w1[c].y == v[c] ||
-                   w1[c].z == v[c] || w1[c].w == v[c];
-      const uint32_t link = w1[c].w;
-      if (!found && (link & kLink) && link != kEmpty) {  // an overfull one
-        const uint32_t* list = lists + (link & ~kLink);
-        const uint32_t n = __ldg(list);
-        for (uint32_t i = 1; i <= n && !found; ++i) found = __ldg(list + i) == v[c];
-      }
-      out[c] = live[c] && !found;
     }
   }
 };
@@ -270,15 +185,9 @@ __global__ void __launch_bounds__(kThreads)
                      int64_t* __restrict__ tile_offsets,
                      int64_t* __restrict__ total,
                      int64_t* __restrict__ scan) {
-  if (solid != nullptr && ldg_key(solid) == 1 && ldg_key(solid + 1) == k &&
-      ldg_key(solid + 2) == threshold) {
-    const int bits = static_cast<int>(ldg_key(solid + 3));
-    const auto* buckets =
-        reinterpret_cast<const uint4*>(solid + kSolidHeader);
-    const SolidLookup lookup{
-        buckets, reinterpret_cast<const uint32_t*>(buckets + (2ll << bits)),
-        2 * k, 2 * k - bits};
-    mask_tile(lookup, reads, lengths, N, L, k, mask, tile_offsets, total,
+  SolidLookup members;
+  if (solid_lookup(solid, k, threshold, &members)) {
+    mask_tile(members, reads, lengths, N, L, k, mask, tile_offsets, total,
               scan);
     return;
   }

@@ -1,7 +1,8 @@
-"""The bucketed sort K13 and K14 share (kernels/csrc/bucket_sort.cuh), on
-the CPU: its host-side plan (kernels/bucket_plan.py), and a plain mirror
-of the order it gives, held to the plain versions' stable sorts and to
-the reference's.
+"""The bucketed sort K12, K13 and K14 share (kernels/csrc/bucket_sort.cuh),
+on the CPU: its host-side plan (kernels/bucket_plan.py, K12's passes and
+bucket bits among it; K17's tile size beside it), and a plain mirror of
+the order it gives, held to the plain versions' stable sorts and to the
+reference's (K12's order: tests/test_torch_dedup_seed_rows.py).
 
 The mirror takes the rows in an arbitrary order (the scatters' shared-
 memory atomics fix none), puts each in its bucket by the kernels' bucket
@@ -101,6 +102,51 @@ def test_bucket_bits():
         prev = d
         if d < bucket_plan.MAX_BUCKET_BITS:
             assert n <= per << d
+
+
+@pytest.mark.parametrize("L,lb", [(1, 0), (16, 0), (40, 6), (100, 0),
+                                  (150, 8), (159, 8), (236, 8), (237, 8),
+                                  (300, 9), (1000, 10)])
+def test_dedup_passes(L, lb):
+    """K12's passes cover the key string's 32-bit words once, its last
+    segment first; a pass's element holds its words, the previous pass's
+    group id (after the first) and the read's index; one pass takes the
+    narrowest width that holds the string and the index, and strings past
+    the widest element go in DEDUP_SEGMENT-word passes."""
+    S = bucket_plan.dedup_string_words(L, lb)
+    assert S == -(-(2 * L + lb) // 32)
+    passes = bucket_plan.dedup_passes(L, lb)
+    starts = [s0 for s0, _, _ in passes]
+    assert starts == sorted(starts, reverse=True) and starts[-1] == 0
+    covered = [w for s0, ns, _ in passes for w in range(s0, s0 + ns)]
+    assert sorted(covered) == list(range(S))
+    widest = bucket_plan.DEDUP_WIDTHS[-1]
+    for i, (s0, ns, NW) in enumerate(passes):
+        assert NW in bucket_plan.DEDUP_WIDTHS and NW % 2 == 0
+        assert ns + (i > 0) + 1 <= 2 * NW
+    if len(passes) == 1:
+        assert S + 1 <= 2 * widest
+        assert passes[0][2] == min(w for w in bucket_plan.DEDUP_WIDTHS
+                                   if 2 * w >= S + 1)
+    else:
+        assert S + 1 > 2 * widest
+        assert all(ns == bucket_plan.DEDUP_SEGMENT
+                   for s0, ns, _ in passes[1:])
+    assert (len(passes) > 1) == (L > 236)
+
+
+def test_dedup_bucket_bits():
+    """K12's buckets are ``bucket_bits`` of twice the reads (four times
+    for ragged reads, whose lengths lead the words), so that the crowded
+    end of the canonical words (twice the mean) still fits a block."""
+    for n in (0, 1, 1000, 2_248_889, 2_300_000, 1 << 40):
+        assert bucket_plan.dedup_bucket_bits(n, False) == \
+            bucket_plan.bucket_bits(bucket_plan.DEDUP_SKEW * n)
+        assert bucket_plan.dedup_bucket_bits(n, True) == \
+            bucket_plan.bucket_bits(bucket_plan.DEDUP_SKEW_RAGGED * n)
+    d = bucket_plan.dedup_bucket_bits(2_300_000, False)
+    assert 2 * 2_300_000 / (1 << d) <= bucket_plan.BLOCK * bucket_plan.FILL
+    assert d == 12 and bucket_plan.dedup_bucket_bits(2_248_889, True) == 13
 
 
 @pytest.mark.parametrize("d", [0, 1, 11, 12, 16, 20])

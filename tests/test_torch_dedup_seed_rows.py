@@ -5,6 +5,13 @@ sage2_tpu they port, on the CPU (the kernels' plain versions).
 Inputs are made with numpy from a seed and handed to both packages; each
 is the smallest that reaches its branch. Tolerance: exact equality
 (integer programs).
+
+K12's premise (kernels/csrc/dedup_reads.cu): none of its outputs depends
+on the order inside a group of equal key strings, nor on which member
+stands for the group. A Python mirror of the kernel's order (each read's
+string and index sorted whole, or in passes from the string's last
+segment, each group's last member its representative) gives the plain
+version's outputs and the reference's for any order inside the groups.
 """
 
 import jax.numpy as jnp
@@ -16,6 +23,7 @@ from sage2_tpu.overlap import detect as jdetect
 from sage2_tpu.overlap import find_overlaps as jfind
 from sage2_tpu.overlap import prepare_reads as jprepare
 from sage2_tpu_torch import kernels
+from sage2_tpu_torch.kernels import bucket_plan, plain
 from sage2_tpu_torch.overlap import detect as tdetect
 from sage2_tpu_torch.overlap import find_overlaps as tfind
 from sage2_tpu_torch.overlap import prepare_reads as tprepare
@@ -148,3 +156,99 @@ def test_find_overlaps_periodic_reads_match_reference():
     for f in ("src", "dst", "ovl"):
         np.testing.assert_array_equal(np.asarray(getattr(j, f)),
                                       getattr(t, f).numpy(), err_msg=f)
+
+
+def dedup_mirror(reads, lens, tie):
+    """K12's outputs (uniq, mult, vertex_of_read, n_unique, lens_u) as
+    its kernel makes them: each read's key string (lb bits of its
+    clamped length, then its canonical words) cut into 32-bit words and
+    sorted with the read's index, in one pass or in the passes of
+    bucket_plan.dedup_passes (each after the first also sorted by the
+    previous pass's group id); the group of a read is the dense rank of
+    its string, and each group's last member its representative.
+    ``tie``: the order inside a group ("index": the kernel's; "reversed";
+    "random")."""
+    N, L = reads.shape
+    t = torch.from_numpy(reads)
+    tl = None if lens is None else torch.from_numpy(lens)
+    rc, fwd_w, rc_w, take_rc = plain.canonical_reads(t, tl)
+    flip = take_rc.numpy()
+    words = np.where(flip[:, None], rc_w.numpy(), fwd_w.numpy()).astype(
+        np.uint64)
+    lb = 0 if lens is None else L.bit_length()
+    S = bucket_plan.dedup_string_words(L, lb)
+    # the string's bits: lb of length, then the 32-bit words
+    big = [int(x) for x in (np.clip(lens, 0, L) if lens is not None
+                            else np.zeros(N, np.int64))]
+    for r in range(N):
+        v = big[r]
+        for wv in words[r].tolist():
+            v = (v << 32) | int(wv)
+        shift = 32 * S - lb - 32 * words.shape[1]   # past 2 L + lb: zeros
+        big[r] = v << shift if shift >= 0 else v >> -shift
+    sw = np.array([[(v >> (32 * (S - 1 - j))) & 0xFFFFFFFF
+                    for j in range(S)] for v in big], np.int64).reshape(N, S)
+    rng = np.random.default_rng(3)
+    tiebreak = {"index": np.arange(N), "reversed": -np.arange(N),
+                "random": rng.permutation(N)}[tie]
+    gid = None
+    for s0, ns, _ in bucket_plan.dedup_passes(L, lb):
+        cols = [sw[:, s0 + j] for j in range(ns)]
+        if gid is not None:
+            cols.append(gid)
+        order = np.lexsort([tiebreak] + cols[::-1])
+        key = np.stack(cols, 1)[order]
+        head = np.r_[True, (key[1:] != key[:-1]).any(1)]
+        gid = np.empty(N, np.int64)
+        gid[order] = np.cumsum(head) - 1
+    n_unique = int(gid.max()) + 1
+    last = np.r_[head[1:], True]
+    rep = order[last]
+    mult = np.zeros(N, np.int32)
+    mult[:n_unique] = np.bincount(gid, minlength=n_unique)
+    canon = np.where(flip[:, None], rc.numpy(), reads)
+    uniq = np.zeros_like(reads)
+    uniq[:n_unique] = canon[rep]
+    lens_u = None
+    if lens is not None:
+        lens_u = np.zeros_like(lens)
+        lens_u[:n_unique] = lens[rep]
+        past = np.arange(L)[None, :] >= np.clip(lens_u, 0, L)[:, None]
+        uniq[past] = 0
+    vertex = (gid + flip.astype(np.int64) * N).astype(np.int32)
+    return uniq, mult, vertex, n_unique, lens_u
+
+
+@pytest.mark.parametrize("tie", ["index", "reversed", "random"])
+@pytest.mark.parametrize("case", DEDUP_CASES)
+def test_dedup_order_inside_groups_is_free(case, tie):
+    """K12 sorts each string once with its index and no stable chain:
+    whatever the order inside each group of equal strings (and whichever
+    member stands for it), the outputs are plain.dedup_reads' and the
+    reference prepare_reads' ReadSet: fixed and ragged reads, all-equal
+    reads, reads sharing their first 64-bit key and differing in the
+    last word ("same_lead", "ragged_same_lead"), a string sorted in two
+    passes ("long")."""
+    reads, lens = dedup_case(case)
+    got = dedup_mirror(reads, lens, tie)
+    t = torch.from_numpy(reads)
+    tl = None if lens is None else torch.from_numpy(lens)
+    want = plain.dedup_reads(t, tl, *plain.canonical_reads(t, tl))
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        elif isinstance(b, torch.Tensor):
+            np.testing.assert_array_equal(a, b.numpy())
+        else:
+            assert a == b
+    j = (jprepare(jnp.asarray(reads)) if lens is None
+         else jprepare(jnp.asarray(reads), jnp.asarray(lens)))
+    N = reads.shape[0]
+    assert got[3] == int(j.n_unique)
+    np.testing.assert_array_equal(got[0], np.asarray(j.reads2)[:N])
+    np.testing.assert_array_equal(got[1], np.asarray(j.multiplicity)[:N])
+    np.testing.assert_array_equal(got[2], np.asarray(j.vertex_of_read))
+    if lens is not None:
+        np.testing.assert_array_equal(got[4], np.asarray(j.lengths2)[:N])
+    if case == "long":
+        assert len(bucket_plan.dedup_passes(reads.shape[1], 0)) == 2

@@ -19,8 +19,13 @@ The K16 mirror builds the membership table as the build launches do
 (the mix, the bucket, the bits kept, the overflow lists, the threshold
 filter); membership in it equals "count >= threshold" in the table, and
 the weak windows it gives equal plain.weak_windows and the reference's
-_phase1_kernel. The CUDA kernels themselves are held to the plain
-versions on the card (tests/test_torch_kernels_cuda.py). Inputs are made
+_phase1_kernel. K17's rule by membership (a weak window's three other
+variants probed in that table, its current one only where one of them
+is solid, counts looked up only where two or more are solid) gives
+plain.fix_windows and the reference's _phase2_kernel, at every window
+the same edits as all four variants probed. The
+CUDA kernels themselves are held to the plain versions on the card
+(tests/test_torch_kernels_cuda.py). Inputs are made
 with numpy from a seed; tolerance: exact equality (integer programs).
 """
 
@@ -49,6 +54,7 @@ from torch_kernel_cases import (
     crowded_bucket_table,
     solid_mix as mix,
     solid_unmix as unmix,
+    tied_variants_case,
     vote_case,
 )
 from torch_one_thread import one_thread  # noqa: F401
@@ -583,3 +589,146 @@ def test_table_directory_on_the_cpu_is_none():
     keys, counts = count_table(vote_case("errors", k=15)[0], 15)
     assert kernels.table_directory(torch.from_numpy(keys),
                                    torch.from_numpy(counts), 15, 2) is None
+
+
+# --- K17: the rule by membership --------------------------------------------
+
+def fix_by_membership(reads, widx, keys, counts, k, threshold, which,
+                      eager=False):
+    """K17's edits as its kernel makes them (kernels/csrc/fix_windows.cu):
+    a window's three variant keys other than the current base's probed
+    in the membership table (the kernel's layout, ``solid_layout``), the
+    current one only where one of them is solid (with ``eager``, all four
+    always); no edit where the current variant is solid or none is, the
+    one solid variant where there is one, the counts of the solid ones
+    (the others taken as 0) where there are more; without a membership
+    table every variant's count. Returns the edited reads and how often
+    each branch ran ("current": the current variant probed)."""
+    N, L = reads.shape
+    P = L - k + 1
+    off = k - 1 if which == "last" else 0
+    sf, sr = 2 * (k - 1 - off), 2 * off
+    count = dict(zip(keys.tolist(), counts.tolist()))
+    layout = solid_layout(keys, counts, k, threshold)
+    out = reads.copy()
+    branches = {"none": 0, "one": 0, "counts": 0, "all": 0, "current": 0}
+    for x in widx.tolist():
+        r, w = divmod(x, P)
+        win = reads[r, w:w + k].astype(np.int64).tolist()
+        f = c = 0
+        for j, b in enumerate(win):
+            f = f * 4 + b
+            c |= (3 - b) << (2 * j)
+        cur = win[off]
+        q = [min((f & ~(3 << sf)) | (b << sf),
+                 (c & ~(3 << sr)) | ((3 - b) << sr)) for b in range(4)]
+        if layout is None:
+            cnt = [count.get(v, 0) for v in q]
+            branches["all"] += 1
+        else:
+            solid = [b != cur and is_member(layout, v, k)
+                     for b, v in enumerate(q)]
+            if eager or any(solid):
+                solid[cur] = is_member(layout, q[cur], k)
+                branches["current"] += 1
+            if solid[cur] or not any(solid):
+                branches["none"] += 1
+                continue
+            if sum(solid) == 1:
+                out[r, w + off] = solid.index(True)
+                branches["one"] += 1
+                continue
+            cnt = [count.get(v, 0) if s else 0 for v, s in zip(q, solid)]
+            branches["counts"] += 1
+        m = max(cnt)
+        if cnt[cur] < threshold and m >= threshold and cnt.count(m) == 1:
+            out[r, w + off] = cnt.index(m)
+    return out, branches
+
+
+@pytest.mark.parametrize("which", ["last", "first"])
+@pytest.mark.parametrize("case", VOTE_CASES + ("ties",))
+def test_fix_windows_by_membership(case, which):
+    """K17's rule by membership equals plain.fix_windows and the
+    reference's _phase2_kernel at K16's weak windows (k = 15; "k31" and
+    "empty" have no membership table and look every variant up), and
+    at windows that are not weak; "ties" holds weak windows with two or
+    three solid variants, tied at the maximum (no edit) and not (an
+    edit to the largest)."""
+    if case == "ties":
+        reads, lengths, keys, counts, k, threshold = tied_variants_case(15)
+    else:
+        reads, lengths, keys, counts, k, threshold = _table_case(
+            case, 31 if case == "k31" else 15)
+    N, Lr = reads.shape
+    P = Lr - k + 1
+    tk, tc = torch.from_numpy(keys), torch.from_numpy(counts)
+    weak = plain.weak_windows(torch.from_numpy(reads),
+                              None if lengths is None
+                              else torch.from_numpy(lengths), tk, tc, None,
+                              k, threshold)
+    # every fifth window as well, weak or not (the rule decides)
+    widx = torch.unique(torch.cat([weak, torch.arange(0, N * P, 5)]))
+    if lengths is not None:     # windows inside their read only
+        r, w = widx // P, widx % P
+        widx = widx[w < torch.from_numpy(lengths)[r] - k + 1]
+    for at in (weak, widx):
+        mine, branches = fix_by_membership(reads, at.numpy(), keys, counts,
+                                           k, threshold, which)
+        got = plain.fix_windows(torch.from_numpy(reads), at, tk, tc, None,
+                                k, threshold, which)
+        np.testing.assert_array_equal(mine, got.numpy())
+        jt = JTable(jnp.asarray((keys >> 32).astype(np.uint32)),
+                    jnp.asarray((keys & 0xFFFFFFFF).astype(np.uint32)),
+                    jnp.asarray(counts), jnp.int32(len(keys)), k)
+        padded = np.concatenate([at.numpy(), np.full(3, N * P, np.int64)])
+        ref = np.asarray(jcorrect._phase2_kernel(k, threshold, which)(
+            jnp.asarray(reads), jt.hi, jt.lo, jt.count, jt.n_unique,
+            jnp.asarray(padded)))
+        np.testing.assert_array_equal(mine, ref)
+    assert (branches["all"] > 0) == (case in ("empty", "k31"))
+    if case == "ties" and which == "last":
+        assert branches["counts"] > 10
+        assert (mine != reads).any()
+
+
+@pytest.mark.parametrize("case", VOTE_CASES + ("ties",))
+def test_fix_windows_current_probed_beside_a_solid_one(case):
+    """K17 probes a window's current variant only where one of the
+    other three is solid (where none is, no edit follows whatever the
+    current one is): at every window inside its read, both sub-passes,
+    the same edits as with all four probed; at K16's weak windows the
+    current variant probed exactly where another one is solid: for an
+    error, at about one of the up to k windows it makes weak."""
+    if case == "ties":
+        reads, lengths, keys, counts, k, threshold = tied_variants_case(15)
+    else:
+        reads, lengths, keys, counts, k, threshold = _table_case(
+            case, 31 if case == "k31" else 15)
+    N, Lr = reads.shape
+    P = Lr - k + 1
+    every = np.arange(N * P)
+    if lengths is not None:
+        every = every[every % P < lengths[every // P] - k + 1]
+    weak = plain.weak_windows(torch.from_numpy(reads),
+                              None if lengths is None
+                              else torch.from_numpy(lengths),
+                              torch.from_numpy(keys),
+                              torch.from_numpy(counts), None, k,
+                              threshold).numpy()
+    layout = solid_layout(keys, counts, k, threshold)
+    for which in ("last", "first"):
+        lazy, lb = fix_by_membership(reads, every, keys, counts, k,
+                                     threshold, which)
+        eager, eb = fix_by_membership(reads, every, keys, counts, k,
+                                      threshold, which, eager=True)
+        np.testing.assert_array_equal(lazy, eager)
+        assert eb["current"] == (0 if layout is None else len(every))
+        assert lb["current"] <= eb["current"]
+        _, wb = fix_by_membership(reads, weak, keys, counts, k, threshold,
+                                  which)
+        # a weak window's current variant is not solid: it is probed
+        # exactly where an edit or a count lookup follows
+        assert wb["current"] == wb["one"] + wb["counts"]
+        if case in ("errors", "close", "tie", "short", "unpruned"):
+            assert 0 < 4 * wb["current"] < len(weak)

@@ -24,7 +24,7 @@ from sage2_tpu_torch.data import (
 from sage2_tpu_torch import stream
 from sage2_tpu_torch.graph import reduce as reduce_mod
 from sage2_tpu_torch.graph.traverse import contract_unitigs
-from sage2_tpu_torch.kernels import plain
+from sage2_tpu_torch.kernels import bucket_plan, plain
 from sage2_tpu_torch.kmer.correct import (
     prune_table_for_correction,
     twophase_round,
@@ -64,6 +64,7 @@ from torch_kernel_cases import (
     seed_case,
     slot_splits,
     solid_mix,
+    tied_variants_case,
     vote_case,
 )
 from torch_one_thread import one_thread  # noqa: F401
@@ -760,10 +761,11 @@ def test_dedup_reads_kernel(cuda, case):
     r, lens = _dedup_inputs(cuda, case)
     k8 = kernels.canonical_reads(r, lens)
     L = r.shape[1]
-    n_keys = -(-(2 * L + (0 if lens is None else L.bit_length())) // 64)
+    lb = 0 if lens is None else L.bit_length()
     before = kernels.LAUNCHES["dedup_reads"]
     got = kernels.dedup_reads(r, lens, *k8)
-    assert kernels.LAUNCHES["dedup_reads"] == before + n_keys + 4
+    assert kernels.LAUNCHES["dedup_reads"] == before + 7 * len(
+        bucket_plan.dedup_passes(L, lb)) + 1
     _equal(got[:4], plain.dedup_reads(r, lens, *k8)[:4])
     if lens is not None:
         _equal(got[4:], plain.dedup_reads(r, lens, *k8)[4:])
@@ -881,7 +883,7 @@ def test_weak_and_fix_windows_kernels(cuda, case, k):
     assert kernels.LAUNCHES["lookup_counts"] == before["lookup_counts"] + 1
     assert kernels.LAUNCHES["weak_windows"] == before["weak_windows"] + 2
     assert kernels.LAUNCHES["fix_windows"] == before["fix_windows"] + (
-        2 if widx.numel() else 0)
+        4 if widx.numel() else 0)
     # on the card each needs the round's directory
     with pytest.raises(ValueError, match="bucket directory"):
         kernels.weak_windows(r, lens, keys, counts, None, k, threshold)
@@ -917,6 +919,177 @@ def test_fix_windows_kernel_long_reads(cuda):
                                 "first")],
            [plain.fix_windows(r, widx, t.keys, t.count, None, 31, 2,
                               "first")])
+
+
+def _fix_inputs(cuda, case):
+    """(reads, keys, counts, k, threshold) on the card for K17's cases."""
+    if case == "ties":
+        reads, _, keys, counts, k, threshold = tied_variants_case(15)
+    else:
+        reads, _, keys, counts, k, threshold, _ = vote_case("errors", k=15)
+    return (torch.from_numpy(reads).to(cuda), torch.from_numpy(keys).to(cuda),
+            torch.from_numpy(counts).to(cuda), k, threshold)
+
+
+@pytest.mark.parametrize("case", ["non_weak", "threshold0", "threshold1",
+                                  "no_membership", "ties", "ties_directory"])
+def test_fix_windows_kernel_cases(cuda, case):
+    """K17 equal to plain.fix_windows, both sub-passes: at windows that
+    are not weak as well (every third window with K16's); at thresholds 0
+    (no membership table: K2's directory for every variant) and 1; with a
+    directory that holds no membership table; at weak windows with two or
+    three solid variants, tied and not, through the membership table and
+    through K2's directory alone. Two launches a call."""
+    r, keys, counts, k, threshold = _fix_inputs(cuda, case)
+    if case.startswith("threshold"):
+        threshold = int(case[-1])
+    if case in ("no_membership", "ties_directory"):
+        directory = kernels.lookup_directory(keys, counts)
+    else:
+        directory = kernels.table_directory(keys, counts, k, threshold)
+    at = kernels.solid_offset(keys.numel())
+    assert (directory.numel() > at) == (case not in (
+        "no_membership", "ties_directory", "threshold0"))
+    N, L = r.shape
+    P = L - k + 1
+    widx = plain.weak_windows(r, None, keys, counts, None, k, threshold)
+    if case in ("non_weak", "threshold0", "threshold1"):
+        widx = torch.unique(torch.cat([widx, torch.arange(
+            0, N * P, 3, device=cuda)]))
+    assert widx.numel() > 0
+    for which in ("last", "first"):
+        before = kernels.LAUNCHES["fix_windows"]
+        got = kernels.fix_windows(r, widx, keys, counts, directory, k,
+                                  threshold, which)
+        assert kernels.LAUNCHES["fix_windows"] == before + 2
+        want = plain.fix_windows(r, widx, keys, counts, None, k, threshold,
+                                 which)
+        _equal([got], [want])
+        if case.startswith("ties") and which == "last":
+            assert (want != r).any()
+
+
+@pytest.mark.parametrize("case", VOTE_CASES + ("ties",))
+def test_fix_windows_kernel_at_weak_windows(cuda, case):
+    """K17 at K16's weak windows (the pipeline's calls: the current
+    base's variant probed only beside a solid one) equal to
+    plain.fix_windows at k = 15, both sub-passes, through the membership
+    table where the case has one."""
+    if case == "ties":
+        reads, lengths, keys, counts, k, threshold = tied_variants_case(15)
+    else:
+        reads, lengths, keys, counts, k, threshold, _ = vote_case(
+            case, k=31 if case == "k31" else 15)
+    r, t_keys, t_counts = (torch.from_numpy(x).to(cuda)
+                           for x in (reads, keys, counts))
+    lens = None if lengths is None else torch.from_numpy(lengths).to(cuda)
+    directory = kernels.table_directory(t_keys, t_counts, k, threshold)
+    widx = kernels.weak_windows(r, lens, t_keys, t_counts, directory, k,
+                                threshold)
+    for which in ("last", "first"):
+        _equal([kernels.fix_windows(r, widx, t_keys, t_counts, directory, k,
+                                    threshold, which)],
+               [plain.fix_windows(r, widx, t_keys, t_counts, None, k,
+                                  threshold, which)])
+
+
+def test_fix_windows_kernel_overflow_bucket(cuda):
+    """K17 where a variant's key lies in an overfull bucket of the
+    membership table (seven in its sector, the rest in its list): reads
+    whose windows end in each of the bucket's keys, solid or filtered
+    out, their last bases changed so that the variants probe the bucket."""
+    k = 11
+    keys, counts, crowd = crowded_bucket_table(k, 5, 24)
+    rng = np.random.default_rng(6)
+    reads = rng.integers(0, 4, (2 * len(crowd) + 8, 40)).astype(np.int32)
+    for i, x in enumerate(crowd.tolist()):
+        reads[i, 10:10 + k] = kmer_codes(x, k)
+        reads[len(crowd) + i, 10:10 + k] = kmer_codes(x, k)
+        reads[len(crowd) + i, 10 + k - 1] = (reads[i, 10 + k - 1] + 1) % 4
+    r, t_keys, t_counts = (torch.from_numpy(x).to(cuda)
+                           for x in (reads, keys, counts))
+    directory = kernels.table_directory(t_keys, t_counts, k, 2)
+    P = 40 - k + 1
+    widx = torch.arange(0, r.shape[0] * P, device=cuda)
+    for which in ("last", "first"):
+        _equal([kernels.fix_windows(r, widx, t_keys, t_counts, directory, k,
+                                    2, which)],
+               [plain.fix_windows(r, widx, t_keys, t_counts, None, k, 2,
+                                  which)])
+
+
+def test_fix_windows_kernel_longer_reads(cuda):
+    """K17 on reads of 1,000 bases (tiles of a few reads) and of 37 (rows
+    of no whole 16-byte words), both sub-passes; on reads of 50,000 (a
+    read a tile, past 48 KB of shared memory); reads past a block's
+    shared memory (60,000 bases) raise ValueError."""
+    rng = np.random.default_rng(10)
+    s = rng.integers(0, 4, 50_000).astype(np.int32)
+    bad = s.copy()
+    bad[rng.choice(50_000, 40, replace=False)] ^= 1
+    r = torch.from_numpy(np.stack([s, s, bad]))
+    t = prune_table_for_correction(count_kmers(r, 21), 2)
+    widx = plain.weak_windows(r, None, t.keys, t.count, None, 21, 2)
+    r, widx, keys, counts = (x.to(cuda) for x in (r, widx, t.keys, t.count))
+    directory = kernels.table_directory(keys, counts, 21, 2)
+    assert widx.numel() > 0
+    for which in ("last", "first"):
+        got = kernels.fix_windows(r, widx, keys, counts, directory, 21, 2,
+                                  which)
+        _equal([got], [plain.fix_windows(r, widx, keys, counts, None, 21, 2,
+                                         which)])
+        assert (got != r).any()
+    long = torch.zeros((1, 60_000), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fix_windows(long, torch.arange(3, device=cuda), keys, counts,
+                            directory, 21, 2, "last")
+    for L, n, seed in ((1000, 60, 8), (37, 3000, 9)):
+        g = simulate_genome(6_000, seed=seed)
+        r, _ = simulate_reads(g, read_len=L, coverage=n * L / 6_000,
+                              error_rate=0.02, seed=seed + 1)
+        r = torch.from_numpy(r.astype(np.int32)).to(cuda)
+        t = prune_table_for_correction(count_kmers(r, 21), 2)
+        directory = kernels.table_directory(t.keys, t.count, 21, 2)
+        widx = kernels.weak_windows(r, None, t.keys, t.count, directory, 21,
+                                    2)
+        assert widx.numel() > 0
+        for which in ("last", "first"):
+            _equal([kernels.fix_windows(r, widx, t.keys, t.count, directory,
+                                        21, 2, which)],
+                   [plain.fix_windows(r, widx, t.keys, t.count, None, 21, 2,
+                                      which)])
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_dedup_reads_kernel_big_run(cuda, ragged):
+    """K12 with a run of equal leading 64-bit words past a block (6,000
+    reads led by the same 32 bases, of one length; 2,048 elements a
+    block): its bucket sorted by the whole grid, with copies inside the
+    run and beside it; equal to plain.dedup_reads."""
+    rng = np.random.default_rng(11)
+    N, L = 20_000, 150 if ragged else 100
+    reads = rng.integers(0, 4, (N, L)).astype(np.int32)
+    reads[:6000, :32] = 0
+    reads[6000:6600] = reads[:600]
+    reads[7000:7100] = reads[8000:8100]
+    lens = None
+    if ragged:
+        lens = rng.integers(75, L + 1, N).astype(np.int32)
+        lens[:6600] = L
+        lens[7000:7100] = lens[8000:8100]
+        reads[np.arange(L)[None, :] >= lens[:, None]] = 0
+    r = torch.from_numpy(reads).to(cuda)
+    ln = None if lens is None else torch.from_numpy(lens).to(cuda)
+    k8 = kernels.canonical_reads(r, ln)
+    lead = torch.where(k8[3][:, None], k8[2][:, :2], k8[1][:, :2])
+    assert int(torch.unique(lead, dim=0, return_counts=True)[1].max()) > \
+        bucket_plan.BLOCK
+    got = kernels.dedup_reads(r, ln, *k8)
+    want = plain.dedup_reads(r, ln, *k8)
+    _equal(got[:4], want[:4])
+    if ragged:
+        _equal(got[4:], want[4:])
+    assert got[3] < N
 
 
 # --- K18: chain links and the cycle cut -------------------------------------

@@ -186,6 +186,36 @@ def vote_case(case: str, seed: int = 0, k: int = None):
             truth.astype(np.int32))
 
 
+def tied_variants_case(k: int = 15, seed: int = 3):
+    """(reads, lengths, keys, counts, k, threshold) for kernel K17: the
+    "errors" case of ``vote_case`` with its table grown so that many weak
+    windows have two or more solid variants of their last base: two or
+    three of them, tied at the maximum or not (the current base's variant
+    stays weak)."""
+    reads, lengths, keys, counts, k, threshold, _ = vote_case(
+        "errors", seed, k)
+    count = dict(zip(keys.tolist(), counts.tolist()))
+    canon = canonical_keys(reads, k)
+    N, P = canon.shape
+    weak = [(r, w) for r in range(N) for w in range(P)
+            if count.get(int(canon[r, w]), 0) < threshold]
+    patterns = ((1, 1), (1, 4), (2, 2, 7), (3, 3, 3), (5,), (2, 6))
+    for i, (r, w) in enumerate(weak):
+        win = reads[r, w:w + k].astype(np.int64).tolist()
+        f = c = 0
+        for j, b in enumerate(win):
+            f = f * 4 + b
+            c |= (3 - b) << (2 * j)
+        cur, sr = win[-1], 2 * (k - 1)
+        others = [b for b in range(4) if b != cur]
+        for b, extra in zip(others, patterns[i % len(patterns)]):
+            q = min((f & ~3) | b, (c & ~(3 << sr)) | ((3 - b) << sr))
+            count[q] = threshold + extra
+    keys = np.array(sorted(count), np.int64)
+    counts = np.array([count[x] for x in keys.tolist()], np.int32)
+    return reads, lengths, keys, counts, k, threshold
+
+
 def weak_covered(reads: np.ndarray, keys: np.ndarray, counts: np.ndarray,
                  k: int, threshold: int, lengths: np.ndarray = None):
     """(N, L) bool: the bases with a weak valid covering window (count
@@ -348,7 +378,8 @@ def counts_case(case: str, ragged: bool, seed: int = 21):
 
 
 DEDUP_CASES = ("all_equal", "rc_of_another", "palindromes", "single",
-               "poly_t", "ragged_poly_t", "ragged_same_words", "ragged_wide")
+               "poly_t", "ragged_poly_t", "ragged_same_words", "ragged_wide",
+               "same_lead", "ragged_same_lead", "long")
 # K14 (the longest overlap per pair)
 REDUCE_CASES = ("periodic", "no_ok", "all_ok", "capacity", "wide")
 
@@ -379,6 +410,22 @@ def dedup_case(case: str, seed: int = 5):
     if case == "poly_t":
         return np.concatenate([np.full((2, L), 3, np.int32),
                                np.zeros((1, L), np.int32), rand[:5]]), None
+    if case == "same_lead":
+        # one first 64-bit key (32 bases), told apart in the last word
+        # only, some twice; A-led, so that each read is its own canonical
+        lead = rand[:7].copy()
+        lead[:, :32] = 0
+        lead[:, 32:] = rng.integers(0, 4, (7, L - 32))
+        lead[3] = lead[1]
+        return np.concatenate([lead, lead[:2], rand[7:]]), None
+    if case == "long":
+        # a key string past the widest element: K12 sorts it in passes
+        L = 300
+        base = rng.integers(0, 4, (5, L), dtype=np.int32)
+        reads = np.concatenate([base, base[:2], base[:4]])
+        reads[5, 250:] = rng.integers(0, 4, 50)      # differs late only
+        reads[8, :10] = rng.integers(0, 4, 10)       # differs early only
+        return np.concatenate([reads, _rc(reads[0], L)[None]]), None
     lens = rng.integers(20, L + 1, 12).astype(np.int32)
     if case == "ragged_poly_t":
         reads = np.concatenate([np.full((3, L), 3, np.int32), rand[:5]])
@@ -391,6 +438,15 @@ def dedup_case(case: str, seed: int = 5):
         reads = np.concatenate([ends_a[:4], ends_a[:4], ends_a[:4], rand])
         lens = np.concatenate([[33, 34, 35, 40], [32, 34, 31, 40],
                                [33, 34, 35, 40], lens]).astype(np.int32)
+    elif case == "ragged_same_lead":
+        # one length and first 64-bit key, told apart late or by the
+        # length alone
+        lead = np.repeat(rand[:1], 8, axis=0)
+        lead[:, 34:] = rng.integers(0, 4, (8, L - 34))
+        lead[2] = lead[1]
+        reads = np.concatenate([lead, rand[:4]])
+        lens = np.concatenate([[40, 40, 40, 40, 39, 39, 38, 40],
+                               lens[:4]]).astype(np.int32)
     else:                               # a width whose key string ends
         L = 159                         # inside word 10: 6 keys with lengths
         base = rng.integers(0, 4, (6, L), dtype=np.int32)
