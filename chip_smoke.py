@@ -130,7 +130,9 @@ Phases (one flushed line each, with its seconds):
      pointer_jump once for each of its ops none/min/add; gather_along
      once per probe shape; the kernels with a ragged branch as
      "name:ragged" on a call with lengths, K11 as "merge_runs:weighted"
-     on a table merge); K9 and K10 take a later entry block's table
+     on a table merge, K8's rows-only call (the unique reads' reverse
+     complements, written into reads2's second half) as
+     "canonical_reads:rc" on paths 4 and 8a); K9 and K10 take a later entry block's table
      (base > 0) and a query chunk after the first where the path has
      them. Bit equality of outputs and in-place results asserted,
      median times (CUDA events), the bound from bytes and operations,
@@ -281,6 +283,10 @@ KERNEL_INFO = {
                         "sage2_tpu/overlap/prepare.py:55", "4"),
     "canonical_reads:ragged": (_CSRC + "canonical_reads.cu",
                                "sage2_tpu/overlap/prepare.py:55", "8a"),
+    # K8's second call: the unique reads' reverse complements, written
+    # into reads2's second half (rc_only, ``out``)
+    "canonical_reads:rc": (_CSRC + "canonical_reads.cu",
+                           "sage2_tpu/overlap/prepare.py:132", "4"),
     "overlap_join:ragged": (_CSRC + "overlap_join.cu",
                             "sage2_tpu/overlap/detect.py:863", "8a"),
     "vote_windows:ragged": (_CSRC + "vote_windows.cu",
@@ -466,14 +472,15 @@ MESH_PATHS = ("12", "13a", "13b", "14a", "14b")
 EARLY_PATHS = ("11", *MESH_PATHS)
 STREAM_MESH_PATHS = ("14a", "14b")
 PATHS = {
-    "4": ["kmer_keys", *_TWOPHASE, "canonical_reads", "overlap_join",
-          "merge_runs", *_JUMPS, *_DEDUP_JOIN, *_CHAIN],
+    "4": ["kmer_keys", *_TWOPHASE, "canonical_reads", "canonical_reads:rc",
+          "overlap_join", "merge_runs", *_JUMPS, *_DEDUP_JOIN, *_CHAIN],
     "5": ["vote_windows", "reduce_counts", "reduce_marks", "prune_table",
           *_DEDUP_JOIN, *_CHAIN],
     "7": [k for k in KERNEL_INFO if k.startswith("gather_along")],
     "8a": ["kmer_keys", "lookup_counts", "prune_table",
            "weak_windows:ragged", "fix_windows", "canonical_reads:ragged",
-           "overlap_join:ragged", *_JUMPS, *_RAGGED_DEDUP_JOIN, *_CHAIN],
+           "canonical_reads:rc", "overlap_join:ragged", *_JUMPS,
+           *_RAGGED_DEDUP_JOIN, *_CHAIN],
     "8b": ["kmer_keys", "vote_windows:ragged", "prune_table",
            "canonical_reads:ragged", "overlap_join:ragged",
            "reduce_counts:ragged", "reduce_marks:ragged", *_JUMPS,
@@ -726,6 +733,8 @@ class Capture:
                 size += args[-1] - args[-2]      # the slot range
             elif key == "reduce_requests":
                 size += args[3]     # the candidate capacity: a retry's pass
+            elif name == "canonical_reads" and len(args) > 2 and args[2]:
+                key = f"{name}:rc"               # the rows alone
             elif name == "seed_rows" and len(args) > 8 and args[8] != "all":
                 key = f"{name}:{args[8]}"        # the streamed join's rows
             elif name == "overlap_join" and len(args) > 9 and isinstance(
@@ -1048,14 +1057,20 @@ def work(key: str, args: tuple, total=0):
     if name == "reduce_marks":
         return marks_work(args, total)
     if name == "canonical_reads":
-        reads = args[0]
-        lengths = args[1] if len(args) > 1 else None
+        reads, lengths, rc_only, words_only = (tuple(args) + (
+            None, False, False))[:4]
         N, L = reads.shape
         W = -(-L // 16)
-        # codes in, RC out, two word rows and a flag; a shift and an
-        # add per base for each of the two packings
-        return (reads.numel() * 8 + N * W * 16 + N
-                + (0 if lengths is None else N * 4), reads.numel() * 8)
+        rows = 0 if words_only else reads.numel() * 4
+        words = 0 if rc_only else N * W * 16 + N
+        # codes (and lengths) in; the RC rows, where asked for, out; the
+        # two word rows and a flag, where asked for, out; a shift and an
+        # or per base for each of the two packings, three operations a
+        # base of a row
+        return (reads.numel() * 4 + rows + words
+                + (0 if lengths is None else N * 4),
+                (0 if rc_only else reads.numel() * 4)
+                + (0 if words_only else reads.numel() * 3))
     if name == "seed_table":
         words0, valid, _, _, g = args[:5]
         m, W = words0.shape
@@ -2253,7 +2268,9 @@ def derived_inputs(row: str, args: tuple, kern) -> tuple:
     reads, lengths = args[:2]
     skew = reads.clone()
     skew[::10, :32] = 0
-    return (skew, lengths) + tuple(kern("canonical_reads")(skew, lengths))
+    # K8's words alone, as the path's call (one pass: K12 reads no rows)
+    return (skew, lengths) + tuple(kern("canonical_reads")(skew, lengths,
+                                                           False, True))
 
 
 def k2_inputs(capture, path: str) -> tuple:
@@ -2337,7 +2354,7 @@ def library_time(key: str, args: tuple):
             keys, return_counts=True)), "unique_consecutive"
     if key.startswith("dedup_reads"):
         # the sort and the grouping of the canonical words in one call
-        _, lengths, _, fwd_w, rc_w, take_rc = args
+        _, lengths, _, fwd_w, rc_w, take_rc = args[:6]
         rows = torch.where(take_rc[:, None], rc_w, fwd_w)
         if lengths is not None:
             rows = torch.cat([lengths[:, None].to(torch.int64), rows], 1)

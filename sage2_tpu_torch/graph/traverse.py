@@ -41,7 +41,8 @@ def contract_unitigs(
     src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor, n_vertices: int
 ) -> UnitigLabels:
     """Label unambiguous chains of the reduced string graph (int32 edge
-    arrays, padding rows src == INT32_MAX)."""
+    arrays in any order; padding rows src == INT32_MAX change no label,
+    and the pipeline passes the real rows alone)."""
     V = n_vertices
     outdeg, indeg, nxt, ovl_next, p = kernels.chain_links(src, dst, ovl, V)
     steps = max(1, math.ceil(math.log2(max(V, 2))) + 1)

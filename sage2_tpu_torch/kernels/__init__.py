@@ -26,7 +26,9 @@ Twenty-three kernels (sources in ``kernels/csrc``):
   K7 ``reduce_marks``   expansion, membership probe and removal marks of
                         the device transitive reduction, one slot range
   K8 ``canonical_reads`` reverse complement, packed words and canonical
-                        choice of each read (the dedup stage)
+                        choice of each read (the dedup stage; a block a
+                        tile of reads; the words alone, or the rows alone
+                        into a view of reads2)
   K9 ``seed_table``     sort keys of the streamed join's entry seeds, and
                         over the sorted keys its bucket table and slab
                         (two launches around one torch.sort)
@@ -63,9 +65,10 @@ Twenty-three kernels (sources in ``kernels/csrc``):
                         at the weak windows (each tile's range of them,
                         then a tile of reads a block: two launches)
   K18 ``chain_links``   degrees, single neighbours, chain links and the
-                        initial parents of unitig labeling (one
-                        cooperative launch); ``chain_cut`` the cycle cut
-                        after K4's first two loops (one launch)
+                        initial parents of unitig labeling (two passes
+                        over the rows, none without rows, and two over
+                        the vertices); ``chain_cut`` the cycle cut after
+                        K4's first two loops (one launch)
   K19 ``route_rows``   the owner shard of each row, its stable rank
                         among the rows bound there, and the accepted rows
                         written destination-major (histogram, then a
@@ -95,7 +98,8 @@ tensor on the CPU. For a CUDA tensor it launches its kernel, on the
 current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 ``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
-``probe_join`` and ``weak_windows`` launch two per call, K12-K15 more
+``probe_join`` and ``weak_windows`` launch two per call,
+``chain_links`` four (two without edge rows), K12-K15 more
 (K13 and K14 six, K13's entry slab two); ``lookup_directory``,
 K2's first launch, builds the directory that K16 and K17 share,
 ``solid_table`` (three launches under K16's name) K16's membership
@@ -931,10 +935,16 @@ def reduce_marks(
     return removed
 
 
+# the longest read K8 takes (a read's codes as a 2-bit stream in a
+# block's shared memory)
+CANONICAL_MAX_LEN = 1 << 19
+
+
 @_on_device
 def canonical_reads(
     reads: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-    rc_only: bool = False,
+    rc_only: bool = False, words_only: bool = False,
+    out: Optional[torch.Tensor] = None,
 ):
     """(rc, fwd_w, rc_w, take_rc) of (N, L) int32 reads: ``rc`` (N, L)
     int32 the reverse complement of each read's first ``lengths[i]``
@@ -942,18 +952,33 @@ def canonical_reads(
     ``rc_w`` (N, ceil(L / 16)) int64 the packed words of the read and
     of ``rc`` (ops.bitpack.pack_read_words, codes past the length taken
     as 0); ``take_rc`` (N,) bool: ``rc_w`` is the lexicographically
-    smaller. With ``rc_only`` the last three are None."""
-    tensors = (reads,) + (() if lengths is None else (lengths,))
+    smaller. With ``rc_only`` the last three are None; with
+    ``words_only`` ``rc`` is None (no rows written). ``out``: an (N, L)
+    int32 tensor (a view, e.g. the second half of reads2) that receives
+    ``rc``. Kernel K8, one launch: a block a tile of consecutive reads
+    (see kernels/csrc/canonical_reads.cu)."""
+    if rc_only and words_only:
+        raise ValueError("rc_only and words_only exclude each other")
+    if out is not None and (words_only or out.shape != reads.shape):
+        raise ValueError("out takes the (N, L) rc rows")
+    tensors = (reads,) + tuple(t for t in (lengths, out) if t is not None)
     if _on_cpu(*tensors):
-        return plain.canonical_reads(reads, lengths, rc_only)
+        return plain.canonical_reads(reads, lengths, rc_only, words_only,
+                                     out)
     _dtype(reads, torch.int32, "reads")
     if lengths is not None:
         _dtype(lengths, torch.int32, "lengths")
+    if out is not None:
+        _dtype(out, torch.int32, "out")
     N, L = reads.shape
+    if L > CANONICAL_MAX_LEN:
+        raise ValueError(f"reads of {L} bases exceed K8's "
+                         f"{CANONICAL_MAX_LEN}")
     W = -(-L // 16)
     dev = reads.device
-    rc = torch.empty_like(reads)
-    fwd_w = rc_w = take_rc = None
+    rc = fwd_w = rc_w = take_rc = None
+    if not words_only:
+        rc = torch.empty_like(reads) if out is None else out
     if not rc_only:
         fwd_w = torch.empty((N, W), dtype=torch.int64, device=dev)
         rc_w = torch.empty((N, W), dtype=torch.int64, device=dev)
@@ -1196,10 +1221,20 @@ def _scan_tiles(name: str, counts: torch.Tensor, total: torch.Tensor):
     LAUNCHES[name] += 1
 
 
+def dedup_reads_rc(L: int, ragged: bool) -> bool:
+    """Whether K12 reads K8's reverse-complement rows for reads of L
+    bases: only where it sorts their key strings in passes
+    (bucket_plan.dedup_passes); in one pass it unpacks the unique rows
+    from the sorted strings."""
+    lb = L.bit_length() if ragged else 0
+    return len(bucket_plan.dedup_passes(L, lb)) > 1
+
+
 @_on_device
 def dedup_reads(
-    reads: torch.Tensor, lengths: Optional[torch.Tensor], rc: torch.Tensor,
-    fwd_w: torch.Tensor, rc_w: torch.Tensor, take_rc: torch.Tensor, *,
+    reads: torch.Tensor, lengths: Optional[torch.Tensor],
+    rc: Optional[torch.Tensor], fwd_w: torch.Tensor, rc_w: torch.Tensor,
+    take_rc: torch.Tensor, out: Optional[torch.Tensor] = None, *,
     split=None,
 ):
     """(uniq, mult, vertex_of_read, n_unique, lens_u) of the dedup over
@@ -1208,6 +1243,10 @@ def dedup_reads(
     canonical reads in canonical orientation, zero past its length and
     on rows from n_unique on; ``mult`` (N,) int32 the group sizes;
     ``vertex_of_read`` (N,) int32; ``lens_u`` (N,) int32 or None.
+    ``rc`` may be None exactly where K12 sorts in one pass
+    (``dedup_reads_rc``); elsewhere None raises ValueError. ``out``: an
+    (N, L) int32 tensor (a view, e.g. the first half of reads2) that
+    receives ``uniq``.
     Kernel K12: each read's whole key string (its length, then its
     canonical words) with its index sorted once by the bucketed sort of
     bucket_sort.cuh (range, histogram, scan, coarse scatter, fine split,
@@ -1215,21 +1254,32 @@ def dedup_reads(
     groups equal strings and writes every output but the unique rows,
     which one more launch unpacks from the sorted strings (reads of codes
     0-3); a string longer than the widest element goes in passes
-    (bucket_plan.dedup_passes; see kernels/csrc/dedup_reads.cu). One
-    host read a call (n_unique)."""
+    (bucket_plan.dedup_passes; see kernels/csrc/dedup_reads.cu), and its
+    rows are gathered from ``reads`` and ``rc``. One host read a call
+    (n_unique)."""
     N, L = reads.shape
     W = -(-L // 16)
-    if rc.shape != reads.shape or fwd_w.shape != (N, W) or (
-            rc_w.shape != (N, W) or take_rc.shape != (N,)):
+    if (rc is not None and rc.shape != reads.shape) or (
+            fwd_w.shape != (N, W) or rc_w.shape != (N, W)
+            or take_rc.shape != (N,)):
         raise ValueError("rc, fwd_w, rc_w and take_rc must be K8's outputs "
                          "for these reads")
-    tensors = (reads, rc, fwd_w, rc_w, take_rc) + (
-        () if lengths is None else (lengths,))
+    if rc is None and dedup_reads_rc(L, lengths is not None):
+        raise ValueError(f"K12 sorts reads of {L} bases in passes and "
+                         f"gathers their rows from K8's rc rows: rc must "
+                         f"not be None")
+    if out is not None and out.shape != reads.shape:
+        raise ValueError("out takes the (N, L) unique rows")
+    tensors = (reads, fwd_w, rc_w, take_rc) + tuple(
+        t for t in (lengths, rc, out) if t is not None)
     if _on_cpu(*tensors):
         return plain.dedup_reads(reads, lengths, rc, fwd_w, rc_w, take_rc,
-                                 split=split)
+                                 out, split=split)
     _dtype(reads, torch.int32, "reads")
-    _dtype(rc, torch.int32, "rc")
+    if rc is not None:
+        _dtype(rc, torch.int32, "rc")
+    if out is not None:
+        _dtype(out, torch.int32, "out")
     _dtype(fwd_w, torch.int64, "fwd_w")
     _dtype(rc_w, torch.int64, "rc_w")
     _dtype(take_rc, torch.bool, "take_rc")
@@ -1239,7 +1289,7 @@ def dedup_reads(
         raise ValueError(f"{N} reads overflow K12's 31-bit indices")
     dev = reads.device
     lens_u = None if lengths is None else torch.empty_like(lengths)
-    uniq = torch.empty_like(reads)
+    uniq = torch.empty_like(reads) if out is None else out
     mult = torch.empty(N, dtype=torch.int32, device=dev)
     vertex_of_read = torch.empty(N, dtype=torch.int32, device=dev)
     if N == 0:
@@ -1875,14 +1925,16 @@ def fix_windows(
 @_on_device
 def chain_links(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
                 n_vertices: int):
-    """(outdeg, indeg, nxt, ovl_next, p), int32 (V,), of the padded int32
-    edge rows (``src == INT32_MAX`` is padding; real ids below
+    """(outdeg, indeg, nxt, ovl_next, p), int32 (V,), of int32 edge rows
+    in any order (``src == INT32_MAX`` is padding; real ids below
     ``n_vertices``): the degrees, the chain edge out of each vertex
     (outdeg(v) == 1 and indeg(succ) == 1: its successor and overlap,
     else -1 and 0) and the initial parent of unitig labeling (the
     predecessor over the chain edge into v, else v;
-    sage2_tpu/graph/traverse.py:40-77). Kernel K18's first launch, one
-    cooperative kernel (see kernels/csrc/chain_links.cu)."""
+    sage2_tpu/graph/traverse.py:40-77). Kernel K18's links: the counters
+    zeroed, two passes over the rows (none without rows: the in-edges'
+    64-bit counters, the out-edges'), then two over the vertices (the
+    degree-one bit maps, the links; see kernels/csrc/chain_links.cu)."""
     if not (src.shape == dst.shape == ovl.shape) or src.dim() != 1:
         raise ValueError("src, dst and ovl must be 1-D of one length")
     if _on_cpu(src, dst, ovl):
@@ -1890,15 +1942,19 @@ def chain_links(src: torch.Tensor, dst: torch.Tensor, ovl: torch.Tensor,
     for t in (src, dst, ovl):
         _dtype(t, torch.int32, "edge arrays")
     V, E = n_vertices, src.shape[0]
-    out = [torch.empty(V, dtype=torch.int32, device=src.device)
-           for _ in range(8)]
+    dev = src.device
+    outdeg, indeg, nxt, ovl_next, p = (
+        torch.empty(V, dtype=torch.int32, device=dev) for _ in range(5))
+    # scratch: the in-edges' counters, the successors, the two bit maps
+    in_word, succ = (torch.empty(V, dtype=torch.int64, device=dev)
+                     for _ in range(2))
+    bits = torch.empty(2 * -(-V // 32), dtype=torch.int32, device=dev)
     if V:
-        # outdeg, indeg, then the scratch succ, succ_ovl and pred, then
-        # nxt, ovl_next and p
         _launch("chain_links", "sage2_chain_links", _ptr(src), _ptr(dst),
-                _ptr(ovl), E, V, *map(_ptr, out), _stream())
-        LAUNCHES["chain_links"] += 1
-    outdeg, indeg, _, _, _, nxt, ovl_next, p = out
+                _ptr(ovl), E, V, _ptr(outdeg), _ptr(indeg), _ptr(in_word),
+                _ptr(succ), _ptr(bits), _ptr(nxt), _ptr(ovl_next), _ptr(p),
+                _stream())
+        LAUNCHES["chain_links"] += 4 if E else 2
     return outdeg, indeg, nxt, ovl_next, p
 
 

@@ -418,13 +418,16 @@ def reduce_marks(
 
 def canonical_reads(
     reads: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-    rc_only: bool = False,
+    rc_only: bool = False, words_only: bool = False,
+    out: Optional[torch.Tensor] = None,
 ):
     """(rc, fwd_w, rc_w, take_rc): the reverse complement of each
     read's real bases re-padded with 0 (ops.bitpack.revcomp_ragged;
     (3 - r).flip without lengths), the packed words of the read (codes
     past its length taken as 0) and of its reverse complement, and
-    whether the reverse complement's words are the smaller."""
+    whether the reverse complement's words are the smaller. With
+    ``rc_only`` the last three are None, with ``words_only`` ``rc``;
+    ``out`` receives ``rc``."""
     from sage2_tpu_torch.ops import bitpack
 
     N, L = reads.shape
@@ -436,11 +439,14 @@ def canonical_reads(
         rc = bitpack.revcomp_ragged(reads, lengths)
         real = torch.arange(L, device=reads.device)[None, :] < lengths[:, None]
         fwd = torch.where(real, reads, 0)
+    if out is not None:
+        rc = out.copy_(rc)
     if rc_only:
         return rc, None, None, None
     fwd_w = bitpack.pack_read_words(fwd)
     rc_w = bitpack.pack_read_words(rc)
-    return rc, fwd_w, rc_w, words_less(rc_w, fwd_w)
+    return (None if words_only else rc), fwd_w, rc_w, words_less(rc_w,
+                                                                 fwd_w)
 
 
 def seed_table(
@@ -574,8 +580,9 @@ def dedup_keys(fwd_w: torch.Tensor, rc_w: torch.Tensor,
 
 
 def dedup_reads(
-    reads: torch.Tensor, lengths: Optional[torch.Tensor], rc: torch.Tensor,
-    fwd_w: torch.Tensor, rc_w: torch.Tensor, take_rc: torch.Tensor, *,
+    reads: torch.Tensor, lengths: Optional[torch.Tensor],
+    rc: Optional[torch.Tensor], fwd_w: torch.Tensor, rc_w: torch.Tensor,
+    take_rc: torch.Tensor, out: Optional[torch.Tensor] = None, *,
     split=None,
 ):
     """(uniq, mult, vertex_of_read, n_unique, lens_u) of the dedup
@@ -584,10 +591,12 @@ def dedup_reads(
     (``dedup_keys``, chained stable sorts from the last key to the
     first), grouped by equal keys. Group g's first read in that order
     is its representative: ``uniq`` row g holds it in canonical
-    orientation (``rc`` where ``take_rc``) with codes past its length
-    zero, ``mult`` the group's size, ``lens_u`` its length (None
+    orientation (``rc`` where ``take_rc``; without ``rc``, the
+    representatives' own reverse complements) with codes past its
+    length zero, ``mult`` the group's size, ``lens_u`` its length (None
     without lengths); rows from n_unique on are zero. Read i's vertex
-    is its group, plus N where it was flipped."""
+    is its group, plus N where it was flipped. ``out`` receives
+    ``uniq``."""
     N, L = reads.shape
     dev = reads.device
     keys = dedup_keys(fwd_w, rc_w, take_rc, lengths, L)
@@ -606,7 +615,12 @@ def dedup_reads(
     mult = torch.zeros(N, dtype=torch.int32, device=dev)
     mult[:n_unique] = torch.diff(heads, append=heads.new_tensor([N])).to(
         torch.int32)
-    row = torch.where(take_rc[rep][:, None], rc[rep], reads[rep])
+    if rc is None:
+        rc_rep = canonical_reads(reads[rep], None if lengths is None
+                                 else lengths[rep], True)[0]
+    else:
+        rc_rep = rc[rep]
+    row = torch.where(take_rc[rep][:, None], rc_rep, reads[rep])
     lens_u = None
     if lengths is not None:
         real = torch.arange(L, device=dev)[None, :] < lengths[rep].clamp(
@@ -614,7 +628,7 @@ def dedup_reads(
         row = torch.where(real, row, 0)
         lens_u = torch.zeros_like(lengths)
         lens_u[:n_unique] = lengths[rep]
-    uniq = torch.zeros_like(reads)
+    uniq = torch.zeros_like(reads) if out is None else out.zero_()
     uniq[:n_unique] = row
     gid = torch.empty(N, dtype=torch.int64, device=dev)
     gid[order] = group_id

@@ -5,9 +5,10 @@ The vertex set is {each unique read, its reverse complement}: for
 capacity N, vertex i in [0, N) is unique read i forward and vertex
 i + N its reverse complement. Duplicate reads (including a read equal
 to another's reverse complement) collapse into one vertex with a
-multiplicity. Kernel K8 gives each read's reverse complement, both
-packings and the canonical choice in one pass; kernel K12 sorts and
-groups the canonical reads.
+multiplicity. Kernel K8 gives each read's packed words and canonical
+choice in one pass (its reverse complement too where K12 needs it);
+kernel K12 sorts and groups the canonical reads into the first half of
+reads2, and K8 writes their reverse complements into the second half.
 """
 
 from __future__ import annotations
@@ -59,17 +60,22 @@ def prepare_reads(
     ``split`` (utils.metrics.DeviceSplit) gets the ends of K8, the sort
     chain, the grouping and the reverse-complement rows.
     """
-    N = reads.shape[0]
+    N, L = reads.shape
     if lengths is not None:
         lengths = lengths.to(torch.int32)
-    rc, fwd_w, rc_w, take_rc = kernels.canonical_reads(reads, lengths)
+    # K8's rows only where K12 reads them (its strings sorted in passes);
+    # the arguments positional, as chip_smoke.py's capture keeps them
+    words_only = not kernels.dedup_reads_rc(L, lengths is not None)
+    rc, fwd_w, rc_w, take_rc = kernels.canonical_reads(reads, lengths,
+                                                       False, words_only)
     mark_part(split, "k8")
+    reads2 = torch.empty((2 * N, L), dtype=reads.dtype, device=reads.device)
     uniq, mult, vertex_of_read, n_unique, lens_u = kernels.dedup_reads(
-        reads, lengths, rc, fwd_w, rc_w, take_rc, split=split)
+        reads, lengths, rc, fwd_w, rc_w, take_rc, reads2[:N], split=split)
     del rc, fwd_w, rc_w, take_rc
     valid = torch.arange(N, device=reads.device) < n_unique
-    rc_u = kernels.canonical_reads(uniq, lens_u, True)[0]   # RC only
-    reads2 = torch.cat([uniq, rc_u], dim=0)
+    # the unique rows' reverse complements, straight into reads2
+    kernels.canonical_reads(uniq, lens_u, True, False, reads2[N:])
     mark_part(split, "rc_rows")
     return ReadSet(reads2, torch.cat([valid, valid]), torch.cat([mult, mult]),
                    n_unique, vertex_of_read,

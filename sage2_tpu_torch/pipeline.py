@@ -243,6 +243,16 @@ def _writable(a: np.ndarray) -> np.ndarray:
     return a if a.flags.writeable else np.array(a)
 
 
+def _real_rows(edges: Tuple, n_edges: Optional[int]) -> Tuple:
+    """The real rows of padded (src, dst, ovl) host arrays: the first
+    ``n_edges`` where that count is known (a ReducedGraph's real rows
+    lead it), else the rows with src != INT32_MAX."""
+    if n_edges is not None:
+        return tuple(a[:n_edges] for a in edges)
+    real = np.asarray(edges[0]) != I32_MAX
+    return tuple(np.asarray(a)[real] for a in edges)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -804,6 +814,10 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
     vlen_arg = L if lengths2_np is None else lengths2_np
 
     # --- stage 4: transitive reduction --------------------------------
+    # the reduced graph's real rows lead its arrays (ReducedGraph); None
+    # where the count is not known (a resumed run), and the traverse
+    # stage finds them by their src
+    n_reduced = None
     # host arrays: "auto" and "native" reduce them on the host (through
     # the spill store when there is one), "device" uploads them once and
     # reduces on ``dev``
@@ -830,6 +844,7 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
                            else a for a in (red.src, red.dst, red.ovl))
         log.log("reduce_result", n_edges=red.n_edges,
                 n_expansions=red.n_expansions)
+        n_reduced = red.n_edges
         del red
         # the reduced_* spill files come from transitive_reduction_spill
         # alone; any other reduction persists its result here
@@ -849,9 +864,11 @@ def _assemble_inner(reads, config, outdir, log, resume_from, dev, lengths):
         _manifest(outdir, config, "traverse")
     elif start <= STAGES.index("traverse"):
         with log.timed("traverse"):
+            # the real rows alone go to the device: padding changes no
+            # label (sage2_tpu/graph/traverse.py:46-51)
             labels = contract_unitigs(
                 *(torch.from_numpy(_writable(np.ascontiguousarray(a)))
-                  .to(dev) for a in redges), V,
+                  .to(dev) for a in _real_rows(redges, n_reduced)), V,
             )
             _sync(dev)
         lab = {k: v.cpu().numpy() for k, v in labels._asdict().items()}

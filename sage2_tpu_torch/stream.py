@@ -223,9 +223,10 @@ def prepare_reads_chunked(reads: np.ndarray, chunk_reads: int, store=None,
     canon_w_parts, take_rc_parts = [], []
     for i in range(0, N, chunk_reads):
         watchdog.touch(f"dedup chunk {i}/{N}")
+        # K8's words alone (words_only): no reverse-complement rows
         _, fwd_w, rc_w, take_rc = kernels.canonical_reads(
             _rows(reads[i : i + chunk_reads], dev),
-            _lengths(lengths, i, i + chunk_reads, dev))
+            _lengths(lengths, i, i + chunk_reads, dev), False, True)
         canon_w_parts.append(
             torch.where(take_rc[:, None], rc_w, fwd_w).cpu().numpy())
         take_rc_parts.append(take_rc.cpu().numpy())

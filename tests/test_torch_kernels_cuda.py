@@ -42,6 +42,7 @@ from sage2_tpu_torch.overlap import (
 )
 from sage2_tpu_torch.overlap.detect import build_seed_rows, join_geometry
 from torch_kernel_cases import (
+    CANON_LENGTHS,
     CHAIN_CASES,
     COUNTS_CASES,
     I32_MAX,
@@ -52,6 +53,7 @@ from torch_kernel_cases import (
     UNSIGNED_CASES,
     VOTE_CASES,
     bucket_geometry,
+    canon_case,
     chain_case,
     counts_case,
     crowded_bucket_table,
@@ -531,7 +533,50 @@ def test_canonical_reads_kernel(cuda, ragged):
     _equal(got, plain.canonical_reads(r, lens))
     assert got[3].any() and not got[3].all()
     _equal(kernels.canonical_reads(r, lens, rc_only=True)[:1], got[:1])
-    assert kernels.LAUNCHES["canonical_reads"] == before + 2
+    _equal(kernels.canonical_reads(r, lens, words_only=True),
+           (None,) + got[1:])
+    assert kernels.LAUNCHES["canonical_reads"] == before + 3
+
+
+def _misaligned(t, offset):
+    """A copy of ``t`` that starts ``offset`` int32 elements into a larger
+    buffer (an address 4 offset bytes past a 16-byte boundary)."""
+    buf = torch.full((t.numel() + 4,), -9, dtype=t.dtype, device=t.device)
+    view = buf[offset : offset + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("L", CANON_LENGTHS)
+def test_canonical_tile_kernel(cuda, L, ragged):
+    """K8's tile kernel in its three modes against the plain version: N
+    not a multiple of a tile, palindromes and copies, ragged lengths from
+    0 to L with codes past them; the codes and the rows at every 4-byte
+    alignment (views into larger arrays: reads2's halves)."""
+    reads, lens = canon_case(L, ragged)
+    r = torch.from_numpy(reads).to(cuda)
+    ln = None if lens is None else torch.from_numpy(lens).to(cuda)
+    want = plain.canonical_reads(r, ln)
+    before = kernels.LAUNCHES["canonical_reads"]
+    _equal(kernels.canonical_reads(r, ln), want)
+    for shift in range(4):
+        rs = _misaligned(r, shift)
+        _equal(kernels.canonical_reads(rs, ln, False, True),
+               (None,) + want[1:])
+        big = torch.full((reads.size + 4,), -9, dtype=torch.int32,
+                         device=cuda)
+        out = big[3 - shift : 3 - shift + reads.size].view(reads.shape)
+        got = kernels.canonical_reads(rs, ln, True, False, out)
+        assert got[0].data_ptr() == out.data_ptr() and got[1:] == (
+            None, None, None)
+        _equal((out,), want[:1])
+        assert bool((big[: 3 - shift] == -9).all())
+        assert bool((big[3 - shift + reads.size :] == -9).all())
+        _equal(kernels.canonical_reads(rs, ln, False, False, out)[1:],
+               want[1:])
+        _equal((out,), want[:1])
+    assert kernels.LAUNCHES["canonical_reads"] == before + 13
 
 
 def _ragged_rows(cuda, min_overlap=40):
@@ -770,6 +815,17 @@ def test_dedup_reads_kernel(cuda, case):
     if lens is not None:
         _equal(got[4:], plain.dedup_reads(r, lens, *k8)[4:])
     assert 0 < got[3] <= r.shape[0]
+    # without K8's rows (one pass) and into a view of reads2's first half
+    if kernels.dedup_reads_rc(L, lens is not None):
+        with pytest.raises(ValueError, match="passes"):
+            kernels.dedup_reads(r, lens, None, *k8[1:])
+        return
+    reads2 = torch.empty((2 * r.shape[0], L), dtype=torch.int32,
+                         device=cuda)
+    again = kernels.dedup_reads(r, lens, None, *k8[1:],
+                                reads2[: r.shape[0]])
+    assert again[0].data_ptr() == reads2.data_ptr()
+    _equal(again, got)
 
 
 @pytest.mark.parametrize("ragged", [False, True])
@@ -1111,7 +1167,10 @@ def test_chain_links_kernel(cuda, case):
     got = kernels.chain_cut(p, pf, m, nxt, ovl_next)
     want = plain.chain_cut(p, pf, m, n2, o2)
     _equal(got + (nxt, ovl_next), want + (n2, o2))
-    assert kernels.LAUNCHES["chain_links"] == before + (2 if V else 0)
+    # links: two passes over the rows where there are rows, two over the
+    # vertices; the cut
+    assert kernels.LAUNCHES["chain_links"] == before + (
+        (5 if src.numel() else 3) if V else 0)
     if case == "rings":
         assert int((got[0] == ids).sum()) > int((p == ids).sum())
     _equal(contract_unitigs(*gpu, V), contract_unitigs(src, dst, ovl, V))

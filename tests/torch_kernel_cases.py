@@ -512,25 +512,31 @@ def reduce_case(case: str, seed: int = 13):
 
 # --- kernel K18 (kernels.chain_links, kernels.chain_cut) -------------------
 
-CHAIN_CASES = ("random", "rings", "branches", "empty", "padding")
+CHAIN_CASES = ("random", "rings", "branches", "empty", "padding", "real",
+               "unsorted", "no_edges")
 
 
 def chain_case(case: str, seed: int = 0):
-    """(src, dst, ovl int32 padded edge rows sorted by (src, dst), V) for
-    unitig labeling:
+    """(src, dst, ovl int32 edge rows, V) for unitig labeling, sorted by
+    (src, dst) with 7 padding rows at the end unless said:
 
-      random    chains, branches and a ring among 400 vertices;
+      random    chains, branches and a ring among 400 vertices, and
+                isolated vertices;
       rings     three cycles (one of two vertices, one of three, one of
                 50) and a chain that runs into the third, which then
                 holds no cycle of chain edges;
       branches  vertices of out- and in-degree 2 and 3 on both ends of
                 chains, and a vertex with a self-loop;
       empty     no vertex and no edge;
-      padding   300 vertices and only padding rows."""
+      padding   300 vertices and only padding rows;
+      real      random's rows without padding (the traverse stage's
+                input);
+      unsorted  random's rows and padding in a random order;
+      no_edges  50 vertices and no row at all."""
     rng = np.random.default_rng(seed)
     I32 = 2**31 - 1
     edges = {}
-    if case == "random":
+    if case in ("random", "real", "unsorted"):
         V = 400
         order = rng.permutation(V)
         for i in range(300):
@@ -564,14 +570,56 @@ def chain_case(case: str, seed: int = 0):
         edges[(171, 172)] = 45
     elif case == "empty":
         V = 0
+    elif case == "no_edges":
+        V = 50
     else:
         V = 300
     e = sorted(edges)
-    pad = 0 if case == "empty" else 7
+    pad = 0 if case in ("empty", "real", "no_edges") else 7
     src = np.array([a for a, _ in e] + [I32] * pad, np.int32)
     dst = np.array([b for _, b in e] + [I32] * pad, np.int32)
     ovl = np.array([edges[x] for x in e] + [0] * pad, np.int32)
+    if case == "unsorted":
+        perm = rng.permutation(len(src))
+        src, dst, ovl = src[perm], dst[perm], ovl[perm]
     return src, dst, ovl, V
+
+
+# --- kernel K8 (kernels.canonical_reads) ------------------------------------
+
+# the read widths of K8's cases: one code, a word less one, one word, a word
+# and one, the main paths' 100 and 150, the dedup's strings in passes (300),
+# and a tile of 4 reads (1000)
+CANON_LENGTHS = (1, 15, 16, 17, 100, 150, 300, 1000)
+
+
+def canon_tile_reads(L: int) -> int:
+    """Reads a tile of K8 (kTileCodes and kMaxTileReads in
+    kernels/csrc/canonical_reads.cu)."""
+    return min(512, max(1, 4096 // L)) if L else 512
+
+
+def canon_case(L: int, ragged: bool, seed: int = 17):
+    """(reads (N, L) int32, lengths (N,) int32 or None) for K8: N three
+    and a half tiles and one read (not a multiple of a tile), random
+    codes, reads equal to their own reverse complement (palindromes; the
+    choice falls to the forward words) and copies of reads; ragged
+    lengths from 0 to L, with random codes past each length."""
+    rng = np.random.default_rng(seed + L)
+    R = canon_tile_reads(L)
+    N = 3 * R + R // 2 + 1
+    reads = rng.integers(0, 4, (N, L), dtype=np.int32)
+    lens = rng.integers(0, L + 1, N).astype(np.int32)
+    lens[:3] = (0, L, max(L - 1, 0))
+    for i in range(3, min(N, 9)):       # palindromes of an even length
+        n = (L if not ragged else int(lens[i])) // 2 * 2
+        half = rng.integers(0, 4, n // 2, dtype=np.int32)
+        reads[i, :n] = np.concatenate([half, (3 - half)[::-1]])
+        if ragged:
+            lens[i] = n
+    reads[N // 2 : N // 2 + 3] = reads[3:6]
+    lens[N // 2 : N // 2 + 3] = lens[3:6]
+    return reads, (lens if ragged else None)
 
 
 # K16's membership table of the solid keys (kernels/csrc/weak_windows.cu):
