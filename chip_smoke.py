@@ -146,6 +146,16 @@ Phases (one flushed line each, with its seconds):
      wrapper's "ms", and the
      device times of that launch and of torch.gather, each enqueued
      behind a spin of the card ("device_ms", "library_device_ms"),
+     K21's row table the same of the call and of its library call,
+     a K15 row the device time of its bare launch ("device_ms"), the
+     call and torch.masked_select behind the spin, each with its host
+     read of the kept count ("spun_call_ms", "library_spun_ms"), and what
+     a copy of its kept entries to their own size would take ("copy_ms";
+     the outputs are views),
+     the heads row of K20 its device time, the time of
+     torch.sort of the same requests (which its caller runs before it,
+     "sort_ms") and its bound with a 32-byte sector a scattered store
+     ("sector_bound_ms"),
      and one PyTorch call computing the same function where there is
      one. Two rows take inputs made from another row's (DERIVED):
      "fix_windows:fallback", phase 4's K17 call through K2's directory
@@ -940,9 +950,11 @@ def work(key: str, args: tuple, total=0):
     if key == "routed_gather:heads":
         s_key = args[0]
         Q = s_key.numel()
-        # sorted keys and positions in, uniq and pos_of_orig out; a binary
-        # search a request for its run's head
-        return Q * 20, Q * max(1, math.ceil(math.log2(Q + 1))) * 4
+        # sorted keys and positions in, uniq and pos_of_orig out; a
+        # compare, a max and two selects a request (a warp's look at the
+        # 32 keys before a tile of 1,024, or its 32-way search, for the run
+        # that enters the tile: under one operation a request)
+        return Q * 20, Q * 4
     if key == "routed_gather:gather":
         idx, _, *tables = args
         R, K = idx.numel(), len(tables)
@@ -1545,6 +1557,47 @@ def main() -> int:
                     del spare
                 else:
                     per_step = ", no membership table (K2's directory)"
+            elif name == "prune_table":
+                # the bare launch behind a spin; the call and the library
+                # call behind it too, each with its host read
+                keys, counts, threshold = args
+                rows[-1].update(
+                    device_ms=device_ms(lambda: kern("prune_table_launch")(
+                        *args)),
+                    spun_call_ms=device_ms(lambda: wrapper(*args)),
+                    library_spun_ms=device_ms(lambda: (
+                        torch.masked_select(keys, counts >= threshold),
+                        torch.masked_select(counts, counts >= threshold))),
+                    copy_ms=time_ms(lambda: (got[0].clone(),
+                                             got[1].clone())))
+                per_step = (f"; the launch on the device behind a spin "
+                            f"{rows[-1]['device_ms']:.4f} ms; behind the "
+                            f"spin with their host reads of the kept count: "
+                            f"the call {rows[-1]['spun_call_ms']:.4f} ms, "
+                            f"masked_select "
+                            f"{rows[-1]['library_spun_ms']:.4f} ms; a "
+                            f"copy of the kept entries to their own size "
+                            f"(not made: the outputs are views) "
+                            f"{rows[-1]['copy_ms']:.4f} ms")
+            elif key == "routed_gather:heads":
+                # the launch behind a spin; torch.sort of the same
+                # requests, which the caller runs before it; the floor of
+                # the scatter to input order at a 32-byte sector a request
+                s_key, s_ord = args
+                key_in = torch.empty_like(s_key)
+                key_in[s_ord] = s_key
+                Q = s_key.numel()
+                rows[-1].update(
+                    device_ms=device_ms(lambda: wrapper(*args)),
+                    sort_ms=time_ms(lambda: torch.sort(key_in, stable=True)),
+                    sector_bound_ms=Q * (12 + 4 + 32) / HBM_BYTES_PER_S
+                    * 1e3)
+                per_step = (f"; on the device behind a spin "
+                            f"{rows[-1]['device_ms']:.4f} ms; torch.sort "
+                            f"of the requests {rows[-1]['sort_ms']:.4f} ms; "
+                            f"bound with a 32-byte sector a scattered "
+                            f"store {rows[-1]['sector_bound_ms']:.4f} ms")
+                del key_in
             elif key == "reduce_requests:rows":     # the launch alone
                 ss_key, vbase, v_d = args
                 firsts = (torch.arange(v_d + 1, device=dev) + vbase) << 32

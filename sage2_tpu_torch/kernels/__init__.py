@@ -54,7 +54,8 @@ Twenty-three kernels (sources in ``kernels/csrc``):
                         last row of each pair; ``longest_edges_deferred``
                         keeps every ok row)
   K15 ``prune_table``   the solid entries of a sorted count table, in
-                        table order (count, scan, write)
+                        table order (one launch: tiles in ticket order,
+                        their first slots by a look-back)
   K16 ``weak_windows``  flat indices of the weak windows of a correction
                         sub-pass, keys rolled from the reads and looked up
                         in a membership table of the solid keys (mask
@@ -99,7 +100,7 @@ current stream, or raises: nothing falls back. Every wrapper adds one
 to ``LAUNCHES[name]`` for each kernel it launches (``lookup_counts``,
 ``overlap_join``, ``vote_windows``, ``reduce_counts``, ``seed_table`` and
 ``probe_join`` and ``weak_windows`` launch two per call,
-``chain_links`` four (two without edge rows), K12-K15 more
+``chain_links`` four (two without edge rows), K12-K14 more
 (K13 and K14 six, K13's entry slab two); ``lookup_directory``,
 K2's first launch, builds the directory that K16 and K17 share,
 ``solid_table`` (three launches under K16's name) K16's membership
@@ -241,9 +242,8 @@ _ARGTYPES = {
                             _P, _P, _P],
     },
     "prune_table": {
-        "sage2_prune_count": [_P, _I64, _I, _P, _P],
-        "sage2_scan_tiles": [_P, _I64, _P, _P],
-        "sage2_prune_write": [_P, _P, _I64, _I, _P, _P, _P, _P],
+        "sage2_prune_tile": [_P],
+        "sage2_prune_table": [_P, _P, _I64, _I, _P, _P, _P, _P],
     },
     "weak_windows": {
         "sage2_solid_table": [_P, _P, _I64, _I, _I, _I, _P, _P, _P],
@@ -268,6 +268,7 @@ _ARGTYPES = {
                                 _P, _P, _P, _P, _P, _P, _P],
     },
     "routed_gather": {
+        "sage2_heads_tile": [_P],
         "sage2_dedup_heads": [_P, _P, _I64, _P, _P, _P],
         "sage2_gather_rows": [_P, _P, _I64, _P, _I64, _I, _P, _P],
         "sage2_route_back": [_P, _I, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
@@ -315,7 +316,8 @@ HEADERS = {"lookup_counts": ("bucket_search.cuh",),
            "dedup_reads": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
            "seed_rows": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
            "longest_edges": ("scan.cuh", "lookback.cuh", "bucket_sort.cuh"),
-           "prune_table": ("scan.cuh",),
+           "prune_table": ("lookback.cuh", "scan.cuh"),
+           "routed_gather": ("scan.cuh",),
            "weak_windows": ("bucket_search.cuh", "lookback.cuh",
                             "solid_table.cuh"),
            "fix_windows": ("bucket_search.cuh", "solid_table.cuh")}
@@ -1200,25 +1202,9 @@ def gather_along_launch(tbl: torch.Tensor, idx: torch.Tensor, axis: int,
     LAUNCHES["gather_along"] += 1
 
 
-# items a tile of K15's two-pass scan (kScanTile in kernels/csrc/scan.cuh)
-SCAN_TILE = 1024
 # rows a tile of K13's entry-slab compaction (kCompactTile in
 # kernels/csrc/seed_rows.cu)
 SEED_COMPACT_TILE = 2048
-
-
-def _tile_scan(n: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tile counts, total) scratch of a two-pass scan over n items: an
-    int64 a tile, then one int64 for the total."""
-    tiles = max(1, -(-n // SCAN_TILE))
-    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
-    return scratch[:tiles], scratch[tiles:]
-
-
-def _scan_tiles(name: str, counts: torch.Tensor, total: torch.Tensor):
-    _launch(name, "sage2_scan_tiles", _ptr(counts), counts.numel(),
-            _ptr(total), _stream())
-    LAUNCHES[name] += 1
 
 
 def dedup_reads_rc(L: int, ragged: bool) -> bool:
@@ -1670,37 +1656,77 @@ def longest_edges_deferred(
             (valid - keepers).to(torch.int32))
 
 
+def _host_int64(name: str, fn: str) -> int:
+    value = ctypes.c_int64()
+    _launch(name, fn, ctypes.addressof(value))
+    return value.value
+
+
+@functools.lru_cache(maxsize=None)
+def prune_tile() -> int:
+    """Entries a tile of K15, read from its library (kTile in
+    kernels/csrc/prune_table.cu); builds it where it is not built."""
+    return _host_int64("prune_table", "sage2_prune_tile")
+
+
+@functools.lru_cache(maxsize=None)
+def heads_tile() -> int:
+    """Sorted requests a tile of K20's heads, read from its library
+    (kHeadTile in kernels/csrc/routed_gather.cu)."""
+    return _host_int64("routed_gather", "sage2_heads_tile")
+
+
+def prune_buffers(T: int, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """K15's outputs and scratch over a table of T >= 1 entries, in one
+    allocation: (keys (T,) int64, counts (T,) int32 16-byte aligned, as a
+    fresh tensor is, words), words the ticket, the kept count and a
+    look-back status word a tile (``prune_tile``)."""
+    k_end = T + T % 2
+    c_end = k_end + -(-T // 2)
+    buf = torch.empty(c_end + 2 + -(-T // prune_tile()), dtype=torch.int64,
+                      device=device)
+    return buf[:T], buf[k_end:c_end].view(torch.int32)[:T], buf[c_end:]
+
+
+@_on_device
+def prune_table_launch(keys: torch.Tensor, counts: torch.Tensor,
+                       threshold: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K15's bare launch on checked, non-empty CUDA tensors: (keys,
+    counts, n), the outputs of ``prune_buffers`` whose first n entries are
+    the kept ones, and n the (1,) int64 kept count on the card; nothing
+    waits."""
+    out_keys, out_counts, words = prune_buffers(keys.shape[0], keys.device)
+    _launch("prune_table", "sage2_prune_table", _ptr(keys), _ptr(counts),
+            keys.shape[0], threshold, _ptr(out_keys), _ptr(out_counts),
+            _ptr(words), _stream())
+    LAUNCHES["prune_table"] += 1
+    return out_keys, out_counts, words[1:2]
+
+
 @_on_device
 def prune_table(keys: torch.Tensor, counts: torch.Tensor,
                 threshold: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(keys, counts) of the entries of the sorted int64 ``keys`` whose
-    int32 ``counts`` reach ``threshold``, in table order, each of its own
-    size. Kernel K15: a count and a write pass around a scan of the tile
-    counts (see kernels/csrc/prune_table.cu); one host read a call (the
-    kept count, to size the outputs)."""
+    int32 ``counts`` reach ``threshold``, in table order. On the card they
+    are views of the first n entries of one buffer of the table's size
+    (``prune_buffers``), which stays allocated while either view lives: a
+    caller done with the count table drops it, so that the two do not
+    live together. Kernel K15: one launch (see
+    kernels/csrc/prune_table.cu); one host read a call, after it (the kept
+    count)."""
     if keys.shape != counts.shape or keys.dim() != 1:
         raise ValueError("keys and counts must be 1-D of one length")
     if _on_cpu(keys, counts):
         return plain.prune_table(keys, counts, threshold)
     _dtype(keys, torch.int64, "keys")
     _dtype(counts, torch.int32, "counts")
-    T = keys.shape[0]
-    dev = keys.device
-    if T == 0:
+    if keys.shape[0] == 0:
         return keys.clone(), counts.clone()
-    tiles, total = _tile_scan(T, dev)
-    _launch("prune_table", "sage2_prune_count", _ptr(counts), T, threshold,
-            _ptr(tiles), _stream())
-    LAUNCHES["prune_table"] += 1
-    _scan_tiles("prune_table", tiles, total)
-    n = int(total)
-    out_keys = torch.empty(n, dtype=torch.int64, device=dev)
-    out_counts = torch.empty(n, dtype=torch.int32, device=dev)
-    _launch("prune_table", "sage2_prune_write", _ptr(keys), _ptr(counts), T,
-            threshold, _ptr(tiles), _ptr(out_keys), _ptr(out_counts),
-            _stream())
-    LAUNCHES["prune_table"] += 1
-    return out_keys, out_counts
+    out_keys, out_counts, n = prune_table_launch(keys, counts, threshold)
+    n = int(n)
+    return out_keys[:n], out_counts[:n]
 
 
 # K16's membership table of the solid keys (kernels/csrc/weak_windows.cu):

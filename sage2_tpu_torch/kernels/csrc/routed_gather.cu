@@ -11,11 +11,19 @@
 // back lie exactly as its send buffer did):
 //
 //   heads   over the requests sorted by torch.sort (invalid ones
-//           INT32_MAX at the end), one thread a sorted request: a run
-//           head keeps its key in `uniq` (INT32_MAX elsewhere), and every
-//           request's input position gets the position of its run's head
-//           (`pos_of_orig`, by binary search for the run's first key:
-//           the reference's cummax of head positions).
+//           INT32_MAX at the end), a block a tile of kHeadTile
+//           consecutive requests, four a thread by 16-byte loads: a
+//           request is a run head where its key differs from the one
+//           before it (-1 before the first, as the reference's) and is
+//           not INT32_MAX; a head keeps its key in `uniq` (INT32_MAX
+//           elsewhere); every request's input position gets the position
+//           of the last head at or before it, 0 where there is none
+//           (`pos_of_orig`: the reference's cummax of head positions), by
+//           a block max-scan of the heads' positions from the head of the
+//           run that enters the tile, which one warp finds in the 32 keys
+//           before the tile, or by a 32-way search of the keys before
+//           them where the run is longer (the run before it too where the
+//           tile starts in the INT32_MAX tail).
 //   gather  at the owner, one thread a received request: row j holds
 //           t[idx_j // n] (clipped to the shard) of one or two
 //           cyclically partitioned int32 tables.
@@ -23,43 +31,129 @@
 //           (= pos[i], or i) is back[offsets[dest[p]] + rank[p]] where it
 //           was sent, else 0; 0 where valid[i] is false.
 //
-// Bound: bytes: each array read once and each output written once
-// (the heads' binary searches stay in the cache lines of their run).
+// Bound: bytes: each array read once and each output written once. The
+// heads' scatter to input order is a 4-byte store a request in a random
+// 32-byte sector, and the sectors set its floor: with the input positions
+// in order the same launch takes about half the time
+// (scripts/probe_prune_heads_ab.py).
 
-#include "common.cuh"
+#include "scan.cuh"
 
 namespace {
 
 constexpr int32_t kI32Max = 0x7fffffff;
 
-__device__ __forceinline__ int64_t lower_bound32(const int32_t* a, int64_t n,
-                                                 int32_t v) {
-  int64_t lo = 0, hi = n;
+constexpr int kHeadTile = kThreads * 4;    // requests a tile, four a thread
+
+// The first index of the sorted a[lo, hi) whose value is not below v (hi
+// where there is none), by one whole warp: each round trip the lanes
+// probe 32 evenly spaced keys of the range and keep the stretch between
+// the last probe below v and the next.
+__device__ int64_t warp_lower_bound(const int32_t* __restrict__ a,
+                                    int64_t lo, int64_t hi, int32_t v,
+                                    int lane) {
   while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
+    const int64_t step = (hi - lo + 31) / 32;
+    const int64_t p = lo + lane * step;
+    const unsigned below = __ballot_sync(kFullMask, p < hi && a[p] < v);
+    const int c = __popc(below);         // the probes below v lead
+    if (c == 0) return lo;
+    const int64_t next_lo = lo + (c - 1) * step + 1;
+    if (step == 1) return next_lo;
+    hi = min64(hi, lo + c * step);
+    lo = next_lo;
   }
   return lo;
 }
 
-__global__ void dedup_heads_kernel(const int32_t* __restrict__ s_key,
-                                   const int64_t* __restrict__ s_ord,
-                                   int64_t Q, int32_t* __restrict__ uniq,
-                                   int32_t* __restrict__ pos_of_orig) {
-  SAGE2_GRID_STRIDE(j, Q) {
-    const int32_t key = s_key[j];
-    const bool head = key != kI32Max && (j == 0 || s_key[j - 1] != key);
-    uniq[j] = head ? key : kI32Max;
-    int64_t head_pos;
-    if (key != kI32Max) {
-      head_pos = lower_bound32(s_key, j + 1, key);
-    } else {      // the cummax over heads: the last valid run's head
-      const int64_t first_max = lower_bound32(s_key, j + 1, kI32Max);
-      head_pos = first_max == 0
-                     ? 0 : lower_bound32(s_key, first_max,
-                                         s_key[first_max - 1]);
+// The first index of the run of a[end - 1] in the sorted a[0, end), end
+// > 0 (one warp): the 32 keys before end in one round trip, where the run
+// is shorter, else the 32-way search of the keys before them.
+__device__ int64_t run_start(const int32_t* __restrict__ a, int64_t end,
+                             int lane) {
+  const int32_t v = a[end - 1];
+  const int64_t p = end - 1 - lane;
+  const unsigned other = __ballot_sync(kFullMask, p < 0 || a[p] != v);
+  if (other) return end - (__ffs(other) - 1);
+  return warp_lower_bound(a, 0, end - 32, v, lane);
+}
+
+// The position of the last run head before j0 > 0, or 0 (one warp): the
+// first key of the run that ends at j0 - 1, or, where that run is the
+// INT32_MAX tail, of the run before it (a head, or position 0).
+__device__ int64_t head_before(const int32_t* __restrict__ s_key, int64_t j0,
+                               int lane) {
+  const int64_t start = run_start(s_key, j0, lane);
+  if (s_key[j0 - 1] != kI32Max) return start;
+  return start == 0 ? 0 : run_start(s_key, start, lane);
+}
+
+// vec: s_key, s_ord, uniq 16-byte aligned.
+__global__ void __launch_bounds__(kThreads)
+    dedup_heads_kernel(const int32_t* __restrict__ s_key,
+                       const int64_t* __restrict__ s_ord, int64_t Q,
+                       bool vec, int32_t* __restrict__ uniq,
+                       int32_t* __restrict__ pos_of_orig) {
+  __shared__ int32_t s_last[kThreads + 1];   // [t + 1]: thread t's last key
+  __shared__ int64_t s_carry;
+  const int64_t j0 = blockIdx.x * static_cast<int64_t>(kHeadTile);
+  const int64_t j = j0 + 4 * threadIdx.x;    // this thread's four requests
+  int32_t key[4];
+  int64_t ord[4];
+  if (vec && j + 4 <= Q) {
+    const int4 k4 = __ldcs(reinterpret_cast<const int4*>(s_key + j));
+    const longlong2* o2 = reinterpret_cast<const longlong2*>(s_ord + j);
+    const longlong2 o0 = __ldcs(o2), o1 = __ldcs(o2 + 1);
+    key[0] = k4.x; key[1] = k4.y; key[2] = k4.z; key[3] = k4.w;
+    ord[0] = o0.x; ord[1] = o0.y; ord[2] = o1.x; ord[3] = o1.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool in = j + q < Q;
+      key[q] = in ? __ldcs(s_key + j + q) : kI32Max;
+      ord[q] = in ? __ldcs(reinterpret_cast<const long long*>(s_ord) + j + q)
+                  : 0;
     }
-    pos_of_orig[s_ord[j]] = static_cast<int32_t>(head_pos);
+  }
+  s_last[threadIdx.x + 1] = key[3];
+  if (threadIdx.x == 0) s_last[0] = j0 > 0 ? s_key[j0 - 1] : -1;
+  if (threadIdx.x < 32) {
+    const int64_t carry =
+        j0 > 0 ? head_before(s_key, j0, threadIdx.x) : 0;
+    if (threadIdx.x == 0) s_carry = carry;
+  }
+  __syncthreads();
+  // a head's position, -1 elsewhere, max-scanned from the entering run's
+  // head; uniq the heads' keys
+  int32_t prev = s_last[threadIdx.x];
+  int32_t u[4];
+  int64_t at[4];
+  int64_t mine = -1;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const bool head = key[q] != kI32Max && key[q] != prev;
+    prev = key[q];
+    u[q] = head ? key[q] : kI32Max;
+    if (head) mine = j + q;
+    at[q] = mine;
+  }
+  int64_t all;
+  int64_t run = block_exclusive_scan<int64_t>(mine, int64_t{-1}, ScanMax(),
+                                              &all);
+  run = run < s_carry ? s_carry : run;
+  if (vec && j + 4 <= Q) {
+    *reinterpret_cast<int4*>(uniq + j) = make_int4(u[0], u[1], u[2], u[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (j + q < Q) uniq[j + q] = u[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (j + q < Q) {
+      pos_of_orig[ord[q]] = static_cast<int32_t>(at[q] > run ? at[q] : run);
+    }
   }
 }
 
@@ -97,15 +191,26 @@ __global__ void route_back_kernel(const int32_t* __restrict__ back, int K,
 
 }  // namespace
 
+// *tile (a host int64): the requests a tile of sage2_dedup_heads.
+SAGE2_EXPORT int sage2_heads_tile(void* tile) {
+  *static_cast<int64_t*>(tile) = kHeadTile;
+  return 0;
+}
+
 // s_key: (Q,) int32 sorted requests; s_ord: (Q,) int64 their input
-// positions; uniq, pos_of_orig: (Q,) int32 outputs.
+// positions; uniq, pos_of_orig: (Q,) int32 outputs; Q < 2^31.
 SAGE2_EXPORT int sage2_dedup_heads(const void* s_key, const void* s_ord,
                                    int64_t Q, void* uniq, void* pos_of_orig,
                                    void* stream) {
-  dedup_heads_kernel<<<sage2_blocks(Q), kThreads, 0,
+  const bool vec = (reinterpret_cast<uintptr_t>(s_key) |
+                    reinterpret_cast<uintptr_t>(s_ord) |
+                    reinterpret_cast<uintptr_t>(uniq)) % 16 == 0;
+  const int64_t tiles = (Q + kHeadTile - 1) / kHeadTile;
+  dedup_heads_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(s_key), static_cast<const int64_t*>(s_ord),
-      Q, static_cast<int32_t*>(uniq), static_cast<int32_t*>(pos_of_orig));
+      Q, vec, static_cast<int32_t*>(uniq),
+      static_cast<int32_t*>(pos_of_orig));
   return static_cast<int>(cudaGetLastError());
 }
 

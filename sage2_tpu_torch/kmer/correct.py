@@ -44,7 +44,10 @@ from sage2_tpu_torch.kmer.count import KmerTable, count_kmers
 
 def prune_table_for_correction(table: KmerTable, threshold: int) -> KmerTable:
     """Drop sub-threshold entries (they can change no verdict); the
-    kept entries stay sorted (kernel K15)."""
+    kept entries stay sorted (kernel K15). On the card the result's keys
+    and counts are views of one buffer of ``table``'s size
+    (kernels.prune_table): a caller done with ``table`` drops it before
+    the round, as ``correct_reads`` and stream.correct_reads_chunked do."""
     keys, count = kernels.prune_table(table.keys, table.count, threshold)
     return KmerTable(keys, count, keys.shape[0], table.k)
 
@@ -100,12 +103,8 @@ def correct_reads_twophase(
     """Correct (N, L) int32 reads; ``table``: the first round's count
     table (later rounds recount); ``lengths``: (N,) per-read lengths of
     ragged reads."""
-    for r in range(rounds):
-        t = table if (r == 0 and table is not None) else count_kmers(
-            reads, k, lengths)
-        reads = twophase_round(reads, prune_table_for_correction(t, threshold),
-                               k, threshold, lengths)
-    return reads
+    return _rounds(twophase_round, reads, k, threshold, rounds, table,
+                   lengths)
 
 
 def voting_round(reads: torch.Tensor, table: KmerTable, k: int,
@@ -118,7 +117,15 @@ def voting_round(reads: torch.Tensor, table: KmerTable, k: int,
     vote. Kernel K5 (its bucket directory, then the vote) against the
     table pruned to its solid entries (which changes no verdict).
     ``lengths``: (N,) per-read lengths of ragged reads, or None."""
-    pruned = prune_table_for_correction(table, threshold)
+    return voting_round_pruned(reads, prune_table_for_correction(
+        table, threshold), k, threshold, lengths)
+
+
+def voting_round_pruned(reads: torch.Tensor, pruned: KmerTable, k: int,
+                        threshold: int,
+                        lengths: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``voting_round`` against an already-pruned table."""
     if lengths is not None:
         lengths = lengths.to(torch.int32).contiguous()
     return kernels.vote_windows(reads, pruned.keys, pruned.count, k,
@@ -141,11 +148,18 @@ def correct_reads(
     ``lengths``: (N,) per-read lengths of ragged (0-padded) reads."""
     if rule not in ("single_window", "vote_all_windows"):
         raise ValueError(f"unknown correction rule {rule!r}")
-    if rule == "single_window":
-        return correct_reads_twophase(reads, k, threshold, rounds, table,
-                                      lengths)
-    for r in range(rounds):
-        t = table if (r == 0 and table is not None) else count_kmers(
-            reads, k, lengths)
-        reads = voting_round(reads, t, k, threshold, lengths)
+    return _rounds(twophase_round if rule == "single_window"
+                   else voting_round_pruned, reads, k, threshold, rounds,
+                   table, lengths)
+
+
+def _rounds(round_fn, reads, k, threshold, rounds, table, lengths):
+    for _ in range(rounds):
+        if table is None:
+            table = count_kmers(reads, k, lengths)
+        # the pruned entries are views of a buffer of the table's size
+        # (kernels.prune_table): neither table outlives its round
+        pruned, table = prune_table_for_correction(table, threshold), None
+        reads = round_fn(reads, pruned, k, threshold, lengths)
+        del pruned
     return reads

@@ -44,9 +44,9 @@ import torch
 
 from sage2_tpu_torch import kernels
 from sage2_tpu_torch.kmer.correct import (
-    correct_reads,
     prune_table_for_correction,
     twophase_round,
+    voting_round_pruned,
 )
 from sage2_tpu_torch.kmer.count import (
     KmerTable,
@@ -147,12 +147,12 @@ def correct_reads_chunked(
     corrects each chunk against that round's global table: a read's
     verdicts depend only on the table and the read itself.
 
-    ``rule="single_window"`` runs the two-phase round (K16 + K17)
-    against the table pruned once per round (K15); ``"vote_all_windows"``
-    one voting round a chunk (K5). ``out``: an optional (N, L) int8
-    destination (a spill memmap) written chunk by chunk, so host RAM
-    stays O(chunk); returned in place of a new array. ``lengths``: (N,)
-    per-read lengths of ragged reads.
+    ``rule="single_window"`` runs the two-phase round (K16 + K17) a
+    chunk, ``"vote_all_windows"`` one voting round a chunk (K5), both
+    against the table pruned once per round (K15). ``out``: an optional
+    (N, L) int8 destination (a spill memmap) written chunk by chunk, so
+    host RAM stays O(chunk); returned in place of a new array.
+    ``lengths``: (N,) per-read lengths of ragged reads.
     """
     if rule not in ("single_window", "vote_all_windows"):
         raise ValueError(f"unknown correction rule {rule!r}")
@@ -166,21 +166,19 @@ def correct_reads_chunked(
                              f"{out.shape} {out.dtype}")
         for i in range(0, N, chunk_reads):
             out[i : i + chunk_reads] = reads[i : i + chunk_reads]
+    round_fn = (twophase_round if rule == "single_window"
+                else voting_round_pruned)
     for _ in range(rounds):
-        table = count_kmers_chunked(out, k, chunk_reads, dev, lengths)
-        pruned = (prune_table_for_correction(table, threshold)
-                  if rule == "single_window" else None)
+        # one pruned table a round, in the count table's place
+        pruned = prune_table_for_correction(
+            count_kmers_chunked(out, k, chunk_reads, dev, lengths), threshold)
         for i in range(0, N, chunk_reads):
             watchdog.touch(f"correct chunk {i}/{N}")
             chunk = _rows(out[i : i + chunk_reads], dev)
             lens = _lengths(lengths, i, i + chunk_reads, dev)
-            if pruned is not None:
-                corrected = twophase_round(chunk, pruned, k, threshold, lens)
-            else:
-                corrected = correct_reads(chunk, k, threshold, rounds=1,
-                                          table=table, lengths=lens,
-                                          rule=rule)
+            corrected = round_fn(chunk, pruned, k, threshold, lens)
             out[i : i + chunk_reads] = corrected.to(torch.int8).cpu().numpy()
+        del pruned          # before the next round's count
     return out
 
 

@@ -69,6 +69,35 @@ def test_prune_table_matches_reference(threshold):
     assert pruned.n_unique == n and torch.equal(pruned.keys, got_keys)
 
 
+@pytest.mark.parametrize("edge", ["keep_all", "keep_none", "one_entry"])
+def test_prune_table_edges_match_reference(edge):
+    """K15 at the edges of its compaction: a threshold that keeps every
+    entry, one that keeps none, and a table of one entry (kept and not)."""
+    rng = np.random.default_rng(23)
+    keys = np.unique(rng.integers(0, 1 << 50, size=300)).astype(np.int64)
+    counts = rng.integers(1, 9, size=keys.size).astype(np.int32)
+    if edge == "one_entry":
+        keys, counts = keys[:1], np.array([4], np.int32)
+    thresholds = {"keep_all": [int(counts.min()), 0],
+                  "keep_none": [int(counts.max()) + 1, 1 << 30],
+                  "one_entry": [4, 5]}[edge]
+    jt = _jtable(keys, counts, 25)
+    for threshold in thresholds:
+        s_hi, s_lo, s_cnt, n = jcorrect._prune_impl(jt.hi, jt.lo, jt.count,
+                                                    threshold)
+        n = int(n)
+        want = ((np.asarray(s_hi)[:n].astype(np.int64) << 32)
+                | np.asarray(s_lo)[:n].astype(np.int64))
+        got_keys, got_counts = kernels.prune_table(_t(keys), _t(counts),
+                                                   threshold)
+        np.testing.assert_array_equal(got_keys.numpy(), want)
+        np.testing.assert_array_equal(got_counts.numpy(),
+                                      np.asarray(s_cnt)[:n])
+        kept = {"keep_all": keys.size, "keep_none": 0,
+                "one_entry": int(threshold <= 4)}[edge]
+        assert n == kept
+
+
 @pytest.mark.parametrize("k", [15, 25])
 @pytest.mark.parametrize("case", CASES)
 def test_phases_match_reference(case, k):

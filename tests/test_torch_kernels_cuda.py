@@ -45,9 +45,12 @@ from torch_kernel_cases import (
     CANON_LENGTHS,
     CHAIN_CASES,
     COUNTS_CASES,
+    HEADS_CASES,
     I32_MAX,
     DEDUP_CASES,
     MARKS_READ_LEN,
+    PRUNE_KEEPS,
+    PRUNE_SIZES,
     REDUCE_CASES,
     SIGNED_CASES,
     UNSIGNED_CASES,
@@ -62,6 +65,9 @@ from torch_kernel_cases import (
     marks_graph,
     oracle_lookup,
     dedup_case,
+    heads_case,
+    prune_case,
+    prune_size,
     reduce_case,
     seed_case,
     slot_splits,
@@ -899,11 +905,35 @@ def test_prune_table_kernel(cuda, ragged, threshold):
     t = count_kmers(r.to(cuda), 25, None if lens is None else lens.to(cuda))
     before = kernels.LAUNCHES["prune_table"]
     got = kernels.prune_table(t.keys, t.count, threshold)
-    assert kernels.LAUNCHES["prune_table"] == before + 3   # count, scan, write
+    assert kernels.LAUNCHES["prune_table"] == before + 1   # one launch
     _equal(got, plain.prune_table(t.keys, t.count, threshold))
     assert got[0].numel() == int((t.count >= threshold).sum())
     empty = t.keys[:0], t.count[:0]
     _equal(kernels.prune_table(*empty, threshold), empty)
+
+
+@pytest.mark.parametrize("keep", PRUNE_KEEPS)
+@pytest.mark.parametrize("size", PRUNE_SIZES + ("many",))
+def test_prune_table_kernel_tiles(cuda, size, keep):
+    """K15 around its tiles (their size read from the kernel's library):
+    one entry, a tile less one, a tile, a tile and one, many tiles (the
+    look-back's chain); every entry kept, none, a few in the last tile
+    alone; and the same table as views one entry in, whose loads are not
+    16-byte aligned (the scalar path)."""
+    tile = kernels.prune_tile()
+    T = prune_size(size, tile)
+    keys, counts = (torch.from_numpy(a)
+                    for a in prune_case(T, keep, tile, T))
+    for off in (0, 1):
+        if T - off < 1:
+            continue
+        k, c = keys[off:], counts[off:]
+        before = kernels.LAUNCHES["prune_table"]
+        got = kernels.prune_table(keys.to(cuda)[off:], counts.to(cuda)[off:],
+                                  2)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["prune_table"] == before + 1
+        _equal(got, plain.prune_table(k, c, 2))
 
 
 def _phase_inputs(cuda, case, k):
@@ -1722,6 +1752,40 @@ def test_routed_gather_kernels(cuda):
         got = kernels.gather_rows(idx.to(cuda), 8,
                                   *(t.to(cuda) for t in tables))
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", HEADS_CASES + ("huge",))
+def test_dedup_heads_kernel_cases(cuda, case):
+    """K20's heads around its tiles of sorted requests (their size read
+    from the kernel's library; one request, a tile less or more one, one
+    run over every tile, a valid run across tiles into the INT32_MAX
+    tail, a tail from the middle of a tile and from a tile's start, every
+    request invalid, many tiles), a pointer-doubling-like shard of 1.2 M
+    requests on few targets, and views one request in (the scalar path);
+    one launch a call."""
+    if case == "huge":
+        rng = np.random.default_rng(8)
+        k = rng.integers(0, 40, size=1_200_000)
+        k[rng.random(k.size) < 0.02] = rng.integers(0, 1 << 30)
+        k[rng.random(k.size) < 0.1] = 2**31 - 1
+        s_key = np.sort(k).astype(np.int32)
+        s_ord = rng.permutation(k.size).astype(np.int64)
+    else:
+        s_key, s_ord = heads_case(case, kernels.heads_tile())
+    s_key, s_ord = torch.from_numpy(s_key), torch.from_numpy(s_ord)
+    for off in (0, 1):
+        if s_key.numel() - off < 1:
+            continue
+        key = s_key[off:]
+        # the view's input positions, 0 .. Q - 1, one int64 into a buffer
+        order = torch.argsort(torch.argsort(s_ord[off:])) if off else s_ord
+        before = kernels.LAUNCHES["routed_gather"]
+        got = kernels.dedup_heads(
+            s_key.to(cuda)[off:],
+            torch.cat([order[:off], order]).to(cuda)[off:])
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["routed_gather"] == before + 1
+        _equal(got, plain.dedup_heads(key, order))
 
 
 @pytest.mark.parametrize("cand_cap", [10, 1000, 1 << 20])

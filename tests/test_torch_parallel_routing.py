@@ -242,6 +242,93 @@ def test_dedup_heads_cases():
         np.testing.assert_array_equal(pos.numpy(), want)
 
 
+def _ref_dedup_gather(n, c1, c2, idx, valid, cap):
+    def body(a, b, i, v):
+        out, ovf = ref._dedup_routed_gather("data", n, (a, b), i, v, cap)
+        return out, ovf[None]
+
+    out, ovf = map(np.asarray, _program(n, body, 4, 2)(
+        jnp.asarray(c1), jnp.asarray(c2), jnp.asarray(idx),
+        jnp.asarray(valid)))
+    return out, bool(ovf.any())
+
+
+@pytest.mark.parametrize("requests", ["doubling", "shard_invalid"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_dedup_routed_gather_skew_matches_reference(n, requests):
+    """_dedup_routed_gather where pointer doubling leads it: most requests
+    of a shard ask one chain head (long runs of equal sorted keys), and
+    where one shard's requests are all invalid (its sorted keys all
+    INT32_MAX)."""
+    rng = np.random.default_rng(10 * n + len(requests))
+    v_d = 16
+    V = n * v_d
+    t1 = rng.integers(-5, 1000, size=V).astype(np.int32)
+    t2 = rng.integers(0, 1 << 20, size=V).astype(np.int32)
+    idx = rng.integers(0, V, size=n * Q).astype(np.int32)
+    valid = np.ones(n * Q, bool)
+    if requests == "doubling":      # the late steps: a few chain heads
+        idx[rng.random(n * Q) < 0.9] = 5
+        idx[rng.random(n * Q) < 0.05] = V - 1
+        valid[rng.random(n * Q) < 0.1] = False
+    else:                           # shard 1 asks nothing
+        valid[Q:2 * Q] = False
+    c1 = t1.reshape(v_d, n).T.reshape(-1)
+    c2 = t2.reshape(v_d, n).T.reshape(-1)
+    out, ovf = _ref_dedup_gather(n, c1, c2, idx, valid, 64)
+    mesh = make_mesh(n, devices="cpu")
+    tables = list(zip(_per_shard(c1, n), _per_shard(c2, n)))
+    got, overflow = sharded._dedup_routed_gather(
+        mesh, tables, _per_shard(idx, n), _per_shard(valid, n), 64)
+    assert not overflow and not ovf
+    np.testing.assert_array_equal(torch.cat(got).numpy(), out)
+    want = np.where(valid[:, None], np.stack([t1[idx], t2[idx]], 1), 0)
+    np.testing.assert_array_equal(out, want)
+
+
+def _heads_want(keys, order):
+    """uniq and pos_of_orig of the reference's dedup (sharded.py:592-601)
+    over the requests ``keys`` in sorted order and their input positions
+    ``order``."""
+    s_key, s_ord = ref.sort_by_keys([jnp.asarray(keys, jnp.int32)],
+                                    [jnp.asarray(order, jnp.int32)])
+    s_key = np.asarray(s_key)
+    prev = np.concatenate([[-1], s_key[:-1]])
+    is_head = (s_key != prev) & (s_key != I32_MAX)
+    head_pos = np.maximum.accumulate(
+        np.where(is_head, np.arange(len(keys)), 0))
+    want = np.zeros(len(keys), np.int32)
+    want[np.asarray(s_ord)] = head_pos
+    return np.where(is_head, s_key, I32_MAX), want
+
+
+@pytest.mark.parametrize("case", ["long_run", "tail_at_random",
+                                  "runs_into_tail", "all_invalid_long"])
+def test_dedup_heads_runs_and_tails(case):
+    """K20's heads (its plain version here) where the kernel's tiles of
+    1,024 sorted requests matter: a run of thousands of equal keys, an
+    INT32_MAX tail that begins at an arbitrary position, a valid run that
+    ends where the tail begins, thousands of invalid requests alone."""
+    rng = np.random.default_rng(len(case))
+    if case == "long_run":
+        keys = np.concatenate([[0, 1], np.full(5000, 7), [8, 9, 9]])
+    elif case == "tail_at_random":
+        keys = np.sort(rng.integers(0, 300, size=4099))
+        keys[int(rng.integers(1, 4099)):] = I32_MAX
+    elif case == "runs_into_tail":
+        keys = np.concatenate([np.arange(1500), np.full(3000, 1500),
+                               np.full(2500, I32_MAX)])
+    else:
+        keys = np.full(4097, I32_MAX)
+    keys = keys.astype(np.int32)
+    order = rng.permutation(len(keys))
+    uniq, pos = plain.dedup_heads(torch.from_numpy(keys),
+                                  torch.from_numpy(order))
+    want_uniq, want_pos = _heads_want(keys, order)
+    np.testing.assert_array_equal(uniq.numpy(), want_uniq)
+    np.testing.assert_array_equal(pos.numpy(), want_pos)
+
+
 def test_make_mesh_maps_shards_to_devices():
     mesh = make_mesh(8, devices="cpu")
     assert mesh.size == 8 and mesh.axis_names == ("data",)

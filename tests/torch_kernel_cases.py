@@ -1,7 +1,7 @@
 """Inputs shared by the CPU and the CUDA tests of kernels K2
 (``kernels.lookup_counts``, with the geometry of its bucket directory,
-kernels/csrc/bucket_search.cuh), K5, K6, K7 and K12-K14, made with
-numpy from a seed.
+kernels/csrc/bucket_search.cuh), K5, K6, K7, K12-K15 and K20's heads,
+made with numpy from a seed.
 
 Imports neither JAX nor sage2_tpu, so the CUDA tests can use it on a
 machine without JAX."""
@@ -682,3 +682,79 @@ def crowded_bucket_table(k: int, bucket: int, n_crowd: int, seed: int = 0):
     where = np.searchsorted(keys, np.array(crowd, np.int64))
     counts[where[1::2]] = 1
     return keys, counts, np.array(crowd, np.int64)
+
+
+# K15's tables around its tiles (``kernels.prune_tile()`` entries on the
+# card): T from one entry to many tiles; every entry kept, none, a few in
+# the last tile alone, or mixed
+PRUNE_SIZES = ("one", "tile_minus_one", "tile", "tile_plus_one",
+               "three_tiles")
+PRUNE_KEEPS = ("mixed", "all", "none", "last_tile")
+
+
+def prune_size(size: str, tile: int) -> int:
+    """The entries of the PRUNE_SIZES case ``size`` (or "many": 300
+    tiles and 3) at tiles of ``tile`` entries."""
+    return {"one": 1, "tile_minus_one": tile - 1, "tile": tile,
+            "tile_plus_one": tile + 1, "three_tiles": 3 * tile + 517,
+            "many": 300 * tile + 3}[size]
+
+
+def prune_case(T: int, keep: str, tile: int, seed: int = 0):
+    """(keys, counts): a sorted table of T int64 keys with int32 counts
+    of which those >= 2 are kept as ``keep`` says (tiles of ``tile``
+    entries)."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.choice(1 << 40, size=T, replace=False)).astype(
+        np.int64)
+    counts = rng.integers(1, 4, size=T).astype(np.int32)
+    if keep == "all":
+        counts[:] = 5
+    elif keep == "none":
+        counts[:] = 1
+    elif keep == "last_tile":
+        counts[:] = 1
+        last = (T - 1) // tile * tile
+        counts[last + rng.integers(0, T - last, size=3)] = 5
+    return keys, counts
+
+
+# K20's heads: sorted requests around its tiles (``kernels.heads_tile()``
+# on the card), INT32_MAX the invalid ones
+I32_MAX_REQ = 2**31 - 1
+HEADS_CASES = ("one", "tile_minus_one", "tile_plus_one", "one_run",
+               "run_into_tail", "tail_mid_tile", "tail_on_boundary",
+               "all_invalid", "minus_one_first", "many_tiles")
+
+
+def heads_case(case: str, tile: int, seed: int = 0):
+    """(s_key int32, s_ord int64): sorted requests and a permutation of
+    their input positions, at tiles of ``tile`` requests."""
+    rng = np.random.default_rng(seed + len(case))
+    H = tile
+    if case == "one":
+        k = np.array([3])
+    elif case == "tile_minus_one":
+        k = np.sort(rng.integers(0, 900, size=H - 1))
+    elif case == "tile_plus_one":
+        k = np.sort(rng.integers(0, 900, size=H + 1))
+    elif case == "one_run":             # one run over every tile
+        k = np.full(3 * H + 5, 11)
+    elif case == "run_into_tail":       # a valid run across tiles to the tail
+        k = np.concatenate([np.arange(700), np.full(2 * H, 700),
+                            np.full(H + 33, I32_MAX_REQ)])
+    elif case == "tail_mid_tile":
+        k = np.sort(rng.integers(0, 5000, size=4 * H))
+        k[H + 999 * H // 1024:] = I32_MAX_REQ
+    elif case == "tail_on_boundary":
+        k = np.sort(rng.integers(0, 50, size=3 * H))
+        k[2 * H:] = I32_MAX_REQ
+    elif case == "all_invalid":
+        k = np.full(2 * H + 1, I32_MAX_REQ)
+    elif case == "minus_one_first":     # -1 before the first key: no head
+        k = np.concatenate([np.full(H + 3, -1), [4, 4, 9]])
+    elif case == "many_tiles":
+        k = np.sort(rng.integers(0, 200, size=5 * H + 77))
+    else:
+        raise ValueError(case)
+    return k.astype(np.int32), rng.permutation(k.size).astype(np.int64)
